@@ -1,0 +1,171 @@
+"""Vectorized `.nice` tokenizer in PyTorch.
+
+Counterpart of `nicetpu/kernels/tokenize.py` (`cascade`, `assemble_bins`).
+All predictors are statically shifted reads of the raster, the mode is a
+priority select over per-mode validity masks, and every token slot becomes
+a flat histogram bin.  The functions take any number of leading batch
+dimensions: (..., pixels, 3) in, (..., pixels) or (..., pixels, slots) out.
+The reference has no Pallas kernel here; this is plain elementwise tensor
+code (a few hundred launches per call).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from nicetpu.format import constants as C
+
+
+def cascade(x_ext: torch.Tensor, g0, n_local: int, *, width: int, halo: int) -> dict:
+    """Mode cascade for n_local pixels given a halo-extended flat raster.
+
+    x_ext: (..., halo + n_local, 3) int32; halo pixels precede the local
+    range.  g0: global pixel index of local pixel 0 (int or 0-d tensor).
+    Returns per-pixel tensors: mode, per-mode symbols, residuals, change mask.
+    """
+    W = width
+    r_, g_, b_ = x_ext[..., 0], x_ext[..., 1], x_ext[..., 2]
+    pos = torch.arange(n_local, dtype=torch.int32, device=x_ext.device) + g0
+
+    def sh(x, off):
+        """ref[i] = x_ext[halo + i - off] for local pixel i (zeros if OOB)."""
+        start = halo - off
+        if start >= 0:
+            return x[..., start : start + n_local]
+        return F.pad(x, (-start, 0))[..., :n_local]
+
+    r, g, b = sh(r_, 0), sh(g_, 0), sh(b_, 0)
+    row0 = pos < W
+
+    pr, pg, pb = sh(r_, 1), sh(g_, 1), sh(b_, 1)
+    ur, ug, ub = sh(r_, W), sh(g_, W), sh(b_, W)
+    zeros_b = torch.zeros_like(r, dtype=torch.bool)
+    zeros_i = torch.zeros_like(r)
+
+    # --- BACK_REF: first exact match over 5 offsets (priority select)
+    br_hit, br_idx = zeros_b, zeros_i
+    for i, off in enumerate(C.back_ref_offsets(W)):
+        eq = (pos >= off) & (r == sh(r_, off)) & (g == sh(g_, off)) & (b == sh(b_, off))
+        br_idx = torch.where(eq & ~br_hit, i, br_idx)
+        br_hit = br_hit | eq
+
+    # --- SMALL_DIFF (ref code.rs:210-247)
+    avg_r, avg_g, avg_b = (ur + pr) // 2, (ug + pg) // 2, (ub + pb) // 2
+    sd_r = r - torch.where(row0, pr, avg_r)
+    sd_g = g - torch.where(row0, pg, avg_g)
+    sd_b = b - torch.where(row0, pb, avg_b)
+    sd_hit = (pos > 0) & (sd_r.abs() <= 3) & (sd_g.abs() <= 3) & (sd_b.abs() <= 3)
+    sd_code = (3 + sd_r) + 7 * (3 + sd_g) + 49 * (3 + sd_b)
+
+    def luma_diffs(rr, rg, rb):
+        dg = (g - rg) & 255
+        dr = (r - rr - dg) & 255
+        db = (b - rb - dg) & 255
+        ok = ((dg >= 224) | (dg < 32)) & ((dr >= 240) | (dr < 16)) & ((db >= 240) | (db < 16))
+        return dg, dr, db, ok
+
+    # --- COLOR_LUMA2 (ref code.rs:252-292)
+    l2_g, l2_r, l2_b, l2_ok = luma_diffs(avg_r, avg_g, avg_b)
+    l2_hit = ~row0 & l2_ok
+
+    # --- COLOR_LUMA: 11 refs, first in-range wins (ref code.rs:295-339)
+    lu_hit = zeros_b
+    lu_idx = lu_g = lu_r = lu_b = zeros_i
+    for i, off in enumerate(C.luma_ref_offsets(W)):
+        dg, dr, db, ok = luma_diffs(sh(r_, off), sh(g_, off), sh(b_, off))
+        ok = ok & (pos >= off)
+        new = ok & ~lu_hit
+        lu_idx = torch.where(new, i, lu_idx)
+        lu_g = torch.where(new, dg, lu_g)
+        lu_r = torch.where(new, dr, lu_r)
+        lu_b = torch.where(new, db, lu_b)
+        lu_hit = lu_hit | ok
+
+    # --- RGB residuals (ref code.rs:341-366); pixel-0 predictor = 0
+    first = pos > 0
+    res_r = torch.where(row0, (r - torch.where(first, pr, 0)) & 255, (r - avg_r) & 255)
+    res_g = torch.where(row0, (g - torch.where(first, pg, 0)) & 255, (g - avg_g) & 255)
+    res_b = torch.where(row0, (b - torch.where(first, pb, 0)) & 255, (b - avg_b) & 255)
+
+    mode = torch.full_like(r, C.PREFIX_RGB)
+    mode = torch.where(lu_hit, C.PREFIX_COLOR_LUMA, mode)
+    mode = torch.where(l2_hit, C.PREFIX_COLOR_LUMA2, mode)
+    mode = torch.where(sd_hit, C.PREFIX_SMALL_DIFF, mode)
+    mode = torch.where(br_hit, C.PREFIX_BACK_REF, mode)
+
+    changed = (r != pr) | (g != pg) | (b != pb) | (pos == 0)
+
+    return {
+        "pos": pos,
+        "mode": mode,
+        "br_idx": br_idx,
+        "sd_code": sd_code,
+        "l2": (l2_g, l2_r, l2_b),
+        "lu": (lu_idx, lu_g, lu_r, lu_b),
+        "res": (res_r, res_g, res_b),
+        "changed": changed,
+    }
+
+
+def assemble_bins(cas: dict, run_len: torch.Tensor, *, ndigits_cap: int, invalid_bin: int):
+    """Token slots directly as flat histogram bins (..., n, 5 + ndigits_cap).
+
+    Stream bases are folded into the per-slot selects; invalid slots get
+    `invalid_bin`; slot order is serial token order.  Returns (bins int32,
+    overflow bool of shape (...)) where overflow says some run needs more
+    than `ndigits_cap` base-8 digits.
+    """
+    mode = cas["mode"]
+    enc = cas["changed"]
+    br_idx = cas["br_idx"]
+    sd_code = cas["sd_code"]
+    l2_g, l2_r, l2_b = cas["l2"]
+    lu_idx, lu_g, lu_r, lu_b = cas["lu"]
+    res_r, res_g, res_b = cas["res"]
+
+    is_br = mode == C.PREFIX_BACK_REF
+    is_sd = mode == C.PREFIX_SMALL_DIFF
+    is_l2 = mode == C.PREFIX_COLOR_LUMA2
+    is_lu = mode == C.PREFIX_COLOR_LUMA
+
+    has_run = enc & (run_len > 0)
+    v = torch.clamp(run_len - 1, min=0)
+    ndigits = torch.ones_like(v)
+    for j in range(1, C.MAX_RUN_DIGITS):
+        ndigits = ndigits + (v >= (1 << (3 * j))).to(v.dtype)
+
+    B = C.STREAM_BASE
+
+    def gate(cond, val):
+        return torch.where(cond, val, invalid_bin)
+
+    slots = [gate(enc, B[C.SC_PREFIXES] + mode)]
+    s1 = torch.where(is_lu, B[C.SC_LUMA_BACK_REF] + lu_idx, B[C.SC_RGB] + res_r)
+    s1 = torch.where(is_l2, B[C.SC_LUMA_BASE_DIFF2] + ((l2_g + 32) & 255), s1)
+    s1 = torch.where(is_sd, B[C.SC_SMALL_DIFF] + sd_code, s1)
+    s1 = torch.where(is_br, B[C.SC_BACK_REF] + br_idx, s1)
+    slots.append(gate(enc, s1))
+    s2 = torch.where(is_lu, B[C.SC_LUMA_BASE_DIFF] + ((lu_g + 32) & 255), B[C.SC_RGB] + res_g)
+    s2 = torch.where(is_l2, B[C.SC_LUMA_OTHER_DIFF2] + ((l2_r + 16) & 255), s2)
+    three = enc & ~(is_br | is_sd)
+    slots.append(gate(three, s2))
+    s3 = torch.where(is_lu, B[C.SC_LUMA_OTHER_DIFF] + ((lu_r + 16) & 255), B[C.SC_RGB] + res_b)
+    s3 = torch.where(is_l2, B[C.SC_LUMA_OTHER_DIFFB2] + ((l2_b + 16) & 255), s3)
+    slots.append(gate(three, s3))
+    # slot 4 (COLOR_LUMA only)
+    slots.append(gate(enc & is_lu, B[C.SC_LUMA_OTHER_DIFF] + ((lu_b + 16) & 255)))
+    # run digit slots
+    for j in range(ndigits_cap):
+        slots.append(
+            gate(
+                has_run & (j < ndigits),
+                B[C.SC_PREFIXES] + ((v >> (3 * j)) & 7) + C.PREFIX_RUN_BASE,
+            )
+        )
+    bins = torch.stack(slots, dim=-1)
+    if ndigits_cap < C.MAX_RUN_DIGITS:
+        overflow = (has_run & (ndigits > ndigits_cap)).any(dim=-1)
+    else:
+        overflow = torch.zeros(mode.shape[:-1], dtype=torch.bool, device=mode.device)
+    return bins, overflow
