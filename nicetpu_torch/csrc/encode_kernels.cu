@@ -23,11 +23,13 @@ __device__ __forceinline__ bool aligned16(const void* p) {
 }
 
 // Contiguous token slice [lo, hi) of one image for this block; lo is a
-// multiple of 4 so that the int4 path starts aligned.
+// multiple of 4 so that the int4 path starts aligned.  Rounding the slice up
+// to a multiple of 4 can leave the last blocks with nothing: their slice is
+// the empty [M, M).
 __device__ __forceinline__ void block_slice(long long M, long long* lo, long long* hi) {
   long long per = (M + gridDim.x - 1) / gridDim.x;
   per = (per + 3) & ~3LL;
-  *lo = per * blockIdx.x;
+  *lo = min(M, per * blockIdx.x);
   *hi = min(M, *lo + per);
 }
 
@@ -132,18 +134,19 @@ __global__ void table_join_kernel(const int* __restrict__ bins, const int* __res
 // ---------------------------------------------------------------------------
 // fold_records: replaces pallas_ops.py fold_records_pallas (_fold_kernel).
 // One thread per group of 8 pixels: it walks the group's S (length, code)
-// slots and packs them MSB-first into a left-aligned CAPW-word record kept
+// slots and packs them MSB-first into a left-aligned kCapw-word record kept
 // in registers (the unrolled j loop keeps every index static), then writes
-// the record words and the bit length k.  Bits past 32*CAPW are dropped;
-// the caller flags k > 32*CAPW as overflow.  The arithmetic is that of the
+// the record words and the bit length k.  Bits past 32*kCapw are dropped;
+// the caller flags k > 32*kCapw as overflow.  The arithmetic is that of the
 // Pallas kernel step for step, including its clipped shift amounts and its
 // update window j < s + 2, so overflowing groups agree too.  Bound by
-// device-memory bandwidth: 8*S bytes read and 4*(CAPW+1) written per group;
+// device-memory bandwidth: 8*S bytes read and 4*(kCapw+1) written per group;
 // the slots load as int4.
 // ---------------------------------------------------------------------------
-template <int CAPW>
+constexpr int kCapw = 10;  // words per group record (320 bits)
+
 __device__ __forceinline__ void fold_slot(int s, int L, uint32_t cd, int& cum,
-                                          uint32_t (&rec)[CAPW]) {
+                                          uint32_t (&rec)[kCapw]) {
   const int sw = cum >> 5;
   const int sb = cum & 31;
   const bool fits = sb + L <= 32;
@@ -154,7 +157,7 @@ __device__ __forceinline__ void fold_slot(int s, int L, uint32_t cd, int& cum,
   const int sh_lo = min(max(32 - k, 0), 31);
   const uint32_t lo = fits ? 0u : ((cd & mask) << sh_lo);
 #pragma unroll
-  for (int j = 0; j < CAPW; ++j) {
+  for (int j = 0; j < kCapw; ++j) {
     if (j < s + 2) {
       uint32_t upd = (sw == j) ? hi : 0u;
       if (j > 0 && sw == j - 1) upd |= lo;
@@ -164,7 +167,6 @@ __device__ __forceinline__ void fold_slot(int s, int L, uint32_t cd, int& cum,
   cum += L;
 }
 
-template <int CAPW>
 __global__ void fold_records_kernel(const int* __restrict__ aob, const uint32_t* __restrict__ code,
                                     uint32_t* __restrict__ rec, int* __restrict__ kbits,
                                     int Mg, int S) {
@@ -172,9 +174,9 @@ __global__ void fold_records_kernel(const int* __restrict__ aob, const uint32_t*
   if (g >= Mg) return;
   const long long img = blockIdx.y;
   const long long off = (img * Mg + g) * S;
-  uint32_t r[CAPW];
+  uint32_t r[kCapw];
 #pragma unroll
-  for (int j = 0; j < CAPW; ++j) r[j] = 0u;
+  for (int j = 0; j < kCapw; ++j) r[j] = 0u;
   int cum = 0;
   if ((S & 3) == 0 && aligned16(aob + off) && aligned16(code + off)) {
     const int4* a4 = reinterpret_cast<const int4*>(aob + off);
@@ -182,18 +184,18 @@ __global__ void fold_records_kernel(const int* __restrict__ aob, const uint32_t*
     for (int v = 0; v < (S >> 2); ++v) {
       const int4 L = __ldg(a4 + v);
       const uint4 cd = __ldg(c4 + v);
-      fold_slot<CAPW>(4 * v + 0, L.x, cd.x, cum, r);
-      fold_slot<CAPW>(4 * v + 1, L.y, cd.y, cum, r);
-      fold_slot<CAPW>(4 * v + 2, L.z, cd.z, cum, r);
-      fold_slot<CAPW>(4 * v + 3, L.w, cd.w, cum, r);
+      fold_slot(4 * v + 0, L.x, cd.x, cum, r);
+      fold_slot(4 * v + 1, L.y, cd.y, cum, r);
+      fold_slot(4 * v + 2, L.z, cd.z, cum, r);
+      fold_slot(4 * v + 3, L.w, cd.w, cum, r);
     }
   } else {
     for (int s = 0; s < S; ++s) {
-      fold_slot<CAPW>(s, __ldg(aob + off + s), __ldg(code + off + s), cum, r);
+      fold_slot(s, __ldg(aob + off + s), __ldg(code + off + s), cum, r);
     }
   }
 #pragma unroll
-  for (int j = 0; j < CAPW; ++j) rec[(img * CAPW + j) * Mg + g] = r[j];
+  for (int j = 0; j < kCapw; ++j) rec[(img * kCapw + j) * Mg + g] = r[j];
   kbits[img * Mg + g] = cum;
 }
 
@@ -233,13 +235,12 @@ int nt_table_join(const void* bins, const void* lengths, const void* codes, void
 }
 
 int nt_fold_records(const void* aob, const void* code, void* rec, void* kbits, int B, int Mg,
-                    int S, int capw, int device, void* stream) {
-  if (capw != 10) return (int)cudaErrorInvalidValue;
+                    int S, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   constexpr int kFoldThreads = 128;
   dim3 grid((Mg + kFoldThreads - 1) / kFoldThreads, B);
-  fold_records_kernel<10><<<grid, kFoldThreads, 0, (cudaStream_t)stream>>>(
+  fold_records_kernel<<<grid, kFoldThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const int*>(aob), static_cast<const uint32_t*>(code),
       static_cast<uint32_t*>(rec), static_cast<int*>(kbits), Mg, S);
   return (int)cudaGetLastError();

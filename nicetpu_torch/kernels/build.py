@@ -73,6 +73,6 @@ def load() -> ctypes.CDLL:
         lib.nt_table_join.restype = i32
         lib.nt_table_join.argtypes = [vp, vp, vp, vp, vp, i32, i64, i32, vp]
         lib.nt_fold_records.restype = i32
-        lib.nt_fold_records.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
+        lib.nt_fold_records.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
         _lib = lib
         return lib

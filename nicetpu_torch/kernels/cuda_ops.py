@@ -23,7 +23,7 @@ from nicetpu.format import constants as C
 from nicetpu_torch.convert import MASK32, from_int32_bits, to_int32_bits
 
 NSYM = C.TOTAL_SYMBOLS  # 858
-FOLD_CAPW = 10  # the record width the fold kernel is built for
+FOLD_CAPW = 10  # words per group record (320 bits), as kCapw in the kernel
 
 LAUNCHES = {"histogram": 0, "table_join": 0, "fold_records": 0}
 
@@ -141,14 +141,14 @@ def table_join(bins, lengths, codes):
 # ---------------------------------------------------------------------------
 
 
-def fold_records_plain(aob2, code2, *, capw: int = FOLD_CAPW):
-    """aob2, code2 (B, Mg, S) int32 -> (rec (B, capw, Mg) int32 bit
+def fold_records_plain(aob2, code2):
+    """aob2, code2 (B, Mg, S) int32 -> (rec (B, FOLD_CAPW, Mg) int32 bit
     patterns of the left-aligned records, k (B, Mg) int32 bit lengths).
 
     The arithmetic of `pallas_ops._fold_kernel` in int64, so that shifts are
-    logical and nothing overflows; bits past 32*capw are dropped."""
+    logical and nothing overflows; bits past 32*FOLD_CAPW are dropped."""
     B, Mg, S = aob2.shape
-    rec = [torch.zeros(B, Mg, dtype=torch.int64, device=aob2.device) for _ in range(capw)]
+    rec = [torch.zeros(B, Mg, dtype=torch.int64, device=aob2.device) for _ in range(FOLD_CAPW)]
     cum = torch.zeros(B, Mg, dtype=torch.int64, device=aob2.device)
     for s in range(S):
         L = aob2[:, :, s].to(torch.int64)
@@ -162,7 +162,7 @@ def fold_records_plain(aob2, code2, *, capw: int = FOLD_CAPW):
         mask_k = ((torch.ones_like(k) << k.clamp(max=32)) - 1) & MASK32
         shift_lo = (32 - k).clamp(0, 31)
         lo = torch.where(fits, 0, ((cd & mask_k) << shift_lo) & MASK32)
-        for j in range(min(capw, s + 2)):
+        for j in range(min(FOLD_CAPW, s + 2)):
             upd = torch.where(sw == j, hi, 0)
             if j > 0:
                 upd = upd | torch.where(sw == j - 1, lo, 0)
@@ -171,25 +171,23 @@ def fold_records_plain(aob2, code2, *, capw: int = FOLD_CAPW):
     return to_int32_bits(torch.stack(rec, dim=1)), cum.to(torch.int32)
 
 
-def fold_records(aob2, code2, *, capw: int = FOLD_CAPW):
-    """Grouped record fold: (B, Mg, S) slots -> (rec (B, capw, Mg), k (B, Mg))."""
+def fold_records(aob2, code2):
+    """Grouped record fold: (B, Mg, S) slots -> (rec (B, FOLD_CAPW, Mg), k (B, Mg))."""
     _check(aob2, "aob2", 3)
     _check(code2, "code2", 3)
     _same_device(aob2, code2)
     if aob2.shape != code2.shape:
         raise ValueError(f"aob2 {tuple(aob2.shape)} and code2 {tuple(code2.shape)} differ")
     if aob2.device.type == "cpu":
-        return fold_records_plain(aob2, code2, capw=capw)
+        return fold_records_plain(aob2, code2)
     B, Mg, S = aob2.shape
-    if capw != FOLD_CAPW:
-        raise ValueError(f"the fold kernel is built for capw={FOLD_CAPW}, got {capw}")
     if B > 65535 or Mg >= 2**31 or S >= 2**31:
         raise ValueError(f"fold_records shape {tuple(aob2.shape)} out of range")
-    rec = torch.empty(B, capw, Mg, dtype=torch.int32, device=aob2.device)
+    rec = torch.empty(B, FOLD_CAPW, Mg, dtype=torch.int32, device=aob2.device)
     k = torch.empty(B, Mg, dtype=torch.int32, device=aob2.device)
     _launch(
         "fold_records", "nt_fold_records", _ptr(aob2), _ptr(code2), _ptr(rec), _ptr(k),
-        ctypes.c_int(B), ctypes.c_int(Mg), ctypes.c_int(S), ctypes.c_int(capw),
+        ctypes.c_int(B), ctypes.c_int(Mg), ctypes.c_int(S),
         device=aob2.device,
     )
     return rec, k

@@ -65,7 +65,7 @@ def _fold_place_grouped_batched(aob3, code3, *, w_cap: int, marks=None):
     Mg = aob3.shape[1] // GROUP
     capw = GROUP_CAPW
     rec, k = cuda_ops.fold_records(
-        aob3.reshape(B, Mg, GROUP * S), code3.reshape(B, Mg, GROUP * S), capw=capw
+        aob3.reshape(B, Mg, GROUP * S), code3.reshape(B, Mg, GROUP * S)
     )  # rec (B, capw, Mg) int32 bit patterns; k (B, Mg) int32
     overflow = (k > 32 * capw).any(dim=1)
     mark_stage(marks, "fold")
@@ -94,6 +94,9 @@ def encode_fused_core(imgs_flat, *, width: int, ndigits_cap: int, w_cap: int, ma
 
     imgs_flat: (B, N, 3) uint8.  Returns (words (B, w_cap) int32 bit
     patterns, lengths (B, 858) int32, totals (B,) int64, ovf (B,) bool).
+    ovf is set for a run over ndigits_cap digits, a code over 31 bits, a
+    group record over 320 bits, a payload over w_cap words, or a total of
+    2**31 bits or more.
     marks: optional list; when given, a CUDA event is recorded after each
     stage and appended as (stage name, event).
     """
@@ -116,8 +119,16 @@ def encode_fused_core(imgs_flat, *, width: int, ndigits_cap: int, w_cap: int, ma
     )
 
     cap_ovf = totals > 32 * (w_cap - 2)
-    ovf = run_ovf | len_ovf | fold_ovf | cap_ovf
+    ovf = run_ovf | len_ovf | fold_ovf | cap_ovf | total_bits_overflow(totals)
     return words, lengths, totals, ovf
+
+
+def total_bits_overflow(totals: torch.Tensor) -> torch.Tensor:
+    """(B,) int64 payload bit totals -> (B,) bool: the total does not fit
+    the int32 slot of the (B, 860) small array.  Where w_cap allows payloads
+    of 2**31 bits or more (rasters from about 77 M pixels), such an image
+    takes the exact host path instead of carrying a wrapped total."""
+    return totals >= 2**31
 
 
 def encode_fused(imgs_flat, *, width: int, ndigits_cap: int, w_cap: int, marks=None):

@@ -4,9 +4,10 @@ byte assembly on the host.
 
 Counterpart of `nicetpu.pipeline.encode_batch_fused` / `_assemble_payloads`.
 An image the fused path cannot represent (a run needing more than 3 base-8
-digits, a group record over 320 bits, a code longer than 31 bits, or a
-payload over the word capacity) is encoded by the byte-identical native
-encoder instead, and counted in `stats["overflow_fallbacks"]`.
+digits, a group record over 320 bits, a code longer than 31 bits, a
+payload over the word capacity, or a total of 2**31 bits or more) is
+encoded by the byte-identical native encoder instead, and counted in
+`stats["overflow_fallbacks"]`.
 """
 
 from __future__ import annotations

@@ -112,6 +112,29 @@ def test_encode_batch_fused_flags_only_the_long_run():
     assert stats["overflow_fallbacks"] == 1
 
 
+def test_small_w_cap_sets_the_flag_and_falls_back(monkeypatch):
+    """A payload over the word capacity sets the overflow flag of that image
+    only, and the pipeline serves it from the host encoder, counted."""
+    flat_img = np.full((H, W, 3), 90, np.uint8)
+    noisy = np.random.default_rng(10).integers(0, 256, (H, W, 3)).astype(np.uint8)
+    small_cap = 16  # 448 payload bits: room for the flat image only
+    batch = torch.from_numpy(np.stack([flat_img, noisy]).reshape(2, H * W, 3))
+    _, small = tenc.encode_fused(batch, width=W, ndigits_cap=3, w_cap=small_cap)
+    assert small[:, 859].tolist() == [0, 1]
+    monkeypatch.setattr(pipeline, "w_cap", lambda n: small_cap)
+    stats = {}
+    out = pipeline.encode_batch_fused([flat_img, noisy], device=torch.device("cpu"), stats=stats)
+    assert out == [codec.encode(flat_img), codec.encode(noisy)]
+    assert stats["overflow_fallbacks"] == 1
+
+
+def test_total_bits_of_2_pow_31_overflow():
+    """A total that does not fit the int32 slot of `small` is flagged even
+    where the word capacity would hold it."""
+    totals = torch.tensor([0, 2**31 - 1, 2**31, 2**32 + 5], dtype=torch.int64)
+    assert tenc.total_bits_overflow(totals).tolist() == [False, False, True, True]
+
+
 def test_cuda_request_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

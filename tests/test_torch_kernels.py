@@ -72,10 +72,10 @@ def test_table_join_plain_vs_pallas():
 
 
 def test_fold_records_plain_vs_pallas():
-    B, M, S, capw = 2, 64, 16, 10
+    B, M, S, capw = 2, 64, 16, cuda_ops.FOLD_CAPW
     aob, code = _rand_fold(B, M, S)
     rec_w, k_w = fold_records_pallas(jnp.asarray(aob), jnp.asarray(code), capw=capw, interpret=True)
-    rec, k = cuda_ops.fold_records_plain(torch.from_numpy(aob), torch.from_numpy(code), capw=capw)
+    rec, k = cuda_ops.fold_records_plain(torch.from_numpy(aob), torch.from_numpy(code))
     # the Pallas kernel pads groups to 1024; the port has no padded groups
     np.testing.assert_array_equal(k.numpy(), np.asarray(k_w)[:, :M])
     np.testing.assert_array_equal(rec.numpy(), np.asarray(rec_w)[:, :, :M])
@@ -84,14 +84,14 @@ def test_fold_records_plain_vs_pallas():
 def test_fold_records_plain_full_codes_vs_jnp_twin():
     """Any 32-bit code pattern (MSB set, bits above the length): the plain
     fold still equals the JAX jnp fold, which shares the Pallas math."""
-    B, M, S, capw = 2, 32, 64, 10
+    B, M, S, capw = 2, 32, 64, cuda_ops.FOLD_CAPW
     aob, code = _rand_fold(B, M, S, seed=6, full_codes=True)
     rec_w, k_w = jax.vmap(
         lambda a, c: (lambda r, kk: (jnp.stack(r, 0), kk))(
             *_fold_pixel_records(a, jax.lax.bitcast_convert_type(c, jnp.uint32), capw)
         )
     )(jnp.asarray(aob), jnp.asarray(code))
-    rec, k = cuda_ops.fold_records_plain(torch.from_numpy(aob), torch.from_numpy(code), capw=capw)
+    rec, k = cuda_ops.fold_records_plain(torch.from_numpy(aob), torch.from_numpy(code))
     np.testing.assert_array_equal(k.numpy(), np.asarray(k_w))
     np.testing.assert_array_equal(rec.numpy().view(np.uint32), np.asarray(rec_w))
 

@@ -12,18 +12,17 @@ from nicetpu.format import constants as C
 from nicetpu.kernels import encode2 as jenc
 from nicetpu.kernels import scan as jscan
 from nicetpu.kernels import tokenize as jtok
-from nicetpu.spec import codec
 from nicetpu_torch.kernels import encode2 as tenc
 from nicetpu_torch.kernels import scan as tscan
 from nicetpu_torch.kernels import tokenize as ttok
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
+FIXTURES = ["flat9x7", "gradient16x12", "mixed20x14", "random8x6"]  # tests/data/*.npy
 
 
 def _images():
-    """The repo's test raster plus small seeded images with runs and noise."""
-    with open(os.path.join(DATA, "flat9x7.nice"), "rb") as f:
-        out = {"flat9x7": codec.decode(f.read())}
+    """The repo's golden rasters plus small seeded images with runs and noise."""
+    out = {name: np.load(os.path.join(DATA, f"{name}.npy")) for name in FIXTURES}
     for seed in (0, 1):
         rng = np.random.default_rng(seed)
         img = (rng.integers(0, 6, (12, 16, 3)) * 40).astype(np.uint8)
@@ -98,16 +97,36 @@ def test_cascade_halo_slice():
         _eq(t, j)
 
 
-@pytest.mark.parametrize("ndigits_cap", [3, C.MAX_RUN_DIGITS])
-def test_tokenize_core_batched(ndigits_cap):
-    """The port's batched _tokenize_core equals JAX's per-image one,
-    including the run-overflow flag: a 767-pixel run needs 4 base-8
-    digits, which overflows the 3-digit layout only."""
+def _seeded_groups():
     imgs = [IMAGES["rand12x16_0"], IMAGES["ramp12x16"], np.zeros((12, 16, 3), np.uint8)]
     imgs[2][0, 0] = 1
     long = np.zeros((24, 32, 3), np.uint8)  # 767-pixel run: needs 4 digits
     long[0, 0] = 3
-    for group in (imgs, [long]):
+    return [imgs, [long]]
+
+
+def _fixture_groups(name):
+    img = IMAGES[name]
+    return [[img, np.ascontiguousarray(img[::-1])]]
+
+
+# the seeded groups keep the bare ndigits_cap ids; each golden fixture is
+# batched with its upside-down copy
+TOKENIZE_CASES = [
+    pytest.param(None, cap, id=str(cap)) for cap in (3, C.MAX_RUN_DIGITS)
+] + [
+    pytest.param(name, cap, id=f"{name}-{cap}")
+    for name in FIXTURES for cap in (3, C.MAX_RUN_DIGITS)
+]
+
+
+@pytest.mark.parametrize("source,ndigits_cap", TOKENIZE_CASES)
+def test_tokenize_core_batched(source, ndigits_cap):
+    """The port's batched _tokenize_core equals JAX's per-image one,
+    including the run-overflow flag: a 767-pixel run needs 4 base-8
+    digits, which overflows the 3-digit layout only."""
+    groups = _seeded_groups() if source is None else _fixture_groups(source)
+    for group in groups:
         B = len(group)
         H, W, _ = group[0].shape
         flat = np.stack([im.reshape(H * W, 3) for im in group])
@@ -116,4 +135,5 @@ def test_tokenize_core_batched(ndigits_cap):
             jb, jo = jenc._tokenize_core(jnp.asarray(flat[b]), width=W, ndigits_cap=ndigits_cap)
             _eq(tb[b], jb)
             assert bool(to[b]) == bool(jo)
-    assert bool(to[0]) == (ndigits_cap == 3)
+    if source is None:
+        assert bool(to[0]) == (ndigits_cap == 3)
