@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA encode port (nicetpu_torch) on one GPU.
+"""Smoke run of the PyTorch/CUDA port (nicetpu_torch) on one GPU.
 
 Run from the repository root, with no arguments:
 
@@ -7,16 +7,30 @@ Run from the repository root, with no arguments:
 
 Phases, one printed line or block each; any failure exits nonzero:
   0. the card's name and power limit (nvidia-smi); exit 1 without CUDA;
-  1. build the CUDA kernels from csrc/ with nvcc, print the build time;
-  2. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes (exact equality) and time both with CUDA events;
+  1. build the CUDA kernels from csrc/ with nvcc (one process per source),
+     print the build time and the register report;
+  2. hold each of the six kernels against its plain PyTorch version on the
+     card (exact equality) and time kernel, plain version and, where one
+     PyTorch call computes the same function, that call (CUDA events).
+     Encode kernels take seeded bins at the main path's shapes; the decode
+     kernels take the words, tables and records of a real 512x512x8 encode
+     at the fast rung (the reconstruction's plain version, one step per
+     pixel, is compared on the first 32 rows of each image);
   3. encode 64 512x512 RGB8 images in 8 batches of 8 through
-     nicetpu_torch.encode_batch(device="cuda"); every blob must equal the
-     native encoder's and decode back to its image, no image may fall back,
-     and every kernel's launch count must rise with each batch; print MB/s
-     and per-stage milliseconds;
-  4. the same for one 4096x4096 RGB8 image.
-The line before the last is the kernels' JSON record; the last line is
+     nicetpu_torch.encode_batch(device=dev.type): every blob equals the
+     native encoder's, none falls back, every encode kernel runs in every
+     batch; MB/s and per-stage milliseconds;
+  4. the same for one 4096x4096 RGB8 image;
+  5. the main path: the same 64 images through
+     nicetpu_torch.roundtrip_batch(device=dev.type) in 8 batches of 8: every
+     image verified on the device, 0 fallbacks, every blob equal to the
+     native encoder's, all six kernels launched in every batch; MB/s and
+     per-stage milliseconds of the round trip;
+  6. decode the 64 blobs with nicetpu_torch.decode_batch(device=dev.type):
+     exact arrays, 0 fallbacks; MB/s;
+  7. the round trip of one 4096x4096 image, with peak device memory.
+The line before the last is the kernels' JSON record (launches from phase
+5); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -31,22 +45,47 @@ import numpy as np
 import torch
 
 import nicetpu_torch
-from bench import make_image
-from nicetpu.hostref import oracle
-from nicetpu.spec import codec
 from nicetpu_torch import pipeline
 from nicetpu_torch.convert import from_int32_bits
-from nicetpu_torch.kernels import build, cuda_ops
+from nicetpu_torch.hostref import oracle
+from nicetpu_torch.kernels import build, cuda_ops, decode3, decode_dev, recon
+from nicetpu_torch.kernels.encode2 import encode_fused_core, mark_stage
 
-SOURCE = "nicetpu_torch/csrc/encode_kernels.cu"
+SOURCES = {
+    "histogram": "nicetpu_torch/csrc/encode_kernels.cu",
+    "table_join": "nicetpu_torch/csrc/encode_kernels.cu",
+    "fold_records": "nicetpu_torch/csrc/encode_kernels.cu",
+    "walk": "nicetpu_torch/csrc/decode_kernels.cu",
+    "value_join": "nicetpu_torch/csrc/decode_kernels.cu",
+    "reconstruct_rows": "nicetpu_torch/csrc/decode_kernels.cu",
+}
 REPLACES = {
     "histogram": "nicetpu/kernels/pallas_ops.py:100",
     "table_join": "nicetpu/kernels/pallas_ops.py:237",
     "fold_records": "nicetpu/kernels/pallas_ops.py:329",
+    "walk": "nicetpu/kernels/decode3.py:546",
+    "value_join": "nicetpu/kernels/pallas_ops.py:193",
+    "reconstruct_rows": "nicetpu/kernels/recon_pallas.py:215",
 }
 # main path shapes: 8 images of 512x512, 8 token slots per pixel, 8 pixels a group
-B, N = 8, 512 * 512
+B, N, W512 = 8, 512 * 512, 512
 M, MG, S = N * 8, N // 8, 64
+HBM_BYTES_PER_MS = 3.35e12 / 1e3  # H100 SXM published memory rate
+OPS_PER_MS = 67e12 / 1e3  # published non-tensor-core rate (float32); the kernels' ops are int32
+RECON_CHECK_ROWS = 32  # rows per image for the reconstruction's plain comparison
+NPAYLOAD = (1, 3, 4, 1, 3)  # payload codes of modes 0..4
+
+
+def make_image(h: int, w: int, seed: int = 0) -> np.ndarray:
+    """The bench's test image (a copy of `bench.make_image`): smooth
+    gradients plus +-3 noise, seeded."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = (128 + 60 * np.sin(xx / 37.0) + 50 * np.cos(yy / 23.0)).astype(np.int32)
+    img = np.stack(
+        [base, base + np.sin(xx / 11.0) * 20, base - np.cos(yy / 7.0) * 15], axis=-1
+    )
+    return np.clip(img + rng.integers(-3, 4, img.shape), 0, 255).astype(np.uint8)
 
 
 class SmokeFailure(Exception):
@@ -87,8 +126,38 @@ def max_abs_err(got, want) -> int:
     return int((from_int32_bits(got) - from_int32_bits(want)).abs().max())
 
 
-def phase_kernels(dev) -> dict:
-    """Each kernel against its plain version at the main path's shapes."""
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(bytes_moved: int, ops: int) -> dict:
+    by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_MS, ops / OPS_PER_MS
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def compare(name, kern, plain, library=None, reps=20, plain_reps=3, note="") -> dict:
+    """Run kernel and plain version once each, require equal outputs, then
+    time kernel, plain version and the library call."""
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    pairs = list(zip(got, want))
+    check(all(g.shape == w.shape for g, w in pairs), f"{name}: kernel and plain shapes differ")
+    same = all(torch.equal(g, w) for g, w in pairs)
+    err = max(max_abs_err(g, w) for g, w in pairs)
+    ms = cuda_ms(kern, reps)
+    plain_ms = cuda_ms(plain, plain_reps, warmup=1)
+    library_ms = cuda_ms(library, reps) if library is not None else None
+    lib = f"{library_ms:.4f} ms" if library_ms is not None else "none"
+    print(f"[kernel] {name}: exact={same} max_abs_err={err} kernel {ms:.4f} ms plain "
+          f"{plain_ms:.4f} ms library {lib} shapes={[tuple(g.shape) for g, _ in pairs]}{note}")
+    check(same, f"{name} kernel disagrees with its plain version (max_abs_err {err})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms}
+
+
+def phase_encode_kernels(dev) -> dict:
+    """The encode kernels against their plain versions at the main path's shapes."""
     rng = np.random.default_rng(0)
     bins = rng.integers(0, 858, (B, M), dtype=np.int32)
     bins[rng.random((B, M)) < 0.3] = 1023  # about 30 % holes
@@ -97,35 +166,104 @@ def phase_kernels(dev) -> dict:
     bins_d = torch.from_numpy(bins).to(dev)
     len_d = torch.from_numpy(lengths).to(dev)
     codes_d = torch.from_numpy(codes.view(np.int32)).to(dev)  # MSB set on half
-    # the fold takes the join's output, shaped as on the main path
     aob_d, code_d = cuda_ops.table_join_plain(bins_d, len_d, codes_d)
     aob2, code2 = aob_d.view(B, MG, S), code_d.view(B, MG, S)
+    # library yardsticks, their inputs prepared here: one bincount over
+    # image-offset bins; gathers from tables padded to 1024 columns
+    offs = torch.where(bins_d < 858, bins_d + 858 * torch.arange(B, device=dev)[:, None], B * 858)
+    offs = offs.flatten().to(torch.int64)
+    idx64 = bins_d.to(torch.int64)
+    len_pad = torch.nn.functional.pad(len_d, (0, 1024 - 858))
+    codes_pad = torch.nn.functional.pad(codes_d, (0, 1024 - 858))
 
-    results = {}
-    cases = {
-        "histogram": (lambda: cuda_ops.histogram(bins_d), lambda: cuda_ops.histogram_plain(bins_d), 20, 10),
-        "table_join": (
-            lambda: cuda_ops.table_join(bins_d, len_d, codes_d),
-            lambda: cuda_ops.table_join_plain(bins_d, len_d, codes_d), 20, 10,
-        ),
-        "fold_records": (
-            lambda: cuda_ops.fold_records(aob2, code2), lambda: cuda_ops.fold_records_plain(aob2, code2), 20, 3,
-        ),
+    out = {
+        "histogram": compare(
+            "histogram", lambda: cuda_ops.histogram(bins_d), lambda: cuda_ops.histogram_plain(bins_d),
+            lambda: torch.bincount(offs, minlength=B * 858 + 1), plain_reps=10),
+        "table_join": compare(
+            "table_join", lambda: cuda_ops.table_join(bins_d, len_d, codes_d),
+            lambda: cuda_ops.table_join_plain(bins_d, len_d, codes_d),
+            lambda: (len_pad.gather(1, idx64), codes_pad.gather(1, idx64)), plain_reps=10),
+        "fold_records": compare(
+            "fold_records", lambda: cuda_ops.fold_records(aob2, code2),
+            lambda: cuda_ops.fold_records_plain(aob2, code2)),
     }
-    for name, (kern, plain, reps, plain_reps) in cases.items():
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max(max_abs_err(g, w) for g, w in zip(got, want))
-        same = all(torch.equal(g, w) for g, w in zip(got, want))
-        ms = cuda_ms(kern, reps)
-        plain_ms = cuda_ms(plain, plain_reps, warmup=1)
-        print(f"[kernel] {name}: exact={same} max_abs_err={err} kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} ms shapes={[tuple(g.shape) for g in got]}")
-        check(same, f"{name} kernel disagrees with its plain version (max_abs_err {err})")
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-    return results
+    out["histogram"].update(bound(nbytes(bins_d) + B * 858 * 4, bins_d.numel()))
+    out["table_join"].update(bound(nbytes(bins_d, len_d, codes_d) + 2 * nbytes(bins_d), bins_d.numel()))
+    rec_k = cuda_ops.fold_records(aob2, code2)
+    out["fold_records"].update(bound(nbytes(aob2, code2, *rec_k), 12 * aob2.numel()))
+    return out
+
+
+def phase_decode_kernels(dev) -> dict:
+    """walk, value_join and reconstruct_rows on the words, tables and
+    records of a real 512x512x8 encode at the fast rung."""
+    imgs = [make_image(N // W512, W512, 100 + s) for s in range(B)]
+    flat = pipeline.upload_batch(imgs, dev)
+    cfg = decode3.LADDER[0]
+    w_cap = decode3.roundtrip_cap_words(N)
+    words, lengths, totals, ovf = encode_fused_core(flat, width=W512, ndigits_cap=3, w_cap=w_cap)
+    check(not bool(ovf.any()), "the kernel phase's encode overflowed")
+    af, pr, ib, pfx, sym_tbl, _, ok = decode3.prepare_tables_v3(lengths)
+    aff, dD, inc = decode3.derive_walk_tables(af, pr, ib)
+    wi = decode3._fit_words(words, decode3._wcap_one((32 * (w_cap - 2)) // 8, cfg))
+    wbits = totals.to(torch.int32)
+    nch = (wi.shape[1] - decode3._wrows(cfg.chunk_bits)) // (cfg.chunk_bits // 32)
+    steps = decode3._steps(cfg.chunk_bits, cfg.steps_div)
+    e0 = (torch.arange(nch, dtype=torch.int32, device=dev) * cfg.chunk_bits).expand(B, nch).contiguous()
+    kw = dict(chunk_bits=cfg.chunk_bits, steps=steps)
+    ex1 = decode3.walk(wi, e0, aff, dD, inc, pfx, wbits, records=False, **kw)[4]
+    ex1_plain = decode3.walk_plain(wi, e0, aff, dD, inc, pfx, wbits, records=False, **kw)[4]
+    check(torch.equal(ex1, ex1_plain), "walk round 1 exits disagree with the plain version")
+    e = torch.cat([torch.zeros_like(ex1[:, :1]), ex1[:, :-1]], dim=1).contiguous()
+    print(f"[kernel] walk inputs: words {tuple(wi.shape)}, {nch} chunks x {steps} steps, "
+          f"payload bits {totals.tolist()}; round 1 exits equal the plain version's")
+
+    out = {"walk": compare(
+        "walk", lambda: decode3.walk(wi, e, aff, dD, inc, pfx, wbits, **kw),
+        lambda: decode3.walk_plain(wi, e, aff, dD, inc, pfx, wbits, **kw), plain_reps=1,
+        note=" (final round, records stored)")}
+    pos, sym, i12, i34, ex2 = decode3.walk(wi, e, aff, dD, inc, pfx, wbits, **kw)
+    live = pos >= 0
+    npay = torch.tensor(NPAYLOAD + (0,) * 11, device=dev)[sym.clamp(0, 15).long()]
+    codes_n = int((live * (1 + npay)).sum())
+    bits_walked = int((ex2 - e).clamp(min=0).sum())
+    # per code: two word loads, a funnel shift and the index sum (~10 ops);
+    # per threshold tested (code length + 1): compare, add, add (3 ops)
+    walk_ops = 10 * codes_n + 3 * (bits_walked + codes_n)
+    out["walk"].update(bound(nbytes(wi, e, aff, dD, inc, pfx, wbits, pos, sym, i12, i34, ex2),
+                             walk_ops))
+    print(f"[kernel] walk work: {int(live.sum())} groups, {codes_n} codes, {bits_walked} bits walked, "
+          f"{walk_ops} integer ops")
+
+    Sn = nch * steps
+    bins = decode3._payload_bins(sym.view(B, Sn), i12.view(B, Sn), i34.view(B, Sn))
+    tbl_pad = torch.nn.functional.pad(sym_tbl, (0, 1024 - 858)).expand(4, B, 1024)
+    bins64 = bins.to(torch.int64)  # every payload bin is in [0, 1024): holes are 1023
+    check(int(bins.min()) >= 0 and int(bins.max()) < 1024, "payload bins out of [0, 1024)")
+    out["value_join"] = compare(
+        "value_join", lambda: cuda_ops.value_join(bins, sym_tbl),
+        lambda: cuda_ops.value_join_plain(bins, sym_tbl), lambda: tbl_pad.gather(2, bins64),
+        plain_reps=5)
+    out["value_join"].update(bound(2 * nbytes(bins) + nbytes(sym_tbl), bins.numel()))
+
+    syms = cuda_ops.value_join(bins, sym_tbl)
+    rec, dst, _ = decode3.assemble_v3(pos.view(B, Sn), sym.view(B, Sn), *syms, N, W512, wbits)
+    form, delta, refoff = decode3.place_and_unpack(rec, dst, N, W512)
+    n_chk = RECON_CHECK_ROWS * W512
+    f_c, d_c, r_c = form[:, :n_chk].contiguous(), delta[:, :, :n_chk].contiguous(), refoff[:, :n_chk].contiguous()
+    out["reconstruct_rows"] = compare(
+        "reconstruct_rows", lambda: recon.reconstruct_rows(f_c, d_c, r_c, width=W512),
+        lambda: decode_dev.reconstruct_rows(f_c, d_c, r_c, n_chk, W512), plain_reps=1,
+        note=f" (compared and plain-timed at {B} x {RECON_CHECK_ROWS} rows x {W512})")
+    full = recon.reconstruct_rows(form, delta, refoff, width=W512)
+    want = flat.transpose(1, 2).to(torch.int32)
+    check(torch.equal(full, want), "full-size reconstruction differs from the encoded images")
+    out["reconstruct_rows"]["ms"] = cuda_ms(lambda: recon.reconstruct_rows(form, delta, refoff, width=W512), 20)
+    out["reconstruct_rows"].update(bound(nbytes(form, delta, refoff, full), 10 * full.numel()))
+    print(f"[kernel] reconstruct_rows at the main path's shape {tuple(full.shape)}: "
+          f"{out['reconstruct_rows']['ms']:.4f} ms, equals the encoded images")
+    return out
 
 
 def stage_ms(marks) -> dict:
@@ -136,82 +274,155 @@ def stage_ms(marks) -> dict:
     return out
 
 
-def phase_main_path(dev) -> dict:
-    """64 x 512^2 images in 8 batches of 8 through the user entry point."""
-    imgs = [make_image(512, 512, s) for s in range(64)]
-    t0 = time.perf_counter()
-    refs = [oracle.encode_native(im) for im in imgs]
-    print(f"[main] native reference encodes: {time.perf_counter() - t0:.2f} s")
-    nicetpu_torch.encode_batch(imgs[:8], device="cuda")  # warm-up, not counted
-    torch.cuda.synchronize()
+def launch_counts_rise(per_batch, names) -> None:
+    for name in names:
+        counts = [0] + [p[name] for p in per_batch]
+        check(all(b > a for a, b in zip(counts, counts[1:])),
+              f"{name} was not launched in every batch: {counts}")
 
+
+def phase_encode(dev, imgs, refs) -> None:
+    """64 x 512^2 images in 8 batches of 8 through encode_batch."""
+    nicetpu_torch.encode_batch(imgs[:8], device=dev.type)  # warm-up, not counted
+    torch.cuda.synchronize()
     stats: dict = {}
-    per_batch = []
+    per_batch, batch_ms, blobs = [], [], []
     cuda_ops.reset_launches()
-    batch_ms = []
-    blobs = []
     t0 = time.perf_counter()
     for i in range(0, 64, 8):
         tb = time.perf_counter()
-        blobs += nicetpu_torch.encode_batch(imgs[i : i + 8], device="cuda", stats=stats)
+        blobs += nicetpu_torch.encode_batch(imgs[i : i + 8], device=dev.type, stats=stats)
         batch_ms.append((time.perf_counter() - tb) * 1e3)
         per_batch.append(dict(cuda_ops.LAUNCHES))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(cuda_ops.LAUNCHES)
     mb = sum(im.nbytes for im in imgs) / 1e6
-    print(f"[main] 64 x 512x512 RGB8 in 8 batches of 8: {seconds:.4f} s, "
+    print(f"[encode] 64 x 512x512 RGB8 in 8 batches of 8: {seconds:.4f} s, "
           f"{mb / seconds:.2f} MB/s encode; batch ms median {np.median(batch_ms):.3f} "
-          f"max {max(batch_ms):.3f} (8 batches); launches={launches}, stats={stats}")
-
-    for name in launches:
-        counts = [0] + [p[name] for p in per_batch]
-        check(all(b > a for a, b in zip(counts, counts[1:])),
-              f"{name} was not launched in every batch: {counts}")
+          f"max {max(batch_ms):.3f}; launches={launches}, stats={stats}")
+    launch_counts_rise(per_batch, ("histogram", "table_join", "fold_records"))
     check(stats.get("overflow_fallbacks") == 0, f"overflow fallbacks: {stats}")
-    check(all(b == r for b, r in zip(blobs, refs)), "a blob differs from the native encoder's")
-    check(all(np.array_equal(oracle.decode_native(b), im) for b, im in zip(blobs, imgs)),
-          "a blob does not decode to its image")
-    check(codec.encode(imgs[0]) == blobs[0], "blob 0 differs from the spec encoder's")
-    print(f"[main] 64/64 blobs equal hostref.encode_native, decode exactly, "
-          f"blob 0 equals spec.codec.encode ({len(blobs[0])} bytes, ratio "
-          f"{sum(im.nbytes for im in imgs) / sum(len(b) for b in blobs):.3f})")
-
-    # per-stage times: the same 8 batches again, with CUDA event marks
+    check(blobs == refs, "an encoded blob differs from the native encoder's")
     totals: dict = {}
     for i in range(0, 64, 8):
         marks: list = []
         out = pipeline.encode_batch_fused(imgs[i : i + 8], device=dev, marks=marks)
-        check(out == refs[i : i + 8], "instrumented run differs")
+        check(out == refs[i : i + 8], "instrumented encode differs")
         torch.cuda.synchronize()
         for k, v in stage_ms(marks).items():
             totals[k] = totals.get(k, 0.0) + v
     per = {k: round(v / 8, 4) for k, v in totals.items()}
-    print(f"[main] per-stage ms per batch of 8 (CUDA events, mean of 8): {json.dumps(per)}")
-    return launches
+    print(f"[encode] 64/64 blobs equal hostref.encode_native; per-stage ms per batch of 8 "
+          f"(CUDA events, mean of 8): {json.dumps(per)}")
 
 
-def phase_big(dev) -> None:
-    """One 4096x4096 RGB8 image."""
-    img = make_image(4096, 4096, 99)
-    ref = oracle.encode_native(img)
-    nicetpu_torch.encode_batch([img], device="cuda")  # warm-up
+def phase_encode_big(dev, img, ref) -> None:
+    nicetpu_torch.encode_batch([img], device=dev.type)  # warm-up
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     stats: dict = {}
     t0 = time.perf_counter()
-    blob = nicetpu_torch.encode_batch([img], device="cuda", stats=stats)[0]
+    blob = nicetpu_torch.encode_batch([img], device=dev.type, stats=stats)[0]
     seconds = time.perf_counter() - t0
     check(blob == ref, "4096^2 blob differs from the native encoder's")
-    check(np.array_equal(oracle.decode_native(blob), img), "4096^2 blob does not decode")
     check(stats.get("overflow_fallbacks") == 0, f"4096^2 overflow fallback: {stats}")
     marks: list = []
     pipeline.encode_batch_fused([img], device=dev, marks=marks)
     torch.cuda.synchronize()
     per = {k: round(v, 4) for k, v in stage_ms(marks).items()}
-    print(f"[big] 4096x4096 RGB8: {seconds:.4f} s, {img.nbytes / 1e6 / seconds:.2f} MB/s encode, "
-          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-          f"blob equals native and decodes exactly; per-stage ms {json.dumps(per)}")
+    print(f"[encode-big] 4096x4096 RGB8: {seconds:.4f} s, {img.nbytes / 1e6 / seconds:.2f} MB/s "
+          f"encode, blob equals native; per-stage ms {json.dumps(per)}")
+
+
+def instrumented_roundtrip(dev, batch, ref_blobs) -> dict:
+    marks: list = []
+    mark_stage(marks, "begin")
+    flat = pipeline.upload_batch(batch, dev)
+    mark_stage(marks, "upload")
+    datas, verified = pipeline.roundtrip_batch_resident(flat, batch, marks=marks)
+    torch.cuda.synchronize()
+    check(datas == ref_blobs and bool(verified.all()), "instrumented round trip differs")
+    return stage_ms(marks)
+
+
+def phase_roundtrip(dev, imgs, refs) -> tuple[dict, list]:
+    """The main path: 64 x 512^2 images in 8 batches of 8 through
+    roundtrip_batch(device=dev.type)."""
+    nicetpu_torch.roundtrip_batch(imgs[:8], device=dev.type)  # warm-up, not counted
+    torch.cuda.synchronize()
+    stats: dict = {}
+    per_batch, batch_ms, blobs, verified = [], [], [], []
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(0, 64, 8):
+        tb = time.perf_counter()
+        d, v = nicetpu_torch.roundtrip_batch(imgs[i : i + 8], device=dev.type, stats=stats)
+        blobs += d
+        verified += v.tolist()
+        batch_ms.append((time.perf_counter() - tb) * 1e3)
+        per_batch.append(dict(cuda_ops.LAUNCHES))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda_ops.LAUNCHES)
+    mb = sum(im.nbytes for im in imgs) / 1e6
+    print(f"[roundtrip] 64 x 512x512 RGB8 in 8 batches of 8: {seconds:.4f} s, "
+          f"{mb / seconds:.2f} MB/s round trip; batch ms median {np.median(batch_ms):.3f} "
+          f"max {max(batch_ms):.3f}; verified on the device {sum(verified)}/64; "
+          f"launches={launches}; stats={stats} (retries {stats.get('retries')})")
+    launch_counts_rise(per_batch, REPLACES)
+    check(all(verified), "an image was not verified on the device")
+    check(stats.get("fallbacks") == 0 and stats.get("overflow_fallbacks") == 0, f"fallbacks: {stats}")
+    check(blobs == refs, "a round-trip blob differs from the native encoder's")
+    totals: dict = {}
+    for i in range(0, 64, 8):
+        for k, v in instrumented_roundtrip(dev, imgs[i : i + 8], refs[i : i + 8]).items():
+            totals[k] = totals.get(k, 0.0) + v
+    per = {k: round(v / 8, 4) for k, v in totals.items()}
+    print(f"[roundtrip] 64/64 verified on the device and equal to hostref.encode_native; "
+          f"per-stage ms per batch of 8 (CUDA events, mean of 8): {json.dumps(per)}")
+    return launches, blobs
+
+
+def phase_decode(dev, imgs, blobs) -> None:
+    """Decode the 64 blobs from bytes on the card, 8 at a time."""
+    nicetpu_torch.decode_batch(blobs[:8], device=dev.type)  # warm-up
+    torch.cuda.synchronize()
+    stats: dict = {}
+    per_batch, out = [], []
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(0, 64, 8):
+        out += nicetpu_torch.decode_batch(blobs[i : i + 8], device=dev.type, stats=stats)
+        per_batch.append(dict(cuda_ops.LAUNCHES))
+    seconds = time.perf_counter() - t0
+    mb = sum(im.nbytes for im in imgs) / 1e6
+    print(f"[decode] 64 blobs in 8 batches of 8: {seconds:.4f} s, {mb / seconds:.2f} MB/s decode; "
+          f"launches={dict(cuda_ops.LAUNCHES)}; stats={stats}")
+    launch_counts_rise(per_batch, ("walk", "value_join", "reconstruct_rows"))
+    check(stats.get("fallbacks") == 0, f"decode fallbacks: {stats}")
+    check(all(np.array_equal(o, im) for o, im in zip(out, imgs)), "a decoded image differs")
+    print("[decode] 64/64 decoded arrays equal their images")
+
+
+def phase_roundtrip_big(dev, img, ref) -> None:
+    nicetpu_torch.roundtrip_batch([img], device=dev.type)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats: dict = {}
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    datas, verified = nicetpu_torch.roundtrip_batch([img], device=dev.type, stats=stats)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(cuda_ops.LAUNCHES)
+    check(datas[0] == ref, "4096^2 round-trip blob differs from the native encoder's")
+    check(bool(verified[0]), f"4096^2 image not verified on the device: {stats}")
+    check(stats.get("fallbacks") == 0 and stats.get("overflow_fallbacks") == 0, f"4096^2: {stats}")
+    launch_counts_rise([launches], REPLACES)
+    per = {k: round(v, 4) for k, v in instrumented_roundtrip(dev, [img], [ref]).items()}
+    print(f"[roundtrip-big] 4096x4096 RGB8: {seconds:.4f} s, {img.nbytes / 1e6 / seconds:.2f} MB/s "
+          f"round trip, verified on the device, blob equals native, peak device memory "
+          f"{peak:.2f} GiB; launches={launches}; stats={stats}; per-stage ms {json.dumps(per)}")
 
 
 def main() -> int:
@@ -228,12 +439,24 @@ def main() -> int:
     build.load()
     print(f"[build] nvcc build {seconds:.2f} s\n{log.strip()}")
 
-    kernels = phase_kernels(dev)
-    launches = phase_main_path(dev)
-    phase_big(dev)
+    kernels = phase_encode_kernels(dev)
+    kernels.update(phase_decode_kernels(dev))
+
+    imgs = [make_image(512, 512, s) for s in range(64)]
+    t0 = time.perf_counter()
+    refs = [oracle.encode_native(im) for im in imgs]
+    print(f"[main] native reference encodes: {time.perf_counter() - t0:.2f} s")
+    big = make_image(4096, 4096, 99)
+    big_ref = oracle.encode_native(big)
+
+    phase_encode(dev, imgs, refs)
+    phase_encode_big(dev, big, big_ref)
+    launches, blobs = phase_roundtrip(dev, imgs, refs)
+    phase_decode(dev, imgs, blobs)
+    phase_roundtrip_big(dev, big, big_ref)
 
     record = [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], **kernels[name]}
         for name in REPLACES
     ]

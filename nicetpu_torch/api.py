@@ -1,8 +1,10 @@
-"""User-facing encode API of the PyTorch port.
+"""User-facing API of the PyTorch port: encode, decode and the verified
+round trip.
 
-The device is always named by the caller: "cuda" runs the CUDA kernels and
-raises when CUDA is absent; "cpu" runs the kernels' plain PyTorch versions,
-which is the caller's explicit choice, never a fallback.
+Every entry point runs on the card (device="cuda") unless the caller asks
+for the CPU: "cuda" runs the CUDA kernels and raises when CUDA is absent;
+"cpu" runs the kernels' plain PyTorch versions, which is the caller's
+explicit choice, never a fallback.
 """
 
 from __future__ import annotations
@@ -10,10 +12,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nicetpu.api import _to_rgb
 from nicetpu_torch import pipeline
+from nicetpu_torch.format import headers
+from nicetpu_torch.kernels import decode3
 
-MAX_BATCH = 8  # images per fused encode; bounds device memory per call
+MAX_BATCH = 8  # images per fused device pass; bounds device memory per call
 
 
 def _resolve_device(device) -> torch.device:
@@ -26,12 +29,48 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def encode(img: np.ndarray, *, device) -> bytes:
+def _to_rgb(img: np.ndarray, alpha: str = "drop") -> np.ndarray:
+    """Normalize to (H, W, 3) uint8 (the port's copy of `nicetpu.api._to_rgb`).
+
+    The `.nice` wire format cannot round-trip alpha: the reference encoder
+    accepts RGBA but its decoder reconstructs 3 bytes/pixel unconditionally
+    (ref code.rs:659; SURVEY A.8.3), so reference channels=4 files are
+    undecodable even by the reference itself.  This codec therefore always
+    writes channels=3; `alpha` controls the RGBA policy:
+      "drop"  - discard the alpha plane (the reference encoder's behavior)
+      "error" - refuse RGBA input outright
+    """
+    if img.ndim != 3 or img.dtype != np.uint8:
+        raise ValueError("expected (H, W, C) uint8 image")
+    if img.shape[2] == 4:
+        if alpha == "error":
+            raise ValueError(
+                "RGBA input refused (alpha='error'): .nice cannot round-trip "
+                "alpha (SURVEY A.8.3)"
+            )
+        if alpha != "drop":
+            raise ValueError(f"unknown alpha policy {alpha!r}")
+        img = img[:, :, :3]
+    if img.shape[2] != 3:
+        raise ValueError("expected RGB or RGBA image")
+    return np.ascontiguousarray(img)
+
+
+def _batches(keys: list) -> list[list[int]]:
+    """Indices grouped by equal key (input order kept), cut into batches of
+    at most MAX_BATCH."""
+    groups: dict = {}
+    for i, k in enumerate(keys):
+        groups.setdefault(k, []).append(i)
+    return [idxs[s : s + MAX_BATCH] for idxs in groups.values() for s in range(0, len(idxs), MAX_BATCH)]
+
+
+def encode(img: np.ndarray, *, device="cuda") -> bytes:
     """Encode an (H, W, 3|4) uint8 array to `.nice` bytes (alpha dropped)."""
     return encode_batch([img], device=device)[0]
 
 
-def encode_batch(imgs: list[np.ndarray], *, device, stats: dict | None = None) -> list[bytes]:
+def encode_batch(imgs: list[np.ndarray], *, device="cuda", stats: dict | None = None) -> list[bytes]:
     """Encode a list of (H, W, 3|4) uint8 images; same-shape images share
     batches of up to MAX_BATCH.  Output order follows input order.
 
@@ -44,16 +83,73 @@ def encode_batch(imgs: list[np.ndarray], *, device, stats: dict | None = None) -
     if stats is not None:
         stats["device"] = str(dev)
         stats.setdefault("overflow_fallbacks", 0)
-    by_shape: dict[tuple, list[int]] = {}
-    for i, im in enumerate(imgs):
-        by_shape.setdefault(im.shape, []).append(i)
     out: list[bytes | None] = [None] * len(imgs)
-    for idxs in by_shape.values():
-        for s in range(0, len(idxs), MAX_BATCH):
-            chunk = idxs[s : s + MAX_BATCH]
-            datas = pipeline.encode_batch_fused(
-                [imgs[i] for i in chunk], device=dev, stats=stats
-            )
-            for i, d in zip(chunk, datas):
-                out[i] = d
+    for chunk in _batches([im.shape for im in imgs]):
+        datas = pipeline.encode_batch_fused([imgs[i] for i in chunk], device=dev, stats=stats)
+        for i, d in zip(chunk, datas):
+            out[i] = d
     return out
+
+
+def decode(data: bytes, *, device="cuda") -> np.ndarray:
+    """Decode `.nice` bytes to an (H, W, 3) uint8 array."""
+    return decode_batch([data], device=device)[0]
+
+
+def decode_batch(datas: list[bytes], *, device="cuda", chunk_bits: int | None = None,
+                 stats: dict | None = None) -> list[np.ndarray]:
+    """Decode `.nice` streams; same-shape streams share device batches of up
+    to MAX_BATCH, each through the retry ladder (`decode3.decode_batch_v3`).
+    A stream no rung verifies is decoded on the host.  chunk_bits, when
+    given, sets every rung's chunk size.
+
+    stats: optional dict; receives "device" and accumulates "retries" (rungs
+    retried) and "fallbacks" (streams the host decoded)."""
+    dev = _resolve_device(device)
+    if stats is not None:
+        stats["device"] = str(dev)
+        stats.setdefault("retries", 0)
+        stats.setdefault("fallbacks", 0)
+    out: list[np.ndarray | None] = [None] * len(datas)
+    for chunk in _batches([headers.parse_file_header(d)[:2] for d in datas]):
+        sub: dict = {}
+        arrs = decode3.decode_batch_v3([datas[i] for i in chunk], device=dev,
+                                       chunk_bits=chunk_bits, stats=sub)
+        for i, a in zip(chunk, arrs):
+            out[i] = a
+        if stats is not None:
+            stats["retries"] += sub["retries"]
+            stats["fallbacks"] += sub["fallbacks"]
+    return out
+
+
+def roundtrip_batch(imgs: list[np.ndarray], *, device="cuda",
+                    stats: dict | None = None) -> tuple[list[bytes], np.ndarray]:
+    """Encode images and prove that each blob decodes back to its image.
+
+    Same-shape images share batches of up to MAX_BATCH, each encoded,
+    decoded from the resident words and compared on the device
+    (`pipeline.roundtrip_batch_resident`).  Returns (datas, verified): the
+    `.nice` bytes and a (len(imgs),) bool array, True where the device
+    proved the round trip.  The host codec proves the others.
+
+    stats: optional dict; receives "device" and accumulates "retries"
+    (images retried on the robust rung), "fallbacks" (images proven on the
+    host) and "overflow_fallbacks" (images encoded by the host codec)."""
+    dev = _resolve_device(device)
+    imgs = [_to_rgb(im) for im in imgs]
+    if stats is not None:
+        stats["device"] = str(dev)
+        for k in ("retries", "fallbacks", "overflow_fallbacks"):
+            stats.setdefault(k, 0)
+    datas: list[bytes | None] = [None] * len(imgs)
+    verified = np.zeros(len(imgs), bool)
+    for chunk in _batches([im.shape for im in imgs]):
+        batch = [imgs[i] for i in chunk]
+        out, ok = pipeline.roundtrip_batch_resident(
+            pipeline.upload_batch(batch, dev), batch, stats=stats
+        )
+        for j, i in enumerate(chunk):
+            datas[i] = out[j]
+            verified[i] = ok[j]
+    return datas, verified

@@ -1,0 +1,36 @@
+// Helpers shared by the CUDA sources of nicetpu_torch (see build.py).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace nt {
+
+constexpr int kSymbols = 858;  // flat histogram bins; any other value is a hole
+constexpr int kThreads = 256;
+constexpr int kTargetBlocks = 132 * 8;  // 8 blocks for each of the H100's 132 SMs
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Contiguous slice [lo, hi) of one row of M elements for this block; lo is a
+// multiple of 4 so that the int4 path starts aligned.  Rounding the slice up
+// to a multiple of 4 can leave the last blocks with nothing: their slice is
+// the empty [M, M).
+__device__ __forceinline__ void block_slice(long long M, long long* lo, long long* hi) {
+  long long per = (M + gridDim.x - 1) / gridDim.x;
+  per = (per + 3) & ~3LL;
+  *lo = min(M, per * blockIdx.x);
+  *hi = min(M, *lo + per);
+}
+
+// Blocks along one row so that `rows` rows together fill the card.
+inline int blocks_per_row(long long M, int rows) {
+  long long want = (kTargetBlocks + rows - 1) / rows;
+  long long most = (M + 1023) / 1024;  // at least ~1024 elements per block
+  long long n = want < most ? want : most;
+  return n < 1 ? 1 : (int)n;
+}
+
+}  // namespace nt

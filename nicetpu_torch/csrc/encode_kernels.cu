@@ -9,29 +9,14 @@
 // uint32 payload values (codes, records) arrive as int32 tensors holding
 // the bit patterns; the kernels read and write them as uint32_t.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kSymbols = 858;  // flat histogram bins; any other value is a hole
-constexpr int kThreads = 256;
-constexpr int kTargetBlocks = 132 * 8;  // 8 blocks for each of the H100's 132 SMs
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// Contiguous token slice [lo, hi) of one image for this block; lo is a
-// multiple of 4 so that the int4 path starts aligned.  Rounding the slice up
-// to a multiple of 4 can leave the last blocks with nothing: their slice is
-// the empty [M, M).
-__device__ __forceinline__ void block_slice(long long M, long long* lo, long long* hi) {
-  long long per = (M + gridDim.x - 1) / gridDim.x;
-  per = (per + 3) & ~3LL;
-  *lo = min(M, per * blockIdx.x);
-  *hi = min(M, *lo + per);
-}
+using nt::aligned16;
+using nt::block_slice;
+using nt::kSymbols;
+using nt::kThreads;
 
 // ---------------------------------------------------------------------------
 // histogram: replaces nicetpu/kernels/pallas_ops.py histogram_pallas
@@ -199,13 +184,6 @@ __global__ void fold_records_kernel(const int* __restrict__ aob, const uint32_t*
   kbits[img * Mg + g] = cum;
 }
 
-int blocks_per_image(long long M, int B) {
-  long long want = (kTargetBlocks + B - 1) / B;
-  long long most = (M + 1023) / 1024;  // at least ~1024 tokens per block
-  long long n = want < most ? want : most;
-  return n < 1 ? 1 : (int)n;
-}
-
 }  // namespace
 
 extern "C" {
@@ -216,7 +194,7 @@ int nt_histogram(const void* bins, void* out, int B, long long M, int device,
                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(blocks_per_image(M, B), B);
+  dim3 grid(nt::blocks_per_row(M, B), B);
   histogram_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const int*>(bins), static_cast<int*>(out), M);
   return (int)cudaGetLastError();
@@ -226,7 +204,7 @@ int nt_table_join(const void* bins, const void* lengths, const void* codes, void
                   void* code, int B, long long M, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(blocks_per_image(M, B), B);
+  dim3 grid(nt::blocks_per_row(M, B), B);
   table_join_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const int*>(bins), static_cast<const int*>(lengths),
       static_cast<const uint32_t*>(codes), static_cast<int*>(aob),

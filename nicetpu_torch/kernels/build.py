@@ -1,15 +1,17 @@
 """Build and load the CUDA kernels of `csrc/` as one shared library.
 
-nvcc compiles `csrc/encode_kernels.cu` for sm_90a into
+nvcc compiles every `csrc/*.cu` for sm_90a, one process per source, all
+started together, and links the objects into
 `nicetpu_torch/_build/libnicetpu_kernels.so`, which has a plain C interface
 and is loaded with ctypes (no PyTorch headers, so the build takes seconds).
-The build runs at first use and again whenever the source is newer than
-the library.  nvcc is taken from PATH, else from $CUDA_HOME/bin.
+The build runs at first use and again whenever a source or header is newer
+than the library.  nvcc is taken from PATH, else from $CUDA_HOME/bin.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -17,13 +19,17 @@ import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(_PKG, "csrc", "encode_kernels.cu")
+CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB = os.path.join(BUILD_DIR, "libnicetpu_kernels.so")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
 def nvcc() -> str:
@@ -36,24 +42,40 @@ def nvcc() -> str:
     return path
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; return their output, raise on failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(" ".join(c) + "\n" + o for c, o in zip(cmds, outs))
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    return log
+
+
 def build() -> tuple[float, str]:
     """Compile the library; return (seconds, nvcc's output with the
     per-kernel register and shared-memory report)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB}.{os.getpid()}.tmp"
-    cmd = [nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", tmp, SRC]
+    tag = f"{os.getpid()}.tmp"
+    base = [nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    objs = [os.path.join(BUILD_DIR, os.path.basename(s)[:-3] + f".{tag}.o") for s in sources()]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    log = _run_all([[*base, "-Xptxas", "-v", "-c", "-o", o, s] for s, o in zip(sources(), objs)])
+    tmp = f"{LIB}.{tag}"
+    log += _run_all([[*base, "-shared", "-o", tmp, *objs]])
     seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+    for o in objs:
+        os.remove(o)
     os.replace(tmp, LIB)  # atomic: a concurrent loader never sees half a file
-    return seconds, " ".join(cmd) + "\n" + res.stdout + res.stderr
+    return seconds, log
 
 
 def _stale() -> bool:
-    return not os.path.exists(LIB) or os.path.getmtime(LIB) < os.path.getmtime(SRC)
+    if not os.path.exists(LIB):
+        return True
+    newest = max(os.path.getmtime(p) for p in glob.glob(os.path.join(CSRC, "*")))
+    return os.path.getmtime(LIB) < newest
 
 
 def load() -> ctypes.CDLL:
@@ -66,13 +88,20 @@ def load() -> ctypes.CDLL:
             build()
         lib = ctypes.CDLL(LIB)
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        signatures = {
+            "nt_histogram": [vp, vp, i32, i64, i32, vp],
+            "nt_table_join": [vp, vp, vp, vp, vp, i32, i64, i32, vp],
+            "nt_fold_records": [vp, vp, vp, vp, i32, i32, i32, i32, vp],
+            "nt_walk": [vp, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                        i32, vp],
+            "nt_value_join": [vp, vp, vp, i32, i32, i64, i32, vp],
+            "nt_reconstruct_rows": [vp, vp, vp, vp, vp, i32, i32, i32, i32, vp],
+        }
+        for name, argtypes in signatures.items():
+            fn = getattr(lib, name)
+            fn.restype = i32
+            fn.argtypes = argtypes
         lib.nt_error_string.restype = ctypes.c_char_p
         lib.nt_error_string.argtypes = [i32]
-        lib.nt_histogram.restype = i32
-        lib.nt_histogram.argtypes = [vp, vp, i32, i64, i32, vp]
-        lib.nt_table_join.restype = i32
-        lib.nt_table_join.argtypes = [vp, vp, vp, vp, vp, i32, i64, i32, vp]
-        lib.nt_fold_records.restype = i32
-        lib.nt_fold_records.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
         _lib = lib
         return lib

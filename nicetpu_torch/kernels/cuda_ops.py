@@ -1,9 +1,13 @@
-"""CUDA kernels of the fused encode: wrappers, plain versions, launch counts.
+"""CUDA kernels of `pallas_ops`: wrappers, plain versions, launch counts.
 
-Counterpart of `nicetpu/kernels/pallas_ops.py`.  Each kernel has
+Counterpart of `nicetpu/kernels/pallas_ops.py`: the encode's histogram,
+table join and group-record fold (`csrc/encode_kernels.cu`) and the
+decode's value join (`csrc/decode_kernels.cu`).  `LAUNCHES` also counts the
+walk (`decode3.walk`) and the row reconstruction (`recon.reconstruct_rows`).
+Each kernel has
   * a wrapper that checks its inputs and, for a CUDA tensor, launches the
-    kernel from `csrc/encode_kernels.cu` (or raises); for a CPU tensor it
-    runs the plain version, since there is no kernel to launch there;
+    kernel (or raises); for a CPU tensor it runs the plain version, since
+    there is no kernel to launch there;
   * a plain PyTorch version of the same function (`*_plain`), which the CPU
     tests hold against the Pallas kernels and which `chip_smoke.py` holds
     against the CUDA kernel on the card;
@@ -19,13 +23,16 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from nicetpu.format import constants as C
+from nicetpu_torch.format import constants as C
 from nicetpu_torch.convert import MASK32, from_int32_bits, to_int32_bits
 
 NSYM = C.TOTAL_SYMBOLS  # 858
 FOLD_CAPW = 10  # words per group record (320 bits), as kCapw in the kernel
 
-LAUNCHES = {"histogram": 0, "table_join": 0, "fold_records": 0}
+LAUNCHES = {
+    "histogram": 0, "table_join": 0, "fold_records": 0,
+    "walk": 0, "value_join": 0, "reconstruct_rows": 0,
+}
 
 
 def reset_launches() -> None:
@@ -33,7 +40,7 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _check(t: torch.Tensor, name: str, ndim: int) -> None:
+def check(t: torch.Tensor, name: str, ndim: int) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor")
     if t.dtype != torch.int32:
@@ -48,16 +55,16 @@ def _check(t: torch.Tensor, name: str, ndim: int) -> None:
         raise ValueError(f"{name} must not be empty")
 
 
-def _same_device(*ts: torch.Tensor) -> None:
+def same_device(*ts: torch.Tensor) -> None:
     if len({t.device for t in ts}) != 1:
         raise ValueError(f"inputs on different devices: {[str(t.device) for t in ts]}")
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _launch(name: str, fn, *args, device: torch.device) -> None:
+def launch(name: str, fn, *args, device: torch.device) -> None:
     """Call a C entry point on `device`'s current stream; raise on error."""
     from nicetpu_torch.kernels import build
 
@@ -85,15 +92,15 @@ def histogram_plain(bins: torch.Tensor) -> torch.Tensor:
 
 def histogram(bins: torch.Tensor) -> torch.Tensor:
     """Per-image histogram of flat bins: (B, M) int32 -> (B, 858) int32."""
-    _check(bins, "bins", 2)
+    check(bins, "bins", 2)
     if bins.device.type == "cpu":
         return histogram_plain(bins)
     B, M = bins.shape
     if B > 65535:
         raise ValueError("histogram takes at most 65535 images")
     out = torch.zeros(B, NSYM, dtype=torch.int32, device=bins.device)
-    _launch(
-        "histogram", "nt_histogram", _ptr(bins), _ptr(out), ctypes.c_int(B),
+    launch(
+        "histogram", "nt_histogram", ptr(bins), ptr(out), ctypes.c_int(B),
         ctypes.c_longlong(M), device=bins.device,
     )
     return out
@@ -116,10 +123,10 @@ def table_join_plain(bins, lengths, codes):
 
 def table_join(bins, lengths, codes):
     """Per-image table lookup: bin -> (code length, code bit pattern)."""
-    _check(bins, "bins", 2)
-    _check(lengths, "lengths", 2)
-    _check(codes, "codes", 2)
-    _same_device(bins, lengths, codes)
+    check(bins, "bins", 2)
+    check(lengths, "lengths", 2)
+    check(codes, "codes", 2)
+    same_device(bins, lengths, codes)
     B, M = bins.shape
     if lengths.shape != (B, NSYM) or codes.shape != (B, NSYM):
         raise ValueError(f"tables must be ({B}, {NSYM})")
@@ -129,9 +136,9 @@ def table_join(bins, lengths, codes):
         raise ValueError("table_join takes at most 65535 images")
     aob = torch.empty_like(bins)
     code = torch.empty_like(bins)
-    _launch(
-        "table_join", "nt_table_join", _ptr(bins), _ptr(lengths), _ptr(codes), _ptr(aob),
-        _ptr(code), ctypes.c_int(B), ctypes.c_longlong(M), device=bins.device,
+    launch(
+        "table_join", "nt_table_join", ptr(bins), ptr(lengths), ptr(codes), ptr(aob),
+        ptr(code), ctypes.c_int(B), ctypes.c_longlong(M), device=bins.device,
     )
     return aob, code
 
@@ -173,9 +180,9 @@ def fold_records_plain(aob2, code2):
 
 def fold_records(aob2, code2):
     """Grouped record fold: (B, Mg, S) slots -> (rec (B, FOLD_CAPW, Mg), k (B, Mg))."""
-    _check(aob2, "aob2", 3)
-    _check(code2, "code2", 3)
-    _same_device(aob2, code2)
+    check(aob2, "aob2", 3)
+    check(code2, "code2", 3)
+    same_device(aob2, code2)
     if aob2.shape != code2.shape:
         raise ValueError(f"aob2 {tuple(aob2.shape)} and code2 {tuple(code2.shape)} differ")
     if aob2.device.type == "cpu":
@@ -185,9 +192,46 @@ def fold_records(aob2, code2):
         raise ValueError(f"fold_records shape {tuple(aob2.shape)} out of range")
     rec = torch.empty(B, FOLD_CAPW, Mg, dtype=torch.int32, device=aob2.device)
     k = torch.empty(B, Mg, dtype=torch.int32, device=aob2.device)
-    _launch(
-        "fold_records", "nt_fold_records", _ptr(aob2), _ptr(code2), _ptr(rec), _ptr(k),
+    launch(
+        "fold_records", "nt_fold_records", ptr(aob2), ptr(code2), ptr(rec), ptr(k),
         ctypes.c_int(B), ctypes.c_int(Mg), ctypes.c_int(S),
         device=aob2.device,
     )
     return rec, k
+
+
+# ---------------------------------------------------------------------------
+# value join (replaces pallas_ops.value_join_pallas)
+# ---------------------------------------------------------------------------
+
+
+def value_join_plain(bins, val_tbl):
+    """bins (K, B, M) int32 canonical-index bins; val_tbl (B, 858) int32 ->
+    (K, B, M) int32 values.  A bin >= 858 is a hole and maps to 0; a
+    negative bin reads entry 0, as the gather of JAX's `_sym_join` does."""
+    K, B, M = bins.shape
+    live = bins < NSYM
+    idx = bins.clamp(0, NSYM - 1).to(torch.int64)
+    tbl = val_tbl[None].expand(K, B, NSYM)
+    return torch.where(live, tbl.gather(2, idx), 0)
+
+
+def value_join(bins, val_tbl):
+    """Per-image table lookup of K slot arrays in one launch:
+    (K, B, M) bins, (B, 858) table -> (K, B, M) values."""
+    check(bins, "bins", 3)
+    check(val_tbl, "val_tbl", 2)
+    same_device(bins, val_tbl)
+    K, B, M = bins.shape
+    if val_tbl.shape != (B, NSYM):
+        raise ValueError(f"val_tbl must be ({B}, {NSYM})")
+    if bins.device.type == "cpu":
+        return value_join_plain(bins, val_tbl)
+    if K * B > 65535:
+        raise ValueError("value_join takes at most 65535 slot arrays")
+    out = torch.empty_like(bins)
+    launch(
+        "value_join", "nt_value_join", ptr(bins), ptr(val_tbl), ptr(out), ctypes.c_int(K),
+        ctypes.c_int(B), ctypes.c_longlong(M), device=bins.device,
+    )
+    return out

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nicetpu.format import constants as C
+from nicetpu_torch.format import constants as C
 from nicetpu_torch.convert import MASK32, to_int32_bits
 
 NSTREAMS = C.NUM_STREAMS

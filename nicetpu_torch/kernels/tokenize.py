@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from nicetpu.format import constants as C
+from nicetpu_torch.format import constants as C
 
 
 def cascade(x_ext: torch.Tensor, g0, n_local: int, *, width: int, halo: int) -> dict:

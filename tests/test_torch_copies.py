@@ -1,0 +1,102 @@
+"""The port's own copies of framework-neutral code, held against their
+originals: the format constants name by name, the header layouts, the
+code-length validation, the RGB normalisation, the native codec and the
+smoke run's test image."""
+
+import os
+
+import numpy as np
+import pytest
+
+import bench
+import chip_smoke
+from nicetpu import api as japi
+from nicetpu.format import constants as JC
+from nicetpu.format import headers as jheaders
+from nicetpu.format import huffman as jhuffman
+from nicetpu.hostref import oracle as joracle
+from nicetpu_torch import api as tapi
+from nicetpu_torch.format import constants as TC
+from nicetpu_torch.format import headers as theaders
+from nicetpu_torch.format import huffman as thuffman
+from nicetpu_torch.hostref import oracle as toracle
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+GOLDEN = ["random8x6", "gradient16x12", "flat9x7", "mixed20x14"]
+
+
+def _golden(name):
+    img = np.load(os.path.join(DATA, f"{name}.npy"))
+    with open(os.path.join(DATA, f"{name}.nice"), "rb") as f:
+        return img, f.read()
+
+
+def test_constants_match_name_by_name():
+    public = lambda m: {k for k in vars(m) if not k.startswith("_") and k != "np"}
+    assert public(TC) == public(JC)
+    for name in sorted(public(JC)):
+        a, b = getattr(JC, name), getattr(TC, name)
+        if callable(a):
+            for w in (4, 5, 7, 20, 512, 4096):
+                assert a(w) == b(w), name
+        else:
+            assert a == b, name
+
+
+@pytest.mark.parametrize("name", GOLDEN)
+def test_headers_round_trip_like_the_original(name):
+    _, data = _golden(name)
+    assert theaders.parse_file_header(data) == jheaders.parse_file_header(data)
+    lens = theaders.parse_stream_headers(data[TC.FILE_HEADER_BYTES :])
+    np.testing.assert_array_equal(lens, jheaders.parse_stream_headers(data[JC.FILE_HEADER_BYTES :]))
+    W, H, ch = theaders.parse_file_header(data)
+    assert theaders.pack_file_header(W, H, ch) == jheaders.pack_file_header(W, H, ch)
+    packed = theaders.pack_stream_headers(lens)
+    assert packed == jheaders.pack_stream_headers(lens)
+    assert data[TC.FILE_HEADER_BYTES :].startswith(packed)
+
+
+def test_validate_flat_lengths_accepts_and_rejects_alike():
+    _, data = _golden("mixed20x14")
+    good = theaders.parse_stream_headers(data[TC.FILE_HEADER_BYTES :]).astype(np.int64)
+    thuffman.validate_flat_lengths(good)
+    jhuffman.validate_flat_lengths(good)
+    out_of_range = good.copy()
+    out_of_range[3] = 0
+    kraft = good.copy()
+    kraft[:256] = 7  # 256 codes of 7 bits: a Kraft sum of 2
+    for bad in (out_of_range, kraft):
+        for fn in (thuffman.validate_flat_lengths, jhuffman.validate_flat_lengths):
+            with pytest.raises(ValueError):
+                fn(bad)
+
+
+def test_to_rgb_matches():
+    rng = np.random.default_rng(0)
+    rgba = rng.integers(0, 256, (5, 6, 4)).astype(np.uint8)
+    np.testing.assert_array_equal(tapi._to_rgb(rgba), japi._to_rgb(rgba))
+    np.testing.assert_array_equal(tapi._to_rgb(rgba[..., :3]), japi._to_rgb(rgba[..., :3]))
+    for bad in (rgba.astype(np.float32), rgba[..., :2]):
+        with pytest.raises(ValueError):
+            tapi._to_rgb(bad)
+    with pytest.raises(ValueError):
+        tapi._to_rgb(rgba, alpha="error")
+
+
+@pytest.mark.parametrize("name", GOLDEN)
+def test_hostref_copy_matches_original(name):
+    img, data = _golden(name)
+    assert toracle.encode_native(img) == joracle.encode_native(img) == data
+    np.testing.assert_array_equal(toracle.decode_native(data), joracle.decode_native(data))
+    np.testing.assert_array_equal(toracle.decode_native(data), img)
+
+
+def test_hostref_copy_builds_outside_the_source_tree():
+    toracle.get_lib()
+    assert os.path.dirname(toracle._LIB).endswith(os.path.join("nicetpu_torch", "_build"))
+    assert not os.path.exists(os.path.join(os.path.dirname(toracle._SRC), "libniceref.so"))
+
+
+def test_make_image_copy_matches_bench():
+    for h, w, seed in ((16, 24, 0), (512, 512, 7)):
+        np.testing.assert_array_equal(chip_smoke.make_image(h, w, seed), bench.make_image(h, w, seed))

@@ -1,8 +1,8 @@
-"""The CUDA kernels and the device encode path of nicetpu_torch, on a GPU.
+"""The CUDA kernels and the device paths of nicetpu_torch, on a GPU.
 
 Every test here needs a CUDA device and skips without one.  The file
-imports no JAX, so it also runs where JAX is absent; skip the JAX conftest
-there:
+imports no JAX and nothing of the JAX package, so it also runs where JAX is
+absent; skip the JAX conftest there:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
@@ -12,9 +12,9 @@ import pytest
 import torch
 
 import nicetpu_torch
-from nicetpu.format import constants as C
-from nicetpu.hostref import oracle
-from nicetpu_torch.kernels import cuda_ops
+from nicetpu_torch.format import constants as C
+from nicetpu_torch.hostref import oracle
+from nicetpu_torch.kernels import cuda_ops, decode3, decode_dev, recon
 
 pytestmark = pytest.mark.cuda
 
@@ -108,4 +108,94 @@ def test_encode_batch_cuda_matches_native(dev):
     out = nicetpu_torch.encode_batch(imgs, device="cuda", stats=stats)
     assert out == [oracle.encode_native(im) for im in imgs]
     assert stats == {"device": "cuda", "overflow_fallbacks": 1}
-    assert all(n == 2 for n in cuda_ops.LAUNCHES.values())  # one batch per shape
+    encode_kernels = ("histogram", "table_join", "fold_records")
+    assert all(cuda_ops.LAUNCHES[k] == 2 for k in encode_kernels)  # one batch per shape
+
+
+# ---------------------------------------------------------------------------
+# decode kernels: walk, value join, row reconstruction
+# ---------------------------------------------------------------------------
+
+
+def _smooth(h, w, seed):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = 120 + 40 * np.sin(xx / 7.0 + seed) + 30 * np.cos(yy / 5.0)
+    img = base[..., None] + np.array([0, 7, -9]) + rng.integers(-3, 4, (h, w, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _walk_inputs(imgs, dev):
+    datas = [oracle.encode_native(im) for im in imgs]
+    (words, wbits, af, pr, ib, pfx, _), _ = decode3.prepare_batch_args(datas, device=dev)
+    aff, dD, inc = decode3.derive_walk_tables(af, pr, ib)
+    return words, wbits, aff, dD, inc, pfx
+
+
+# (1, 6, 8): one chunk; (2, 40, 64) and (1, 64, 80): chunk counts that are not
+# a multiple of the kernel's 64-thread block
+@pytest.mark.parametrize("B,h,w", [(1, 6, 8), (2, 40, 64), (1, 64, 80)])
+@pytest.mark.parametrize("chunk_bits,steps_div", [(512, 8), (2048, 8), (4096, 3)])
+def test_walk_matches_plain(dev, B, h, w, chunk_bits, steps_div):
+    words, wbits, aff, dD, inc, pfx = _walk_inputs([_smooth(h, w, s) for s in range(B)], dev)
+    nch = -(-int(wbits.max()) // chunk_bits)
+    words = words[:, : nch * chunk_bits // 32 + 72].contiguous()
+    steps = decode3._steps(chunk_bits, steps_div)
+    starts = (torch.arange(nch, dtype=torch.int32, device=dev) * chunk_bits).expand(B, nch)
+    e = starts.contiguous()
+    kw = dict(chunk_bits=chunk_bits, steps=steps)
+    for records in (False, True):  # round 1 (exits only), then round 2 from its exits
+        before = cuda_ops.LAUNCHES["walk"]
+        got = decode3.walk(words, e, aff, dD, inc, pfx, wbits, records=records, **kw)
+        want = decode3.walk_plain(words, e, aff, dD, inc, pfx, wbits, records=records, **kw)
+        assert cuda_ops.LAUNCHES["walk"] == before + 1
+        for g, x in zip(got, want):
+            assert (g is None and x is None) or torch.equal(g, x)
+        e = torch.cat([torch.zeros_like(got[4][:, :1]), got[4][:, :-1]], dim=1)
+
+
+@pytest.mark.parametrize("K,B,M", [(4, 2, 3000), (1, 1, 1), (4, 8, 100_003)])
+def test_value_join_matches_plain(dev, K, B, M):
+    rng = np.random.default_rng(M)
+    bins = rng.integers(-3, 1100, (K, B, M)).astype(np.int32)
+    tbl = rng.integers(0, 2**16, (B, C.TOTAL_SYMBOLS)).astype(np.int32)
+    bins_d, tbl_d = torch.from_numpy(bins).to(dev), torch.from_numpy(tbl).to(dev)
+    before = cuda_ops.LAUNCHES["value_join"]
+    _same(cuda_ops.value_join(bins_d, tbl_d), cuda_ops.value_join_plain(bins_d, tbl_d))
+    assert cuda_ops.LAUNCHES["value_join"] == before + 1
+
+
+def _recon_inputs(B, H, W, seed):
+    rng = np.random.default_rng(seed)
+    N = H * W
+    form = rng.integers(0, 5, (B, N)).astype(np.int32)
+    delta = rng.integers(0, 256, (B, 3, N)).astype(np.int32)
+    choices = np.array([0] + decode_dev._const_offsets(W), np.int32)
+    refoff = np.where(form == 0, rng.choice(choices, (B, N)), 0).astype(np.int32)
+    return [torch.from_numpy(a) for a in (form, delta, refoff)]
+
+
+# widths 4 and 20 (the smallest and the golden rasters'), a ragged width, and
+# one past the shared-memory limit (the scratch path)
+@pytest.mark.parametrize("B,H,W", [(1, 9, 4), (2, 7, 20), (3, 5, 37), (1, 2, recon.SMEM_MAX_WIDTH + 3)])
+def test_reconstruct_rows_matches_plain(dev, B, H, W):
+    form, delta, refoff = (t.to(dev) for t in _recon_inputs(B, H, W, seed=W))
+    before = cuda_ops.LAUNCHES["reconstruct_rows"]
+    got = recon.reconstruct_rows(form, delta, refoff, width=W)
+    assert cuda_ops.LAUNCHES["reconstruct_rows"] == before + 1
+    _same(got, decode_dev.reconstruct_rows(form, delta, refoff, H * W, W))
+
+
+def test_roundtrip_and_decode_on_the_card(dev):
+    imgs = [_smooth(48, 64, s) for s in range(3)] + [_smooth(20, 36, 9)]
+    stats = {}
+    cuda_ops.reset_launches()
+    datas, verified = nicetpu_torch.roundtrip_batch(imgs, device="cuda", stats=stats)
+    assert datas == [oracle.encode_native(im) for im in imgs]
+    assert verified.all()
+    assert stats["fallbacks"] == 0 and stats["overflow_fallbacks"] == 0
+    assert all(n > 0 for n in cuda_ops.LAUNCHES.values())
+    dstats = {}
+    out = nicetpu_torch.decode_batch(datas, device="cuda", stats=dstats)
+    assert all(np.array_equal(o, im) for o, im in zip(out, imgs))
+    assert dstats["fallbacks"] == 0
