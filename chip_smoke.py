@@ -73,6 +73,7 @@ M, MG, S = N * 8, N // 8, 64
 HBM_BYTES_PER_MS = 3.35e12 / 1e3  # H100 SXM published memory rate
 OPS_PER_MS = 67e12 / 1e3  # published non-tensor-core rate (float32); the kernels' ops are int32
 RECON_CHECK_ROWS = 32  # rows per image for the reconstruction's plain comparison
+RECON_RANDOM_ROWS = 64  # rows per image of the random-form comparison
 NPAYLOAD = (1, 3, 4, 1, 3)  # payload codes of modes 0..4
 
 
@@ -195,6 +196,19 @@ def phase_encode_kernels(dev) -> dict:
     return out
 
 
+def random_recon_inputs(b: int, h: int, w: int, seed: int):
+    """Random forms and deltas, CONST references drawn from the width's
+    offsets (some landing in the current row's first columns), as the GPU
+    tests make them."""
+    rng = np.random.default_rng(seed)
+    n = h * w
+    form = rng.integers(0, 5, (b, n)).astype(np.int32)
+    delta = rng.integers(0, 256, (b, 3, n)).astype(np.int32)
+    choices = np.array([0] + decode_dev._const_offsets(w), np.int32)
+    refoff = np.where(form == 0, rng.choice(choices, (b, n)), 0).astype(np.int32)
+    return [torch.from_numpy(a) for a in (form, delta, refoff)]
+
+
 def phase_decode_kernels(dev) -> dict:
     """walk, value_join and reconstruct_rows on the words, tables and
     records of a real 512x512x8 encode at the fast rung."""
@@ -219,11 +233,20 @@ def phase_decode_kernels(dev) -> dict:
     print(f"[kernel] walk inputs: words {tuple(wi.shape)}, {nch} chunks x {steps} steps, "
           f"payload bits {totals.tolist()}; round 1 exits equal the plain version's")
 
+    lut = decode3.walk_lut(aff, dD, inc)
+    lut_ms = cuda_ms(lambda: decode3.walk_lut(aff, dD, inc), 20)
+    exact = float((lut >= 0).float().mean())
+    kw_l = dict(kw, lut=lut)
+    rec_ms = cuda_ms(lambda: decode3.walk(wi, e, aff, dD, inc, pfx, wbits, **kw_l), 20)
+    norec_ms = cuda_ms(lambda: decode3.walk(wi, e, aff, dD, inc, pfx, wbits, records=False, **kw_l), 20)
+    print(f"[kernel] walk final round: {rec_ms:.4f} ms with records, {norec_ms:.4f} ms without "
+          f"(the record stores' share: {1 - norec_ms / rec_ms:.3f}); first-level table "
+          f"(walk_lut, torch ops, once a decode) {lut_ms:.4f} ms, {exact:.4f} of its entries exact")
     out = {"walk": compare(
-        "walk", lambda: decode3.walk(wi, e, aff, dD, inc, pfx, wbits, **kw),
+        "walk", lambda: decode3.walk(wi, e, aff, dD, inc, pfx, wbits, **kw_l),
         lambda: decode3.walk_plain(wi, e, aff, dD, inc, pfx, wbits, **kw), plain_reps=1,
         note=" (final round, records stored)")}
-    pos, sym, i12, i34, ex2 = decode3.walk(wi, e, aff, dD, inc, pfx, wbits, **kw)
+    pos, sym, i12, i34, ex2 = decode3.walk(wi, e, aff, dD, inc, pfx, wbits, **kw_l)
     live = pos >= 0
     npay = torch.tensor(NPAYLOAD + (0,) * 11, device=dev)[sym.clamp(0, 15).long()]
     codes_n = int((live * (1 + npay)).sum())
@@ -259,6 +282,15 @@ def phase_decode_kernels(dev) -> dict:
     full = recon.reconstruct_rows(form, delta, refoff, width=W512)
     want = flat.transpose(1, 2).to(torch.int32)
     check(torch.equal(full, want), "full-size reconstruction differs from the encoded images")
+    # 1100: 35 segments, the last one ragged, through the two-level resolve
+    for b_, h_, w_ in ((B, RECON_RANDOM_ROWS, W512), (2, 16, 1100)):
+        args = [t.to(dev) for t in random_recon_inputs(b_, h_, w_, seed=w_)]
+        got = recon.reconstruct_rows(*args, width=w_)
+        want = decode_dev.reconstruct_rows(*args, h_ * w_, w_)
+        err = max_abs_err(got, want)
+        print(f"[kernel] reconstruct_rows on random forms at {b_} x {h_} rows x {w_}: "
+              f"exact={torch.equal(got, want)} max_abs_err={err}")
+        check(torch.equal(got, want), f"reconstruct_rows disagrees on random forms at width {w_}")
     out["reconstruct_rows"]["ms"] = cuda_ms(lambda: recon.reconstruct_rows(form, delta, refoff, width=W512), 20)
     out["reconstruct_rows"].update(bound(nbytes(form, delta, refoff, full), 10 * full.numel()))
     print(f"[kernel] reconstruct_rows at the main path's shape {tuple(full.shape)}: "

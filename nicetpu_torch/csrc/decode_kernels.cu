@@ -31,27 +31,53 @@ constexpr int kSlots = 4;
 // walk: replaces nicetpu/kernels/decode3.py walk_pallas (_walk_kernel,
 // _walk_block_body, _decode_group, _canon_decode).  One thread per chunk; a
 // block never spans two images.  The image's threshold tables (aff, dD, inc:
-// 10 x 32 each), its canonical prefix order and the mode -> stream map sit in
-// shared memory.  Each step decodes one pixel group at bit p: the prefix
-// symbol, then the mode's payload codes, each by the monotone threshold count
-// of derive_walk_tables; then p = max(p + 1, q).  A window is read straight
-// from the words in global memory (two loads, the last word repeating past
-// the end, as walk_ref does), which replaces the TPU's per-chunk word blocks
-// and two-level one-hot fetch.  A chunk freezes at its bound or at wbits and
-// writes pos = -1 and zeros for every later step.  Each threshold sum runs
-// over lengths 1.._deep_cap(s) and stops at the first miss: the thresholds
-// rise with the length, so no later length can hit, and the sums equal those
-// of the TPU's gated (GATING / maxl) loops.  With records == nullptr only the
-// exits are written (the non-final rounds).
+// 10 x 32 each), its first-level decode table (10 x 2^kLutBits entries, from
+// decode3.walk_lut), its canonical prefix order and the mode -> stream map sit
+// in shared memory, and so do the words its chunks cover: one contiguous
+// range of blockDim * chunk_bits/32 + 8 words (at most kStageWords), copied
+// once.  Each step decodes one pixel group at bit p: the prefix symbol, then
+// the mode's payload codes; then p = max(p + 1, q).  A code is decoded by one
+// table lookup on the window's top kLutBits bits where the entry is exact
+// (decode3.walk_lut: the same length at the lowest and highest window of the
+// prefix, and at most kLutBits bits), else by the monotone threshold count of
+// derive_walk_tables, which stops at the first miss (the thresholds rise with
+// the length, so the sums equal those of the TPU's gated GATING / maxl
+// loops).  A window is two words, the last word repeating past the end as in
+// walk_ref; a window outside the staged range (an entry before its chunk's
+// start, when the previous chunk ran out of steps) is read from device
+// memory.  This replaces the TPU's per-chunk word blocks and two-level
+// one-hot fetch.  A chunk freezes at its bound or at wbits and writes pos = -1
+// and zeros for every later step.  A thread keeps kTile steps of records in
+// registers and stores them as whole 32-byte sectors: neighbouring threads'
+// records lie steps * 4 bytes apart, so one record a store would cost a
+// sector each.  With records == nullptr only the exits are written (the
+// non-final rounds).
 //
 // Bound: its least time is set by bytes (the records, 16 bytes a step, and
 // the words), but the kernel is held back by the serial chain of each
-// thread: every step waits on its window loads and a data-dependent
-// threshold loop, and there is one thread per chunk (2,064 chunks an image
-// on the main path), so the card holds few warps per SM and hides little
-// latency.  Splitting a chunk's walk across threads is later work.
+// thread: one thread per chunk (2,064 chunks an image on the main path)
+// leaves few warps per SM to hide latency, so the design shortens each
+// step's chain instead: shared-memory windows and one table load a code in
+// the common case, in place of two device-memory loads and a data-dependent
+// loop of up to 31 compares.
 // ---------------------------------------------------------------------------
+constexpr int kLutBits = 10;    // decode3.WALK_LUT_BITS
+constexpr int kLutIdxBits = 26;  // an exact entry is len << 26 | idx; slow entries are < 0
+constexpr int kLutSize = kStreams << kLutBits;
+constexpr int kStageWords = 12288;  // 48 KB of words at most
+constexpr int kWalkThreads = 64;
+constexpr int kTile = 8;  // steps of records buffered in registers
+
+// kTile ints from registers to 16-byte aligned memory.
+__device__ __forceinline__ void store_tile(int* dst, const int (&v)[kTile]) {
+  int4* d = reinterpret_cast<int4*>(dst);
+#pragma unroll
+  for (int i = 0; i < kTile / 4; ++i)
+    d[i] = make_int4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+}
+
 struct WalkTables {
+  int lut[kLutSize];  // first: 16-byte aligned for the int4 copy
   int aff[kStreams][kLens];
   int dD[kStreams][kLens];
   int inc[kStreams][kLens];
@@ -60,17 +86,37 @@ struct WalkTables {
   int slot[kModes][kSlots];
 };
 
-__device__ __forceinline__ uint32_t window(const uint32_t* __restrict__ w, int Wn, int q) {
-  const int i = q >> 5;
+struct Words {
+  const uint32_t* s;  // the staged words [lo, lo + n)
+  int lo, n;
+  const uint32_t* g;  // the image's words in device memory
+  int Wn;
+};
+
+__device__ __forceinline__ uint32_t window(const Words& w, int q) {
+  const int i0 = min(q >> 5, w.Wn - 1);
+  const int i1 = min((q >> 5) + 1, w.Wn - 1);
   const int sh = q & 31;
-  const uint32_t w0 = __ldg(w + min(i, Wn - 1));
-  const uint32_t w1 = __ldg(w + min(i + 1, Wn - 1));
+  uint32_t w0, w1;
+  if (i0 >= w.lo && i1 < w.lo + w.n) {
+    w0 = w.s[i0 - w.lo];
+    w1 = w.s[i1 - w.lo];
+  } else {
+    w0 = __ldg(w.g + i0);
+    w1 = __ldg(w.g + i1);
+  }
   return sh ? (w0 << sh) | (w1 >> (32 - sh)) : w0;
 }
 
 // (L, idx) of the canonical codeword at window win for stream s.
 __device__ __forceinline__ void canon(const WalkTables& t, int s, uint32_t win, int* L,
                                       int* idx) {
+  const int e = t.lut[(s << kLutBits) + (win >> (32 - kLutBits))];
+  if (e >= 0) {
+    *L = e >> kLutIdxBits;
+    *idx = e & ((1 << kLutIdxBits) - 1);
+    return;
+  }
   const int win_b = (int)(win ^ 0x80000000u);
   const int cap = t.cap[s];
   int len = 0;
@@ -84,20 +130,25 @@ __device__ __forceinline__ void canon(const WalkTables& t, int s, uint32_t win, 
   *idx = (int)(acc + (win >> (32 - max(len, 1))));
 }
 
-__global__ void walk_kernel(const uint32_t* __restrict__ words, int Wn,
-                            const int* __restrict__ entries, const int* __restrict__ aff,
-                            const int* __restrict__ dD, const int* __restrict__ inc,
-                            const int* __restrict__ pfx, const int* __restrict__ wbits,
-                            int* __restrict__ pos, int* __restrict__ sym, uint32_t* __restrict__ i12,
-                            uint32_t* __restrict__ i34, int* __restrict__ exits, int nch,
-                            int chunk_bits, int steps) {
-  __shared__ WalkTables t;
+__global__ void __launch_bounds__(kWalkThreads)
+    walk_kernel(const uint32_t* __restrict__ words, int Wn, const int* __restrict__ entries,
+                const int* __restrict__ aff, const int* __restrict__ dD,
+                const int* __restrict__ inc, const int* __restrict__ pfx,
+                const int* __restrict__ lut, const int* __restrict__ wbits, int* __restrict__ pos,
+                int* __restrict__ sym, uint32_t* __restrict__ i12, uint32_t* __restrict__ i34,
+                int* __restrict__ exits, int nch, int chunk_bits, int steps) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  WalkTables& t = *reinterpret_cast<WalkTables*>(smem);
+  uint32_t* s_words = reinterpret_cast<uint32_t*>(smem + sizeof(WalkTables));
   const int b = blockIdx.y;
   for (int i = threadIdx.x; i < kStreams * kLens; i += blockDim.x) {
     (&t.aff[0][0])[i] = aff[b * kStreams * kLens + i];
     (&t.dD[0][0])[i] = dD[b * kStreams * kLens + i];
     (&t.inc[0][0])[i] = inc[b * kStreams * kLens + i];
   }
+  const int4* lut4 = reinterpret_cast<const int4*>(lut + (long long)b * kLutSize);
+  for (int i = threadIdx.x; i < kLutSize / 4; i += blockDim.x)
+    reinterpret_cast<int4*>(t.lut)[i] = __ldg(lut4 + i);
   if (threadIdx.x < 16) t.pfx[threadIdx.x] = pfx[b * 16 + threadIdx.x];
   if (threadIdx.x == 0) {
     // _deep_cap(s) = min(31, alphabet - 1); SLOT_STREAM (-1: no code)
@@ -108,46 +159,72 @@ __global__ void walk_kernel(const uint32_t* __restrict__ words, int Wn,
     for (int m = 0; m < kModes; ++m)
       for (int k = 0; k < kSlots; ++k) t.slot[m][k] = slot[m][k];
   }
+  Words w;
+  w.g = words + (long long)b * Wn;
+  w.Wn = Wn;
+  w.s = s_words;
+  w.lo = blockIdx.x * blockDim.x * (chunk_bits >> 5);
+  const long long span = (long long)blockDim.x * (chunk_bits >> 5) + 8;
+  w.n = (int)max(0LL, min(min(span, (long long)kStageWords), (long long)Wn - w.lo));
+  for (int i = threadIdx.x; i < w.n; i += blockDim.x) s_words[i] = __ldg(w.g + w.lo + i);
   __syncthreads();
 
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= nch) return;
-  const uint32_t* w = words + (long long)b * Wn;
   const int limit = min((c + 1) * chunk_bits, wbits[b]);
   const long long chunk = (long long)b * nch + c;
+  // records go out kTile steps at a time, two 16-byte stores per array
+  // (whole 32-byte sectors); steps is a multiple of kTile
   int p = entries[chunk];
   int step = 0;
-  for (; step < steps && p < limit; ++step) {
-    int L0, idx0;
-    canon(t, kPrefixStream, window(w, Wn, p), &L0, &idx0);
-    const int m = (idx0 >= 0 && idx0 < kPrefixSymbols) ? t.pfx[idx0] : 0;
-    int q = p + L0;
-    int idx[kSlots] = {0, 0, 0, 0};
-    if (m >= 0 && m < kModes) {
-      for (int k = 0; k < kSlots; ++k) {
-        const int s = t.slot[m][k];
-        if (s < 0) continue;
-        int Lk;
-        canon(t, s, window(w, Wn, q), &Lk, &idx[k]);
-        q += Lk;
+  while (step < steps) {
+    int rp[kTile], rs[kTile], ra[kTile], rb[kTile];  // ra, rb: uint32 bit patterns
+#pragma unroll
+    for (int u = 0; u < kTile; ++u) {
+      rp[u] = -1;
+      rs[u] = 0;
+      ra[u] = 0;
+      rb[u] = 0;
+      if (p < limit) {
+        int L0, idx0;
+        canon(t, kPrefixStream, window(w, p), &L0, &idx0);
+        const int m = (idx0 >= 0 && idx0 < kPrefixSymbols) ? t.pfx[idx0] : 0;
+        int q = p + L0;
+        int idx[kSlots] = {0, 0, 0, 0};
+        if (m >= 0 && m < kModes) {
+          for (int k = 0; k < kSlots; ++k) {
+            const int s = t.slot[m][k];
+            if (s < 0) continue;
+            int Lk;
+            canon(t, s, window(w, q), &Lk, &idx[k]);
+            q += Lk;
+          }
+        }
+        rp[u] = p;
+        rs[u] = m;
+        ra[u] = (int)((uint32_t)idx[0] | ((uint32_t)idx[1] << 16));
+        rb[u] = (int)((uint32_t)idx[2] | ((uint32_t)idx[3] << 16));
+        p = max(p + 1, q);
       }
     }
     if (pos != nullptr) {
       const long long r = chunk * steps + step;
-      pos[r] = p;
-      sym[r] = m;
-      i12[r] = (uint32_t)idx[0] | ((uint32_t)idx[1] << 16);
-      i34[r] = (uint32_t)idx[2] | ((uint32_t)idx[3] << 16);
+      store_tile(pos + r, rp);
+      store_tile(sym + r, rs);
+      store_tile(reinterpret_cast<int*>(i12) + r, ra);
+      store_tile(reinterpret_cast<int*>(i34) + r, rb);
     }
-    p = max(p + 1, q);
+    step += kTile;
+    if (p >= limit) break;  // frozen: every later record is dead
   }
   if (pos != nullptr) {
-    for (; step < steps; ++step) {
-      const long long r = chunk * steps + step;
-      pos[r] = -1;
-      sym[r] = 0;
-      i12[r] = 0;
-      i34[r] = 0;
+    const int4 dead = make_int4(-1, -1, -1, -1), zero = make_int4(0, 0, 0, 0);
+    const long long r0 = chunk * steps;
+    for (; step < steps; step += 4) {
+      *reinterpret_cast<int4*>(pos + r0 + step) = dead;
+      *reinterpret_cast<int4*>(sym + r0 + step) = zero;
+      *reinterpret_cast<int4*>(i12 + r0 + step) = zero;
+      *reinterpret_cast<int4*>(i34 + r0 + step) = zero;
     }
   }
   exits[chunk] = p;
@@ -195,118 +272,468 @@ __global__ void value_join_kernel(const int* __restrict__ bins, const int* __res
 
 // ---------------------------------------------------------------------------
 // reconstruct_rows: replaces nicetpu/kernels/recon_pallas.py
-// reconstruct_rows_pallas (_recon_kernel).  The value chain
+// reconstruct_rows_pallas (_recon_kernel), with the segment-LUT scheme of
+// nicetpu/kernels/decode_dev.py reconstruct_rows.  The value chain
 //   out[p] = form_p(out[p-1], out[p-2], out[p-3], out[p-W], out[p-refoff]) + d
 // is serial through the whole raster for each (image, channel): `prev` wraps
-// from the end of one row to the start of the next, so a row cannot start
-// before the row above has finished (no row wavefront).  One warp per
-// (image, channel), row by row:
-//   1. the 32 lanes gather each pixel's chain-independent inputs (form,
-//      delta, the pixel above, the CONST reference) into one packed word in
-//      shared memory, from a ring of the last 4 rows (every reference reaches
-//      at most 3W + 3 back, which is inside 4 rows);
-//   2. lane 0 runs the chain over the row: per pixel one shared load of the
-//      packed word and a handful of integer ops on the lag registers;
-//   3. the lanes store the row to device memory, coalesced.
-// A CONST reference that lands in the current row (offsets W-3..W-1 from the
-// last 3 columns reach columns 0..2) is read by lane 0 from the row itself.
-// Reads before the raster start are zeros, as in reconstruct_rows and the
-// Pallas kernel.  refoff must hold 0 or one of decode_dev._const_offsets(W).
+// from the end of one row to the start of the next, so the rows go in order
+// (no row wavefront) and the work is spread *within* a row.  Each pixel reads
+// at most one chain value x (lag 1, 2 or 3; CONST reads none), and every form
+// is one expression,
+//   v = ((k * x + c) >> 1) & 255,  k = 2, c = 2d        for ADD1..3 (x + d)
+//                                  k = 1, c = ab + 2d   for HALF ((ab + x) >> 1) + d
+//                                  k = 0, c = 2(cv + d) for CONST,
+// so a pixel is a (lag, k, c) triple, fixed before the chain runs.  A segment
+// of kSeg pixels then maps the chain value at its entry to each of its last
+// three values: three 256-entry LUTs, each with a tag naming the entry lag it
+// reads.  One block per (image, channel) walks the rows; for each row:
+//   1. stage: the row's form, delta and refoff were copied into shared memory
+//      with cp.async while the previous row computed; the threads turn each
+//      pixel into its (lag, k, c), reading the pixel above and the CONST
+//      reference from a ring of the last 4 rows (every reference reaches at
+//      most 3W + 3 back), then start the next row's copy;
+//   2. build: one warp per segment, 8 candidate entry values a lane, pushes
+//      the candidates through the segment's pixels.  A value v rides as the
+//      float 2^23 + v, so one fused multiply-add rounded toward zero,
+//      x * (k / 2) + (2^23 - k 2^22 + c / 2), gives 2^23 + ((k v + c) >> 1)
+//      exactly (every operand is exact in float32), and one byte permute
+//      keeps the low byte (the & 255) under the exponent bits of 2^23: half
+//      of each step runs on the float pipe, which issues twice the integer
+//      pipe's rate.  A segment whose pixels all read lag 1 (HALF, ADD1,
+//      CONST: almost every pixel of a photo) takes a path with no select,
+//      and once the warp's 256 candidates share one value in each lag (HALF
+//      halves their spread, CONST ends it) it carries that one value; the
+//      tags follow the lags;
+//   3. resolve: one thread carries the true entry triple across the segments,
+//      three byte lookups each.  Past 2 * kGroup segments a warp first
+//      composes each group of kGroup segments into one LUT triple, so that
+//      the serial chain runs over the groups and then, in parallel, within
+//      each group;
+//   4. replay: one thread per segment runs its pixels from its true entry
+//      values, the same step on one value;
+//   5. fix-up: CONST references from the last 3 columns with offsets W-1..W-3
+//      land in columns 0..2 of the current row, which the build and replay
+//      read stale (as the JAX scheme does); one thread recomputes those three
+//      columns serially and stores them.
+// The build first packed four candidates a word with __vadd4 / __vhaddu4 and
+// a switch on the form; on the H100 that was slower: the intrinsics are
+// emulated by several integer instructions, and the switch became a chain of
+// dependent compare-and-branch steps at every pixel.
+// Reads before the raster start are zeros, as in decode_dev.reconstruct_rows
+// and the Pallas kernel.  refoff must hold 0 or one of
+// decode_dev._const_offsets(W) (every offset is >= max(4, W - 3)).
 //
-// Bound: its least time is set by bytes (32 a pixel), but the kernel is
-// held back by the chain's latency: lane 0 runs N = H * W dependent steps,
-// each row also waits for the lanes' global loads, and only 3 * B warps
-// run.  The TPU kernel's 256-candidate segment LUTs cut the dependent path
-// per row from W steps to about 2 * W / S + S, at 256 times the work;
-// bringing that to Hopper is later work.  The ring and the packed row take
-// 8 bytes a pixel of a row: in shared memory up to W = 29,048, in the
-// wrapper's scratch in device memory beyond.
+// Bound: its least time is set by bytes (32 a pixel), but the scheme does 256
+// candidates of work a pixel, two instructions each, so it is bound by the
+// issue rate of the few SMs it occupies (3 * B blocks, one per chain), plus
+// the per-row resolve (S steps) and replay (kSeg steps) latencies.  Tensor
+// cores have no part in this integer chain.  The buffers take about 53 bytes
+// a pixel of a row: in shared memory where they fit, beyond that in the
+// wrapper's scratch in device memory, sized by nt_recon_scratch_bytes
+// (without the cp.async staging; the loads go straight to the staging
+// step).
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ int chain_step(uint32_t pk, const uint8_t* cur, int& r1, int& r2,
-                                          int& r3) {
-  const int f = pk & 7;
-  const int d = (pk >> 3) & 255;
-  const int ab = (pk >> 11) & 255;
-  const int cc = pk >> 27;
-  int v;
-  switch (f) {
-    case 0:
-      v = (cc ? cur[cc - 1] : (pk >> 19) & 255) + d;
-      break;
-    case 1:
-      v = r1 + d;
-      break;
-    case 2:
-      v = r2 + d;
-      break;
-    case 3:
-      v = r3 + d;
-      break;
-    default:
-      v = ((ab + r1) >> 1) + d;
+constexpr int kSeg = 32;    // pixels a segment
+constexpr int kCand = 8;    // candidates a lane: a warp covers one segment's 256
+constexpr int kGroup = 16;  // segments a group of the two-level resolve
+constexpr uint32_t kTwo23 = 0x4B000000u;  // bits of 2^23
+
+__host__ __device__ constexpr size_t r16(size_t n) { return (n + 15) & ~size_t(15); }
+
+// Byte offsets of one chain's buffers.
+struct ReconLayout {
+  size_t fk, meta, ring, lut, tags, bnd, flag, glut, gtags, gbnd, stage, end;
+  __host__ __device__ explicit ReconLayout(int W) {
+    const size_t S = (W + kSeg - 1) / kSeg;
+    fk = 0;                                // per pixel: float2 (k / 2, addend)
+    meta = fk + r16(8 * (size_t)W);        // per pixel: lag | cc << 2 | d << 8
+    ring = meta + r16(4 * (size_t)W);      // rows r-4 .. r-1, stride r16(W)
+    lut = ring + 4 * r16(W);               // S x 3 lags x 256 bytes
+    tags = lut + 768 * S;                  // S words: t1 | t2 << 8 | t3 << 16
+    bnd = tags + r16(4 * S);               // S words: entry v1 | v2 << 8 | v3 << 16
+    flag = bnd + r16(4 * S);               // S words: a pixel reads lag 2 or 3
+    const size_t NG = (S + kGroup - 1) / kGroup;
+    glut = flag + r16(4 * S);              // NG composed LUT triples (two-level resolve)
+    gtags = glut + 768 * NG;               // their tags
+    gbnd = gtags + r16(4 * NG);            // their entry triples
+    stage = gbnd + r16(4 * NG);            // form, delta, refoff of the next row
+    end = stage + r16(12 * (size_t)W);     // (shared memory only)
   }
-  v &= 255;
-  r3 = r2;
-  r2 = r1;
-  r1 = v;
-  return v;
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-__global__ void reconstruct_rows_kernel(const int* __restrict__ form, const int* __restrict__ delta,
-                                        const int* __restrict__ refoff, int* __restrict__ out,
-                                        uint8_t* scratch, int N, int W) {
+// The value v as the float 2^23 + v, and back.
+__device__ __forceinline__ float as_chain(uint32_t v) { return __uint_as_float(kTwo23 | v); }
+__device__ __forceinline__ uint32_t chain_byte(float x) { return __float_as_uint(x) & 255; }
+
+// One step: 2^23 + (((k v + c) >> 1) & 255) from x = 2^23 + v; one byte
+// permute keeps the low byte and puts back the exponent bits of 2^23.
+__device__ __forceinline__ float chain_step(float x, float2 fk) {
+  return __uint_as_float(__byte_perm(__float_as_uint(__fmaf_rz(x, fk.x, fk.y)), kTwo23, 0x7650));
+}
+
+__device__ __forceinline__ float2 pixel_fk(uint32_t k, uint32_t c) {
+  // k / 2 and 2^23 - k 2^22 + c / 2, both exact in float32
+  return make_float2(0.5f * (float)k, (float)((2u << 22) - k * (1u << 22)) + 0.5f * (float)c);
+}
+
+// Carries the entry triple (v1, v2, v3) across the segments [s0, s1) of a LUT
+// array (768 bytes a segment), storing each segment's entry triple; the next
+// segment's tags are loaded ahead of this one's store, and where all three
+// LUTs read lag 1 the three lookups share one index.
+__device__ __forceinline__ void resolve_run(const uint8_t* lut, const uint32_t* tg,
+                                            uint32_t* entry, int s0, int s1, int v1, int v2,
+                                            int v3) {
+  uint32_t t_next = tg[s0];
+  for (int s = s0; s < s1; ++s) {
+    const uint32_t t = t_next;
+    if (s + 1 < s1) t_next = tg[s + 1];
+    const uint8_t* l = lut + s * 768;
+    entry[s] = v1 | (v2 << 8) | (v3 << 16);
+    int n1, n2, n3;
+    if (t == 0) {
+      n1 = l[v1];
+      n2 = l[256 + v1];
+      n3 = l[512 + v1];
+    } else {
+      const int a1 = t & 255, a2 = (t >> 8) & 255, a3 = t >> 16;
+      n1 = l[a1 == 0 ? v1 : a1 == 1 ? v2 : v3];
+      n2 = l[256 + (a2 == 0 ? v1 : a2 == 1 ? v2 : v3)];
+      n3 = l[512 + (a3 == 0 ? v1 : a3 == 1 ? v2 : v3)];
+    }
+    v1 = n1;
+    v2 = n2;
+    v3 = n3;
+  }
+}
+
+// One warp composes the segments [s0, s1) into one LUT triple (glut, 768
+// bytes) and its tags: lane l follows candidates 8l .. 8l+7 of each lag.
+__device__ __forceinline__ void compose_group(const uint8_t* lut, const uint32_t* tg, int s0,
+                                              int s1, uint8_t* glut, uint32_t* gtag, int lane) {
+  uint32_t v[3][kCand];
+#pragma unroll
+  for (int i = 0; i < kCand; ++i) v[0][i] = v[1][i] = v[2][i] = kCand * lane + i;
+  uint32_t g1 = 0, g2 = 1, g3 = 2;  // the group's entry lag each lag reads
+  for (int s = s0; s < s1; ++s) {
+    const uint32_t t = tg[s];
+    const uint8_t* l = lut + s * 768;
+    const uint32_t a1 = t & 255, a2 = (t >> 8) & 255, a3 = t >> 16;
+    uint32_t nv[3][kCand];
+#pragma unroll
+    for (int i = 0; i < kCand; ++i) {
+      nv[0][i] = l[a1 == 0 ? v[0][i] : a1 == 1 ? v[1][i] : v[2][i]];
+      nv[1][i] = l[256 + (a2 == 0 ? v[0][i] : a2 == 1 ? v[1][i] : v[2][i])];
+      nv[2][i] = l[512 + (a3 == 0 ? v[0][i] : a3 == 1 ? v[1][i] : v[2][i])];
+    }
+#pragma unroll
+    for (int i = 0; i < kCand; ++i) {
+      v[0][i] = nv[0][i];
+      v[1][i] = nv[1][i];
+      v[2][i] = nv[2][i];
+    }
+    const uint32_t h1 = a1 == 0 ? g1 : a1 == 1 ? g2 : g3;
+    const uint32_t h2 = a2 == 0 ? g1 : a2 == 1 ? g2 : g3;
+    const uint32_t h3 = a3 == 0 ? g1 : a3 == 1 ? g2 : g3;
+    g1 = h1;
+    g2 = h2;
+    g3 = h3;
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    uint32_t* dst = reinterpret_cast<uint32_t*>(glut + k * 256 + kCand * lane);
+    dst[0] = v[k][0] | (v[k][1] << 8) | (v[k][2] << 16) | (v[k][3] << 24);
+    dst[1] = v[k][4] | (v[k][5] << 8) | (v[k][6] << 16) | (v[k][7] << 24);
+  }
+  if (lane == 0) *gtag = g1 | (g2 << 8) | (g3 << 16);
+}
+
+constexpr int kCollapseFirst = 12;  // build steps before the first collapse test
+constexpr int kCollapseEvery = 4;   // and between the later ones
+
+// One build step of a lag-1 pixel on a lane's candidates.
+__device__ __forceinline__ void lag1_step(float2 p, float (&r1)[kCand], float (&r2)[kCand],
+                                          float (&r3)[kCand]) {
+#pragma unroll
+  for (int i = 0; i < kCand; ++i) {
+    r3[i] = r2[i];
+    r2[i] = r1[i];
+    r1[i] = chain_step(r1[i], p);
+  }
+}
+
+// Whether every candidate of the warp holds one value in each lag.
+__device__ __forceinline__ bool all_equal(const float (&r1)[kCand], const float (&r2)[kCand],
+                                          const float (&r3)[kCand]) {
+  const float a1 = __shfl_sync(0xffffffffu, r1[0], 0);
+  const float a2 = __shfl_sync(0xffffffffu, r2[0], 0);
+  const float a3 = __shfl_sync(0xffffffffu, r3[0], 0);
+  bool eq = true;
+#pragma unroll
+  for (int i = 0; i < kCand; ++i) eq &= (r1[i] == a1) & (r2[i] == a2) & (r3[i] == a3);
+  return __all_sync(0xffffffffu, eq);
+}
+
+// Four candidates' low bytes packed into a word.
+__device__ __forceinline__ uint32_t pack4(const float* x) {
+  const uint32_t lo = __byte_perm(__float_as_uint(x[0]), __float_as_uint(x[1]), 0x0040);
+  const uint32_t hi = __byte_perm(__float_as_uint(x[2]), __float_as_uint(x[3]), 0x0040);
+  return __byte_perm(lo, hi, 0x5410);
+}
+
+template <bool kStaged>
+__global__ void __launch_bounds__(1024)
+    reconstruct_rows_kernel(const int* __restrict__ form, const int* __restrict__ delta,
+                            const int* __restrict__ refoff, int* __restrict__ out,
+                            uint8_t* scratch, int N, int W) {
   extern __shared__ __align__(16) uint8_t smem[];
+  const ReconLayout lay(W);
   const int bc = blockIdx.x;  // b * 3 + c
   const long long b = bc / 3;
-  const long long stride = (8LL * W + 15) / 16 * 16;  // recon._scratch_stride
-  uint8_t* buf = scratch ? scratch + bc * stride : smem;
-  uint32_t* pre = reinterpret_cast<uint32_t*>(buf);  // packed inputs of the row, 4W bytes
-  uint8_t* ring = buf + 4LL * W;                      // rows r-4 .. r-1, slot (row & 3)
-  const int lane = threadIdx.x;
-  for (int i = lane; i < 4 * W; i += 32) ring[i] = 0;
-  __syncwarp();
+  uint8_t* buf = kStaged ? smem : scratch + (long long)bc * lay.stage;
+  float2* fk = reinterpret_cast<float2*>(buf + lay.fk);
+  uint32_t* meta = reinterpret_cast<uint32_t*>(buf + lay.meta);
+  uint8_t* ring = buf + lay.ring;
+  uint32_t* lut32 = reinterpret_cast<uint32_t*>(buf + lay.lut);
+  const uint8_t* lut8 = buf + lay.lut;
+  uint32_t* tags = reinterpret_cast<uint32_t*>(buf + lay.tags);
+  uint32_t* bnd = reinterpret_cast<uint32_t*>(buf + lay.bnd);
+  uint32_t* flag = reinterpret_cast<uint32_t*>(buf + lay.flag);
+  uint8_t* glut = buf + lay.glut;
+  uint32_t* gtags = reinterpret_cast<uint32_t*>(buf + lay.gtags);
+  uint32_t* gbnd = reinterpret_cast<uint32_t*>(buf + lay.gbnd);
+  int* st_form = reinterpret_cast<int*>(buf + lay.stage);
+  int* st_delta = st_form + W;
+  int* st_ro = st_delta + W;
 
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int Wp = (int)r16(W);
+  const int S = (W + kSeg - 1) / kSeg;
+  const int H = N / W;
   const int* f_img = form + b * N;
   const int* ro_img = refoff + b * N;
   const int* d_img = delta + (long long)bc * N;
   int* o_img = out + (long long)bc * N;
-  const int H = N / W;
-  int r1 = 0, r2 = 0, r3 = 0;
+
+  for (int i = tid; i < 4 * Wp; i += nt) ring[i] = 0;
+  for (int s = tid; s < S; s += nt) flag[s] = 0;
+  auto fetch = [&](int r) {  // cp.async the inputs of row r into the stage
+    const long long base = (long long)r * W;
+    for (int x = tid; x < W; x += nt) {
+      cp_async4(st_form + x, f_img + base + x);
+      cp_async4(st_delta + x, d_img + base + x);
+      cp_async4(st_ro + x, ro_img + base + x);
+    }
+    cp_async_commit();
+  };
+  if (kStaged) fetch(0);
+
   for (int r = 0; r < H; ++r) {
-    uint8_t* cur = ring + (r & 3) * W;
-    const uint8_t* above = ring + ((r + 3) & 3) * W;  // row r - 1 (zeros before row 0)
-    for (int x = lane; x < W; x += 32) {
+    uint8_t* cur = ring + (r & 3) * Wp;
+    const uint8_t* above = ring + ((r + 3) & 3) * Wp;  // row r - 1 (zeros before row 0)
+    if (kStaged) cp_async_wait_all();
+    __syncthreads();  // the stage, the flags, and the previous row's ring and fix-up
+
+    // 1. stage: each pixel's (lag, k, c)
+    for (int x = tid; x < W; x += nt) {
       const long long i = (long long)r * W + x;
-      const int f0 = f_img[i];
-      const int f = (f0 >= 0 && f0 <= 3) ? f0 : 4;  // any other form is HALF
-      const int ro = ro_img[i];
-      uint32_t cv = 0, cc = 0;  // cc: 1 + column of a reference in the current row
+      const int f = kStaged ? st_form[x] : f_img[i];  // any form outside 0..3 is HALF
+      const int ro = kStaged ? st_ro[x] : ro_img[i];
+      const uint32_t d = (kStaged ? st_delta[x] : d_img[i]) & 255;
+      uint32_t cv = 0, cc = 0;
       if (ro > 0) {
         const int k = x - ro;
         if (k >= 0) {
-          cc = k + 1;
+          cc = k + 1;  // 1 + column of a reference into this row, fixed up later
         } else {
-          const int back = (W - 1 - k) / W;  // rows back, 1..4
-          cv = r >= back ? ring[((r - back) & 3) * W + k + back * W] : 0;
+          // rows back, 1..4 (k >= -(3W + 3))
+          const int back = k >= -W ? 1 : (k >= -2 * W ? 2 : (k >= -3 * W ? 3 : 4));
+          cv = r >= back ? ring[((r - back) & 3) * Wp + k + back * W] : 0;
         }
       }
-      pre[x] = f | ((uint32_t)(d_img[i] & 255) << 3) | ((uint32_t)above[x] << 11) | (cv << 19) |
-               (cc << 27);
-    }
-    __syncwarp();
-    if (lane == 0) {
-      int x = 0;
-      for (; x + 4 <= W; x += 4) {
-        const uint4 p4 = *reinterpret_cast<const uint4*>(pre + x);
-        cur[x] = chain_step(p4.x, cur, r1, r2, r3);
-        cur[x + 1] = chain_step(p4.y, cur, r1, r2, r3);
-        cur[x + 2] = chain_step(p4.z, cur, r1, r2, r3);
-        cur[x + 3] = chain_step(p4.w, cur, r1, r2, r3);
+      uint32_t c, k, lag = 1;
+      if (f == 0) {
+        k = 0;
+        c = 2 * ((cv + d) & 255);
+      } else if (f >= 1 && f <= 3) {
+        k = 2;
+        c = 2 * d;
+        lag = f;
+        cc = 0;
+      } else {
+        k = 1;
+        c = above[x] + 2 * d;
+        cc = 0;
       }
-      for (; x < W; ++x) cur[x] = chain_step(pre[x], cur, r1, r2, r3);
+      fk[x] = pixel_fk(k, c);
+      meta[x] = lag | (cc << 2) | (d << 8);
+      if (lag != 1) flag[x / kSeg] = 1;
     }
-    __syncwarp();
-    for (int x = lane; x < W; x += 32) o_img[(long long)r * W + x] = cur[x];
+    __syncthreads();
+    if (kStaged && r + 1 < H) fetch(r + 1);  // overlaps the rest of this row
+
+    // 2. build: item = (segment s, lane l holding candidates 8l .. 8l+7)
+    for (int item = tid; item < S * 32; item += nt) {
+      const int s = item >> 5;
+      const int l = item & 31;
+      const int x0 = s * kSeg;
+      const int n = min(kSeg, W - x0);
+      float r1[kCand], r2[kCand], r3[kCand];
+#pragma unroll
+      for (int i = 0; i < kCand; ++i) r1[i] = r2[i] = r3[i] = as_chain(kCand * l + i);
+      uint32_t t1 = 0, t2 = 1, t3 = 2;
+      if (n == kSeg && !flag[s]) {  // every pixel reads lag 1: the tags end at 0
+        // HALF halves the spread of the candidates and CONST ends it, so the
+        // 256 candidates soon share one value in each lag: from there one
+        // value is carried for all of them
+#pragma unroll
+        for (int j = 0; j < kCollapseFirst; ++j) lag1_step(fk[x0 + j], r1, r2, r3);
+        bool one = all_equal(r1, r2, r3);
+#pragma unroll
+        for (int j0 = kCollapseFirst; j0 < kSeg; j0 += kCollapseEvery) {
+          if (!one) {  // the same for the whole warp
+#pragma unroll
+            for (int j = j0; j < j0 + kCollapseEvery; ++j) lag1_step(fk[x0 + j], r1, r2, r3);
+            one = all_equal(r1, r2, r3);
+          } else {
+#pragma unroll
+            for (int j = j0; j < j0 + kCollapseEvery; ++j) {
+              r3[0] = r2[0];
+              r2[0] = r1[0];
+              r1[0] = chain_step(r1[0], fk[x0 + j]);
+            }
+          }
+        }
+        if (one) {
+#pragma unroll
+          for (int i = 1; i < kCand; ++i) {
+            r1[i] = r1[0];
+            r2[i] = r2[0];
+            r3[i] = r3[0];
+          }
+        }
+        t1 = t2 = t3 = 0;
+      } else {
+        for (int j = 0; j < n; ++j) {
+          const float2 p = fk[x0 + j];
+          const uint32_t lag = meta[x0 + j] & 3;
+#pragma unroll
+          for (int i = 0; i < kCand; ++i) {
+            const float x = lag == 3 ? r3[i] : (lag == 2 ? r2[i] : r1[i]);
+            r3[i] = r2[i];
+            r2[i] = r1[i];
+            r1[i] = chain_step(x, p);
+          }
+          const uint32_t tn = lag == 3 ? t3 : (lag == 2 ? t2 : t1);
+          t3 = t2;
+          t2 = t1;
+          t1 = tn;
+        }
+      }
+      uint2* lut2 = reinterpret_cast<uint2*>(lut32);
+      lut2[(s * 3 + 0) * 32 + l] = make_uint2(pack4(r1), pack4(r1 + 4));
+      lut2[(s * 3 + 1) * 32 + l] = make_uint2(pack4(r2), pack4(r2 + 4));
+      lut2[(s * 3 + 2) * 32 + l] = make_uint2(pack4(r3), pack4(r3 + 4));
+      if (l == 0) tags[s] = t1 | (t2 << 8) | (t3 << 16);
+    }
+    __syncthreads();
+
+    // 3. resolve: the entry triple of every segment.  Past 2 * kGroup
+    //    segments, a warp first composes each group of kGroup segments into
+    //    one LUT triple, one thread carries the triple across the groups, and
+    //    one thread per group then across its segments.
+    if (S <= 2 * kGroup) {
+      if (tid == 0) resolve_run(lut8, tags, bnd, 0, S, above[W - 1], above[W - 2], above[W - 3]);
+    } else {
+      const int NG = (S + kGroup - 1) / kGroup;
+      for (int g = tid >> 5; g < NG; g += nt >> 5)
+        compose_group(lut8, tags, g * kGroup, min(S, (g + 1) * kGroup), glut + g * 768, gtags + g,
+                      tid & 31);
+      __syncthreads();
+      if (tid == 0) resolve_run(glut, gtags, gbnd, 0, NG, above[W - 1], above[W - 2], above[W - 3]);
+      __syncthreads();
+      for (int g = tid; g < NG; g += nt) {
+        const uint32_t e = gbnd[g];
+        resolve_run(lut8, tags, bnd, g * kGroup, min(S, (g + 1) * kGroup), e & 255, (e >> 8) & 255,
+                    e >> 16);
+      }
+    }
+    __syncthreads();
+
+    // 4. replay: one thread per segment, four bytes to a ring word
+    for (int s = tid; s < S; s += nt) {
+      const uint32_t e = bnd[s];
+      float v1 = as_chain(e & 255), v2 = as_chain((e >> 8) & 255), v3 = as_chain(e >> 16);
+      const int x0 = s * kSeg;
+      const int n = min(kSeg, W - x0);
+      const bool lag1 = !flag[s];
+      flag[s] = 0;  // read by this row's build only
+      uint32_t* cur32 = reinterpret_cast<uint32_t*>(cur + x0);
+      if (n == kSeg) {  // straight-line, 8 pixels' loads ahead of the chain
+#pragma unroll
+        for (int j0 = 0; j0 < kSeg; j0 += 8) {
+          float2 p[8];
+          uint32_t lag[8];
+          float v[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            p[u] = fk[x0 + j0 + u];
+            lag[u] = lag1 ? 1 : meta[x0 + j0 + u] & 3;
+          }
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const float x = lag[u] == 3 ? v3 : (lag[u] == 2 ? v2 : v1);
+            v3 = v2;
+            v2 = v1;
+            v[u] = v1 = chain_step(x, p[u]);
+          }
+          cur32[j0 >> 2] = pack4(v);
+          cur32[(j0 >> 2) + 1] = pack4(v + 4);
+        }
+      } else {
+        for (int j0 = 0; j0 < n; j0 += 4) {
+          float v[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (j0 + u < n) {
+              const uint32_t lag = meta[x0 + j0 + u] & 3;
+              const float x = lag == 3 ? v3 : (lag == 2 ? v2 : v1);
+              v3 = v2;
+              v2 = v1;
+              v1 = chain_step(x, fk[x0 + j0 + u]);
+            }
+            v[u] = v1;
+          }
+          cur32[j0 >> 2] = pack4(v);
+        }
+      }
+    }
+    __syncthreads();
+
+    // store all but the last 3 columns; 5. one thread fixes those up
+    for (int x = tid; x < W - 3; x += nt) o_img[(long long)r * W + x] = cur[x];
+    if (tid == 0) {
+      for (int x = W - 3; x < W; ++x) {
+        const uint32_t m = meta[x];
+        const uint32_t cc = (m >> 2) & 3, lag = m & 3;
+        float2 p = fk[x];
+        if (cc) p = pixel_fk(0, 2 * ((cur[cc - 1] + (m >> 8)) & 255));
+        const int back = x - (int)lag;  // the lag's column, -2 .. W - 2
+        const uint32_t xv = back >= 0 ? cur[back] : above[W + back];
+        const uint32_t v = chain_byte(chain_step(as_chain(xv), p));
+        cur[x] = v;
+        o_img[(long long)r * W + x] = v;
+      }
+    }
   }
 }
 
@@ -315,19 +742,24 @@ __global__ void reconstruct_rows_kernel(const int* __restrict__ form, const int*
 extern "C" {
 
 int nt_walk(const void* words, int Wn, const void* entries, const void* aff, const void* dD,
-            const void* inc, const void* pfx, const void* wbits, void* pos, void* sym, void* i12,
-            void* i34, void* exits, int B, int nch, int chunk_bits, int steps, int device,
-            void* stream) {
+            const void* inc, const void* pfx, const void* lut, const void* wbits, void* pos,
+            void* sym, void* i12, void* i34, void* exits, int B, int nch, int chunk_bits,
+            int steps, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  constexpr int kWalkThreads = 64;
+  const long long stage = (long long)kWalkThreads * (chunk_bits / 32) + 8;
+  const size_t smem = sizeof(WalkTables) + 4 * (size_t)(stage < kStageWords ? stage : kStageWords);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   dim3 grid((nch + kWalkThreads - 1) / kWalkThreads, B);
-  walk_kernel<<<grid, kWalkThreads, 0, (cudaStream_t)stream>>>(
+  walk_kernel<<<grid, kWalkThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const uint32_t*>(words), Wn, static_cast<const int*>(entries),
       static_cast<const int*>(aff), static_cast<const int*>(dD), static_cast<const int*>(inc),
-      static_cast<const int*>(pfx), static_cast<const int*>(wbits), static_cast<int*>(pos),
-      static_cast<int*>(sym), static_cast<uint32_t*>(i12), static_cast<uint32_t*>(i34),
-      static_cast<int*>(exits), nch, chunk_bits, steps);
+      static_cast<const int*>(pfx), static_cast<const int*>(lut), static_cast<const int*>(wbits),
+      static_cast<int*>(pos), static_cast<int*>(sym), static_cast<uint32_t*>(i12),
+      static_cast<uint32_t*>(i34), static_cast<int*>(exits), nch, chunk_bits, steps);
   return (int)cudaGetLastError();
 }
 
@@ -341,20 +773,39 @@ int nt_value_join(const void* bins, const void* tbl, void* out, int K, int B, lo
   return (int)cudaGetLastError();
 }
 
+// Per-chain scratch bytes that nt_reconstruct_rows needs at width W on this
+// device: 0 when its buffers fit in a block's shared memory, -1 on error.
+long long nt_recon_scratch_bytes(int W, int device) {
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess)
+    return -1;
+  const ReconLayout lay(W);
+  return lay.end <= (size_t)optin ? 0 : (long long)lay.stage;
+}
+
 int nt_reconstruct_rows(const void* form, const void* delta, const void* refoff, void* out,
                         void* scratch, int B, int N, int W, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = scratch ? 0 : 8 * (size_t)W;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(reconstruct_rows_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  const int S = (W + kSeg - 1) / kSeg;
+  const int threads = 32 * S < 256 ? 256 : (32 * S > 1024 ? 1024 : 32 * S);
+  const int* f = static_cast<const int*>(form);
+  const int* d = static_cast<const int*>(delta);
+  const int* ro = static_cast<const int*>(refoff);
+  int* o = static_cast<int*>(out);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (scratch) {
+    reconstruct_rows_kernel<false>
+        <<<3 * B, threads, 0, st>>>(f, d, ro, o, static_cast<uint8_t*>(scratch), N, W);
+  } else {
+    const size_t smem = ReconLayout(W).end;
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(reconstruct_rows_kernel<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    reconstruct_rows_kernel<true><<<3 * B, threads, smem, st>>>(f, d, ro, o, nullptr, N, W);
   }
-  reconstruct_rows_kernel<<<3 * B, 32, smem, (cudaStream_t)stream>>>(
-      static_cast<const int*>(form), static_cast<const int*>(delta),
-      static_cast<const int*>(refoff), static_cast<int*>(out), static_cast<uint8_t*>(scratch), N,
-      W);
   return (int)cudaGetLastError();
 }
 

@@ -92,8 +92,8 @@ def load() -> ctypes.CDLL:
             "nt_histogram": [vp, vp, i32, i64, i32, vp],
             "nt_table_join": [vp, vp, vp, vp, vp, i32, i64, i32, vp],
             "nt_fold_records": [vp, vp, vp, vp, i32, i32, i32, i32, vp],
-            "nt_walk": [vp, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                        i32, vp],
+            "nt_walk": [vp, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32,
+                        i32, i32, vp],
             "nt_value_join": [vp, vp, vp, i32, i32, i64, i32, vp],
             "nt_reconstruct_rows": [vp, vp, vp, vp, vp, i32, i32, i32, i32, vp],
         }
@@ -101,6 +101,8 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.restype = i32
             fn.argtypes = argtypes
+        lib.nt_recon_scratch_bytes.restype = i64
+        lib.nt_recon_scratch_bytes.argtypes = [i32, i32]
         lib.nt_error_string.restype = ctypes.c_char_p
         lib.nt_error_string.argtypes = [i32]
         _lib = lib

@@ -3,10 +3,12 @@
 Counterpart of `nicetpu/kernels/recon_pallas.py`.  The wrapper launches the
 CUDA kernel `nt_reconstruct_rows` (`csrc/decode_kernels.cu`) for CUDA
 tensors and runs the plain version, `decode_dev.reconstruct_rows`, for CPU
-ones.  Both read zeros before the raster start.  The Pallas kernel's
-256-candidate segment LUTs, its 128-lane segments, the `MAX_BS` batch
-chunking and the B=1 padding are TPU artefacts and are not carried over:
-the kernel takes every width >= MIN_WIDTH and any batch.
+ones.  Both read zeros before the raster start.  The kernel runs the
+segment-LUT scheme of the JAX `decode_dev.reconstruct_rows` (segments of
+32 pixels, 256 candidate entry values each) one block per (image, channel);
+the Pallas kernel's 128-lane segments, the `MAX_BS` batch chunking and the
+B=1 padding are TPU artefacts and are not carried over: the kernel takes
+every width >= MIN_WIDTH and any batch.
 """
 
 from __future__ import annotations
@@ -16,17 +18,7 @@ import ctypes
 import torch
 
 from nicetpu_torch.format import constants as C
-from nicetpu_torch.kernels import cuda_ops, decode_dev
-
-# Widths up to this keep the kernel's row buffers (8 bytes a pixel of a row)
-# in shared memory; wider rows use a scratch buffer in device memory, one
-# 16-byte-aligned stretch per (image, channel).
-SMEM_MAX_WIDTH = (227 * 1024 - 64) // 8
-
-
-def _scratch_stride(width: int) -> int:
-    return -(-8 * width // 16) * 16
-
+from nicetpu_torch.kernels import build, cuda_ops, decode_dev
 
 def reconstruct_rows(form, delta, refoff, *, width: int):
     """form, refoff (B, N) int32; delta (B, 3, N) int32 channel-planar;
@@ -47,9 +39,14 @@ def reconstruct_rows(form, delta, refoff, *, width: int):
     if 3 * B > 2**31 - 1 or N >= 2**31:
         raise ValueError(f"reconstruct_rows shape ({B}, {N}) out of range")
     out = torch.empty(B, 3, N, dtype=torch.int32, device=form.device)
+    # rows too wide for a block's shared memory keep the kernel's buffers in
+    # device memory, one stretch per (image, channel)
+    stride = build.load().nt_recon_scratch_bytes(width, form.device.index)
+    if stride < 0:
+        raise RuntimeError(f"nt_recon_scratch_bytes failed for width {width}")
     scratch = None
-    if width > SMEM_MAX_WIDTH:
-        scratch = torch.empty(3 * B, _scratch_stride(width), dtype=torch.uint8, device=form.device)
+    if stride:
+        scratch = torch.empty(3 * B, stride, dtype=torch.uint8, device=form.device)
     cuda_ops.launch(
         "reconstruct_rows", "nt_reconstruct_rows", cuda_ops.ptr(form), cuda_ops.ptr(delta),
         cuda_ops.ptr(refoff), cuda_ops.ptr(out),

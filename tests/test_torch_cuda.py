@@ -14,7 +14,7 @@ import torch
 import nicetpu_torch
 from nicetpu_torch.format import constants as C
 from nicetpu_torch.hostref import oracle
-from nicetpu_torch.kernels import cuda_ops, decode3, decode_dev, recon
+from nicetpu_torch.kernels import build, cuda_ops, decode3, decode_dev, recon
 
 pytestmark = pytest.mark.cuda
 
@@ -154,6 +154,70 @@ def test_walk_matches_plain(dev, B, h, w, chunk_bits, steps_div):
         e = torch.cat([torch.zeros_like(got[4][:, :1]), got[4][:, :-1]], dim=1)
 
 
+def _deep_stream(groups=6000, seed=0):
+    """Random pixel groups under tables with codes up to 31 bits: Fibonacci
+    counts on the 32-symbol LUMA_OTHER_DIFF stream (the deep-code fixture of
+    test_torch_huffman_dev, built here with the port's own tables, so that
+    this file needs no JAX), symbols drawn uniformly so that deep codes are
+    common.  Returns (words (1, Wn) int32 with an 80-word zero tail, wbits,
+    aff, dD, inc, pfx) on the CPU."""
+    from nicetpu_torch.kernels import huffman_dev
+
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, 1000, (1, C.TOTAL_SYMBOLS)).astype(np.int32)
+    fib = [1, 1]
+    while len(fib) < 32:
+        fib.append(fib[-1] + fib[-2])
+    base = C.STREAM_BASE[C.SC_LUMA_OTHER_DIFF]
+    counts[0, base : base + 32] = fib
+    lengths, codes, _ = huffman_dev.build_tables_device(torch.from_numpy(counts))
+    lengths, codes = lengths[0].numpy().astype(np.int64), codes[0].numpy().view(np.uint32)
+    assert lengths[base : base + 32].max() == C.MAX_CODE_LEN
+    bits = []
+
+    def put(s, sym):
+        ln, code = int(lengths[C.STREAM_BASE[s] + sym]), int(codes[C.STREAM_BASE[s] + sym])
+        bits.extend((code >> (ln - 1 - i)) & 1 for i in range(ln))
+
+    for _ in range(groups):
+        mode = int(rng.choice([2, 2, 2, 0, 1, 3, 4, 7]))  # mostly COLOR_LUMA
+        put(C.SC_PREFIXES, mode)
+        if mode < 5:
+            for s in decode_dev.SLOT_STREAM[mode]:
+                if s >= 0:
+                    put(s, int(rng.integers(0, C.ALPHABET_SIZES[s])))
+    wbits = len(bits)
+    bits += [0] * (-len(bits) % 32 + 32 * 80)
+    words = np.packbits(np.array(bits, np.uint8)).view(">u4").astype(np.uint32).view(np.int32)
+    af, pr, ib, pfx, *_ = decode3.prepare_tables_v3(torch.from_numpy(lengths[None]))
+    aff, dD, inc = decode3.derive_walk_tables(af, pr, ib)
+    return torch.from_numpy(words[None].copy()), torch.tensor([wbits], dtype=torch.int32), aff, dD, inc, pfx
+
+
+# "budget": a step budget too small to cross a chunk, so that the final round's
+# entries lie before their chunks' starts (windows outside the staged words);
+# "random": entries anywhere in the payload, before and past each block's range
+@pytest.mark.parametrize("entries", ["budget", "random"])
+@pytest.mark.parametrize("chunk_bits", [512, 2048])
+def test_walk_deep_codes_off_the_staged_words(dev, entries, chunk_bits):
+    words, wbits, aff, dD, inc, pfx = (t.to(dev) for t in _deep_stream())
+    nch = -(-int(wbits[0]) // chunk_bits)
+    steps = 8 if entries == "budget" else decode3._steps(chunk_bits, 8)
+    kw = dict(chunk_bits=chunk_bits, steps=steps)
+    if entries == "budget":
+        e0 = (torch.arange(nch, dtype=torch.int32, device=dev) * chunk_bits)[None]
+        ex = decode3.walk(words, e0, aff, dD, inc, pfx, wbits, records=False, **kw)[4]
+        e = torch.cat([torch.zeros_like(ex[:, :1]), ex[:, :-1]], dim=1)
+        assert bool((e[:, 1:] < e0[:, 1:]).all())
+    else:
+        rng = np.random.default_rng(chunk_bits)
+        e = torch.from_numpy(rng.integers(0, int(wbits[0]), (1, nch)).astype(np.int32)).to(dev)
+    got = decode3.walk(words, e, aff, dD, inc, pfx, wbits, **kw)
+    want = decode3.walk_plain(words, e, aff, dD, inc, pfx, wbits, **kw)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+
+
 @pytest.mark.parametrize("K,B,M", [(4, 2, 3000), (1, 1, 1), (4, 8, 100_003)])
 def test_value_join_matches_plain(dev, K, B, M):
     rng = np.random.default_rng(M)
@@ -175,10 +239,15 @@ def _recon_inputs(B, H, W, seed):
     return [torch.from_numpy(a) for a in (form, delta, refoff)]
 
 
-# widths 4 and 20 (the smallest and the golden rasters'), a ragged width, and
-# one past the shared-memory limit (the scratch path)
-@pytest.mark.parametrize("B,H,W", [(1, 9, 4), (2, 7, 20), (3, 5, 37), (1, 2, recon.SMEM_MAX_WIDTH + 3)])
+# widths 4 and 20 (the smallest and the golden rasters'), a ragged width, the
+# main path's width at 64 rows (B = 1 and 8), 1100 (35 segments, the last one
+# ragged: the two-level resolve), 4096 (128 segments), and 5000, past the
+# shared-memory limit (LUTs, ring and row buffers in device-memory scratch)
+@pytest.mark.parametrize("B,H,W", [(1, 9, 4), (2, 7, 20), (3, 5, 37), (1, 64, 512), (8, 64, 512),
+                                   (2, 5, 1100), (1, 3, 4096), (1, 2, 5000)])
 def test_reconstruct_rows_matches_plain(dev, B, H, W):
+    scratch = build.load().nt_recon_scratch_bytes(W, torch.cuda.current_device())
+    assert (scratch > 0) == (W == 5000)
     form, delta, refoff = (t.to(dev) for t in _recon_inputs(B, H, W, seed=W))
     before = cuda_ops.LAUNCHES["reconstruct_rows"]
     got = recon.reconstruct_rows(form, delta, refoff, width=W)
