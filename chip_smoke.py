@@ -233,20 +233,15 @@ def phase_decode_kernels(dev) -> dict:
     print(f"[kernel] walk inputs: words {tuple(wi.shape)}, {nch} chunks x {steps} steps, "
           f"payload bits {totals.tolist()}; round 1 exits equal the plain version's")
 
-    lut = decode3.walk_lut(aff, dD, inc)
-    lut_ms = cuda_ms(lambda: decode3.walk_lut(aff, dD, inc), 20)
-    exact = float((lut >= 0).float().mean())
-    kw_l = dict(kw, lut=lut)
-    rec_ms = cuda_ms(lambda: decode3.walk(wi, e, aff, dD, inc, pfx, wbits, **kw_l), 20)
-    norec_ms = cuda_ms(lambda: decode3.walk(wi, e, aff, dD, inc, pfx, wbits, records=False, **kw_l), 20)
+    rec_ms = cuda_ms(lambda: decode3.walk(wi, e, aff, dD, inc, pfx, wbits, **kw), 20)
+    norec_ms = cuda_ms(lambda: decode3.walk(wi, e, aff, dD, inc, pfx, wbits, records=False, **kw), 20)
     print(f"[kernel] walk final round: {rec_ms:.4f} ms with records, {norec_ms:.4f} ms without "
-          f"(the record stores' share: {1 - norec_ms / rec_ms:.3f}); first-level table "
-          f"(walk_lut, torch ops, once a decode) {lut_ms:.4f} ms, {exact:.4f} of its entries exact")
+          f"(the record stores' share: {1 - norec_ms / rec_ms:.3f})")
     out = {"walk": compare(
-        "walk", lambda: decode3.walk(wi, e, aff, dD, inc, pfx, wbits, **kw_l),
+        "walk", lambda: decode3.walk(wi, e, aff, dD, inc, pfx, wbits, **kw),
         lambda: decode3.walk_plain(wi, e, aff, dD, inc, pfx, wbits, **kw), plain_reps=1,
         note=" (final round, records stored)")}
-    pos, sym, i12, i34, ex2 = decode3.walk(wi, e, aff, dD, inc, pfx, wbits, **kw_l)
+    pos, sym, i12, i34, ex2 = decode3.walk(wi, e, aff, dD, inc, pfx, wbits, **kw)
     live = pos >= 0
     npay = torch.tensor(NPAYLOAD + (0,) * 11, device=dev)[sym.clamp(0, 15).long()]
     codes_n = int((live * (1 + npay)).sum())

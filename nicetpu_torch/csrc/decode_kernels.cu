@@ -27,31 +27,51 @@ constexpr int kPrefixSymbols = 13;  // its alphabet
 constexpr int kModes = 5;           // prefixes 0..4 carry payload; 5..12 are run digits
 constexpr int kSlots = 4;
 
+// Asynchronous 4-byte copies from device memory into shared memory.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // walk: replaces nicetpu/kernels/decode3.py walk_pallas (_walk_kernel,
 // _walk_block_body, _decode_group, _canon_decode).  One thread per chunk; a
-// block never spans two images.  The image's threshold tables (aff, dD, inc:
-// 10 x 32 each), its first-level decode table (10 x 2^kLutBits entries, from
-// decode3.walk_lut), its canonical prefix order and the mode -> stream map sit
-// in shared memory, and so do the words its chunks cover: one contiguous
-// range of blockDim * chunk_bits/32 + 8 words (at most kStageWords), copied
-// once.  Each step decodes one pixel group at bit p: the prefix symbol, then
-// the mode's payload codes; then p = max(p + 1, q).  A code is decoded by one
-// table lookup on the window's top kLutBits bits where the entry is exact
-// (decode3.walk_lut: the same length at the lowest and highest window of the
-// prefix, and at most kLutBits bits), else by the monotone threshold count of
-// derive_walk_tables, which stops at the first miss (the thresholds rise with
-// the length, so the sums equal those of the TPU's gated GATING / maxl
-// loops).  A window is two words, the last word repeating past the end as in
-// walk_ref; a window outside the staged range (an entry before its chunk's
-// start, when the previous chunk ran out of steps) is read from device
-// memory.  This replaces the TPU's per-chunk word blocks and two-level
-// one-hot fetch.  A chunk freezes at its bound or at wbits and writes pos = -1
-// and zeros for every later step.  A thread keeps kTile steps of records in
-// registers and stores them as whole 32-byte sectors: neighbouring threads'
-// records lie steps * 4 bytes apart, so one record a store would cost a
-// sector each.  With records == nullptr only the exits are written (the
-// non-final rounds).
+// block never spans two images.  Each code is decoded by the threshold count
+// of derive_walk_tables: with the thresholds aff[s][1..cap] of stream s, the
+// code's length L and index idx at window win are
+//   n   = the thresholds hit before the first miss (win ^ MSB >= aff[s][l])
+//   L   = inc[s][1] + .. + inc[s][n]
+//   idx = dD[s][1] + .. + dD[s][n] + (win >>> (32 - max(L, 1))),
+// the sums of the TPU's gated GATING / maxl loops.  The prologue turns the
+// image's tables into shared-memory ones: thr[s][l], the running maximum of
+// aff[s][1..l] (a threshold is hit before the first miss iff every one up to
+// it is, so n is the count of thr[s][1..cap] at most the window, found by a
+// five-step binary search), cinc and cdD, the running sums of inc and dD; and
+// from them the first-level decode table, indexed by stream and the window's
+// top kLutBits bits: n never falls as the window grows, so where the lowest
+// and the highest window of a prefix give the same n, every window of the
+// prefix does, and if also max(L, 1) <= kLutBits the prefix fixes (L, idx).
+// Such an entry holds L << kLutIdxBits | idx (when idx < 2^kLutIdxBits); every
+// other entry is -1 and its codes take the binary search.  The prefixes of
+// one stream share a warp, so their threshold loads are broadcasts.
+//
+// The words the block's chunks cover, one contiguous range of blockDim *
+// chunk_bits/32 + 8 words (at most kStageWords), are copied into shared
+// memory once, with cp.async while the tables are built.  Each step decodes
+// one pixel group at bit p: the prefix symbol, then the mode's payload codes;
+// then p = max(p + 1, q).  A window is two words, the last word repeating
+// past the end as in walk_ref; a window outside the staged range (an entry
+// before its chunk's start, when the previous chunk ran out of steps) is read
+// from device memory.  This replaces the TPU's per-chunk word blocks and
+// two-level one-hot fetch.  A chunk freezes at its bound or at wbits and
+// writes pos = -1 and zeros for every later step.  A thread keeps kTile steps of records in registers and stores
+// them as whole 32-byte sectors: neighbouring threads' records lie steps * 4
+// bytes apart, so one record a store would cost a sector each.  With records
+// == nullptr only the exits are written (the non-final rounds).
 //
 // Bound: its least time is set by bytes (the records, 16 bytes a step, and
 // the words), but the kernel is held back by the serial chain of each
@@ -61,12 +81,14 @@ constexpr int kSlots = 4;
 // the common case, in place of two device-memory loads and a data-dependent
 // loop of up to 31 compares.
 // ---------------------------------------------------------------------------
-constexpr int kLutBits = 10;    // decode3.WALK_LUT_BITS
-constexpr int kLutIdxBits = 26;  // an exact entry is len << 26 | idx; slow entries are < 0
+constexpr int kLutBits = 10;
+constexpr int kLutIdxBits = 26;
 constexpr int kLutSize = kStreams << kLutBits;
 constexpr int kStageWords = 12288;  // 48 KB of words at most
 constexpr int kWalkThreads = 64;
-constexpr int kTile = 8;  // steps of records buffered in registers
+constexpr int kTile = 8;  // steps of records buffered in registers (decode3.WALK_TILE)
+constexpr int kLutBatch = 8;  // table entries a thread computes before it stores them
+static_assert(kLutSize % (kLutBatch * kWalkThreads) == 0, "the table fills whole batches");
 
 // kTile ints from registers to 16-byte aligned memory.
 __device__ __forceinline__ void store_tile(int* dst, const int (&v)[kTile]) {
@@ -77,10 +99,10 @@ __device__ __forceinline__ void store_tile(int* dst, const int (&v)[kTile]) {
 }
 
 struct WalkTables {
-  int lut[kLutSize];  // first: 16-byte aligned for the int4 copy
-  int aff[kStreams][kLens];
-  int dD[kStreams][kLens];
-  int inc[kStreams][kLens];
+  int lut[kLutSize];
+  int thr[kStreams][kLens];       // running maximum of aff over lengths 1..l
+  int cinc[kStreams][kLens];      // running sums of inc and dD over lengths 1..l
+  uint32_t cdD[kStreams][kLens];  // (index 0: the empty sum)
   int pfx[16];
   int cap[kStreams];
   int slot[kModes][kSlots];
@@ -108,6 +130,36 @@ __device__ __forceinline__ uint32_t window(const Words& w, int q) {
   return sh ? (w0 << sh) | (w1 >> (32 - sh)) : w0;
 }
 
+// The thresholds of stream s hit before the first miss at the biased window
+// win_b = win ^ MSB (thr rises with the length, so this is a count).
+__device__ __forceinline__ int first_miss(const WalkTables& t, int s, int win_b) {
+  const int cap = t.cap[s];
+  int n = 0;
+#pragma unroll
+  for (int step = 16; step; step >>= 1) {
+    const int m = n + step;  // <= 31: the load needs no guard
+    n = (m <= cap) & (t.thr[s][m] <= win_b) ? m : n;
+  }
+  return n;
+}
+
+// Entry e = (stream s, prefix j) of the first-level table; its windows run
+// from lo = j << (32 - kLutBits) to lo | (2^(32 - kLutBits) - 1).
+__device__ __forceinline__ int lut_entry(const WalkTables& t, int e) {
+  const int s = e >> kLutBits;
+  const uint32_t lo = (uint32_t)(e & ((1 << kLutBits) - 1)) << (32 - kLutBits);
+  const int lo_b = (int)(lo ^ 0x80000000u);
+  const int n = first_miss(t, s, lo_b);
+  const int hi_b = lo_b + ((1 << (32 - kLutBits)) - 1);
+  const int next = t.thr[s][min(n + 1, kLens - 1)];
+  const bool same = n == t.cap[s] || next > hi_b;  // no threshold inside the prefix
+  const int L = t.cinc[s][n];
+  const int Lc = max(L, 1);
+  if (!same || Lc > kLutBits) return -1;
+  const uint32_t idx = t.cdD[s][n] + (lo >> (32 - Lc));
+  return idx < (1u << kLutIdxBits) ? (L << kLutIdxBits) | (int)idx : -1;
+}
+
 // (L, idx) of the canonical codeword at window win for stream s.
 __device__ __forceinline__ void canon(const WalkTables& t, int s, uint32_t win, int* L,
                                       int* idx) {
@@ -117,48 +169,22 @@ __device__ __forceinline__ void canon(const WalkTables& t, int s, uint32_t win, 
     *idx = e & ((1 << kLutIdxBits) - 1);
     return;
   }
-  const int win_b = (int)(win ^ 0x80000000u);
-  const int cap = t.cap[s];
-  int len = 0;
-  uint32_t acc = 0;
-  for (int l = 1; l <= cap; ++l) {
-    if (win_b < t.aff[s][l]) break;
-    len += t.inc[s][l];
-    acc += (uint32_t)t.dD[s][l];
-  }
-  *L = len;
-  *idx = (int)(acc + (win >> (32 - max(len, 1))));
+  const int n = first_miss(t, s, (int)(win ^ 0x80000000u));
+  *L = t.cinc[s][n];
+  *idx = (int)(t.cdD[s][n] + (win >> (32 - max(*L, 1))));
 }
 
 __global__ void __launch_bounds__(kWalkThreads)
     walk_kernel(const uint32_t* __restrict__ words, int Wn, const int* __restrict__ entries,
                 const int* __restrict__ aff, const int* __restrict__ dD,
                 const int* __restrict__ inc, const int* __restrict__ pfx,
-                const int* __restrict__ lut, const int* __restrict__ wbits, int* __restrict__ pos,
-                int* __restrict__ sym, uint32_t* __restrict__ i12, uint32_t* __restrict__ i34,
-                int* __restrict__ exits, int nch, int chunk_bits, int steps) {
+                const int* __restrict__ wbits, int* __restrict__ pos, int* __restrict__ sym,
+                uint32_t* __restrict__ i12, uint32_t* __restrict__ i34, int* __restrict__ exits,
+                int nch, int chunk_bits, int steps) {
   extern __shared__ __align__(16) uint8_t smem[];
   WalkTables& t = *reinterpret_cast<WalkTables*>(smem);
   uint32_t* s_words = reinterpret_cast<uint32_t*>(smem + sizeof(WalkTables));
   const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < kStreams * kLens; i += blockDim.x) {
-    (&t.aff[0][0])[i] = aff[b * kStreams * kLens + i];
-    (&t.dD[0][0])[i] = dD[b * kStreams * kLens + i];
-    (&t.inc[0][0])[i] = inc[b * kStreams * kLens + i];
-  }
-  const int4* lut4 = reinterpret_cast<const int4*>(lut + (long long)b * kLutSize);
-  for (int i = threadIdx.x; i < kLutSize / 4; i += blockDim.x)
-    reinterpret_cast<int4*>(t.lut)[i] = __ldg(lut4 + i);
-  if (threadIdx.x < 16) t.pfx[threadIdx.x] = pfx[b * 16 + threadIdx.x];
-  if (threadIdx.x == 0) {
-    // _deep_cap(s) = min(31, alphabet - 1); SLOT_STREAM (-1: no code)
-    const int caps[kStreams] = {31, 12, 31, 31, 10, 31, 31, 31, 31, 10};
-    const int slot[kModes][kSlots] = {
-        {9, -1, -1, -1}, {0, 0, 0, -1}, {4, 2, 3, 3}, {5, -1, -1, -1}, {6, 7, 8, -1}};
-    for (int s = 0; s < kStreams; ++s) t.cap[s] = caps[s];
-    for (int m = 0; m < kModes; ++m)
-      for (int k = 0; k < kSlots; ++k) t.slot[m][k] = slot[m][k];
-  }
   Words w;
   w.g = words + (long long)b * Wn;
   w.Wn = Wn;
@@ -166,7 +192,57 @@ __global__ void __launch_bounds__(kWalkThreads)
   w.lo = blockIdx.x * blockDim.x * (chunk_bits >> 5);
   const long long span = (long long)blockDim.x * (chunk_bits >> 5) + 8;
   w.n = (int)max(0LL, min(min(span, (long long)kStageWords), (long long)Wn - w.lo));
-  for (int i = threadIdx.x; i < w.n; i += blockDim.x) s_words[i] = __ldg(w.g + w.lo + i);
+  // the words arrive while the tables are built
+  for (int i = threadIdx.x; i < w.n; i += blockDim.x) cp_async4(s_words + i, w.g + w.lo + i);
+  cp_async_commit();
+  if (threadIdx.x < 16) t.pfx[threadIdx.x] = pfx[b * 16 + threadIdx.x];
+  if (threadIdx.x < kStreams) {
+    // _deep_cap(s) = min(31, alphabet - 1); SLOT_STREAM (-1: no code)
+    const int caps[kStreams] = {31, 12, 31, 31, 10, 31, 31, 31, 31, 10};
+    const int s = threadIdx.x;
+    const int* a = aff + (b * kStreams + s) * kLens;
+    const int* n = inc + (b * kStreams + s) * kLens;
+    const int* d = dD + (b * kStreams + s) * kLens;
+    int av[kLens], nv[kLens], dv[kLens];  // every load issued before the first store
+#pragma unroll
+    for (int l = 1; l < kLens; ++l) {
+      av[l] = __ldg(a + l);
+      nv[l] = __ldg(n + l);
+      dv[l] = __ldg(d + l);
+    }
+    int hi = INT32_MIN, ci = 0;
+    uint32_t cd = 0;
+    t.thr[s][0] = INT32_MIN;
+    t.cinc[s][0] = 0;
+    t.cdD[s][0] = 0;
+#pragma unroll
+    for (int l = 1; l < kLens; ++l) {
+      hi = max(hi, av[l]);
+      ci += nv[l];
+      cd += (uint32_t)dv[l];
+      t.thr[s][l] = hi;
+      t.cinc[s][l] = ci;
+      t.cdD[s][l] = cd;
+    }
+    t.cap[s] = caps[s];
+  }
+  if (threadIdx.x == 0) {
+    const int slot[kModes][kSlots] = {
+        {9, -1, -1, -1}, {0, 0, 0, -1}, {4, 2, 3, 3}, {5, -1, -1, -1}, {6, 7, 8, -1}};
+    for (int m = 0; m < kModes; ++m)
+      for (int k = 0; k < kSlots; ++k) t.slot[m][k] = slot[m][k];
+  }
+  __syncthreads();
+  // the first-level table, kLutBatch entries a thread at a time: their
+  // searches are independent, and no store comes between their loads
+  for (int e0 = threadIdx.x; e0 < kLutSize; e0 += kLutBatch * kWalkThreads) {
+    int v[kLutBatch];
+#pragma unroll
+    for (int u = 0; u < kLutBatch; ++u) v[u] = lut_entry(t, e0 + u * kWalkThreads);
+#pragma unroll
+    for (int u = 0; u < kLutBatch; ++u) t.lut[e0 + u * kWalkThreads] = v[u];
+  }
+  cp_async_wait_all();
   __syncthreads();
 
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
@@ -315,10 +391,6 @@ __global__ void value_join_kernel(const int* __restrict__ bins, const int* __res
 //      land in columns 0..2 of the current row, which the build and replay
 //      read stale (as the JAX scheme does); one thread recomputes those three
 //      columns serially and stores them.
-// The build first packed four candidates a word with __vadd4 / __vhaddu4 and
-// a switch on the form; on the H100 that was slower: the intrinsics are
-// emulated by several integer instructions, and the switch became a chain of
-// dependent compare-and-branch steps at every pixel.
 // Reads before the raster start are zeros, as in decode_dev.reconstruct_rows
 // and the Pallas kernel.  refoff must hold 0 or one of
 // decode_dev._const_offsets(W) (every offset is >= max(4, W - 3)).
@@ -360,15 +432,6 @@ struct ReconLayout {
     end = stage + r16(12 * (size_t)W);     // (shared memory only)
   }
 };
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // The value v as the float 2^23 + v, and back.
 __device__ __forceinline__ float as_chain(uint32_t v) { return __uint_as_float(kTwo23 | v); }
@@ -742,9 +805,9 @@ __global__ void __launch_bounds__(1024)
 extern "C" {
 
 int nt_walk(const void* words, int Wn, const void* entries, const void* aff, const void* dD,
-            const void* inc, const void* pfx, const void* lut, const void* wbits, void* pos,
-            void* sym, void* i12, void* i34, void* exits, int B, int nch, int chunk_bits,
-            int steps, int device, void* stream) {
+            const void* inc, const void* pfx, const void* wbits, void* pos, void* sym, void* i12,
+            void* i34, void* exits, int B, int nch, int chunk_bits, int steps, int device,
+            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const long long stage = (long long)kWalkThreads * (chunk_bits / 32) + 8;
@@ -757,7 +820,7 @@ int nt_walk(const void* words, int Wn, const void* entries, const void* aff, con
   walk_kernel<<<grid, kWalkThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const uint32_t*>(words), Wn, static_cast<const int*>(entries),
       static_cast<const int*>(aff), static_cast<const int*>(dD), static_cast<const int*>(inc),
-      static_cast<const int*>(pfx), static_cast<const int*>(lut), static_cast<const int*>(wbits),
+      static_cast<const int*>(pfx), static_cast<const int*>(wbits),
       static_cast<int*>(pos), static_cast<int*>(sym), static_cast<uint32_t*>(i12),
       static_cast<uint32_t*>(i34), static_cast<int*>(exits), nch, chunk_bits, steps);
   return (int)cudaGetLastError();

@@ -170,47 +170,7 @@ def derive_walk_tables(af, present, ib):
     return aff.to(torch.int32), to_int32_bits(dD & MASK32), inc.to(torch.int32)
 
 
-WALK_LUT_BITS = 10  # index bits of the walk's first-level table (kLutBits in the kernel)
 WALK_TILE = 8  # the kernel stores records this many steps at a time (kTile)
-_LUT_IDX_BITS = 26  # an exact entry is len << 26 | idx (kLutIdxBits)
-
-
-def walk_lut(aff, dD, inc):
-    """(B, 10, 32) walk thresholds -> the walk kernel's first-level decode
-    table, (B, 10, 2**WALK_LUT_BITS) int32, indexed by stream and the
-    window's top WALK_LUT_BITS bits.
-
-    `_canon_decode`'s thresholds never fall with the length (`aff` is a
-    suffix minimum), so its hits are the lengths 1..n, n the count of
-    thresholds at most the window (one `searchsorted`), and n never falls as
-    the window grows.  Where L = sum(inc[1..n]) is the same at the lowest and
-    the highest window of a prefix, every window of the prefix has the same
-    hits; if also max(L, 1) <= WALK_LUT_BITS, the prefix fixes
-    idx = sum(dD[1..n]) + (win >>> (32 - max(L, 1))).  Such an entry holds
-    L << 26 | idx where 0 <= idx < 2**26; every other entry is -1 (slow: the
-    kernel runs the threshold count)."""
-    K = WALK_LUT_BITS
-    B, dev = aff.shape[0], aff.device
-    lo = torch.arange(1 << K, dtype=torch.int64, device=dev) << (32 - K)
-    hi = lo | ((1 << (32 - K)) - 1)
-    caps = torch.tensor([_deep_cap(s) for s in range(C.NUM_STREAMS)], device=dev)
-    past_cap = torch.arange(1, 32, device=dev)[None, :] > caps[:, None]  # (10, 31)
-    t_aff = torch.where(past_cap, 2**32, aff[..., 1:].to(torch.int64)).contiguous()
-
-    def prefix_sums(t):  # (B, 10, 32): sums over lengths 1..n for n = 0..31
-        return F.pad(torch.cumsum(t[..., 1:].to(torch.int64), dim=-1), (1, 0))
-
-    def hits(win):  # (B, 10, 2**K): n, the thresholds at most (win ^ MSB) as int32
-        return torch.searchsorted(t_aff, (win - 2**31).expand(B, C.NUM_STREAMS, -1).contiguous(),
-                                  right=True)
-
-    cum_inc, cum_dD = prefix_sums(inc), prefix_sums(dD)
-    n_lo = hits(lo)
-    L = cum_inc.gather(-1, n_lo)
-    L_hi = cum_inc.gather(-1, hits(hi))
-    idx = (cum_dD.gather(-1, n_lo) + (lo >> (32 - L.clamp(min=1)))) & MASK32
-    exact = (L == L_hi) & (L.clamp(min=1) <= K) & (idx < 1 << _LUT_IDX_BITS)
-    return torch.where(exact, (L << _LUT_IDX_BITS) | idx, -1).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -317,13 +277,11 @@ def walk_plain(words, entries, aff, dD, inc, pfx, wbits, *, chunk_bits: int, ste
 
 
 def walk(words, entries, aff, dD, inc, pfx, wbits, *, chunk_bits: int, steps: int,
-         records: bool = True, lut=None):
+         records: bool = True):
     """The speculative chunk walk (see `walk_plain` for shapes and results):
     launches `nt_walk` for CUDA tensors, runs `walk_plain` for CPU ones.
     records=False skips the record stores (the non-final rounds need only
-    the exits) and returns None for the four record arrays.  lut is the
-    kernel's first-level table, `walk_lut(aff, dD, inc)`; it is built here
-    when not given (a decode builds it once for all its rounds)."""
+    the exits) and returns None for the four record arrays."""
     for t, name, nd in ((words, "words", 2), (entries, "entries", 2), (aff, "aff", 3),
                         (dD, "dD", 3), (inc, "inc", 3), (pfx, "pfx", 3), (wbits, "wbits", 1)):
         cuda_ops.check(t, name, nd)
@@ -342,13 +300,6 @@ def walk(words, entries, aff, dD, inc, pfx, wbits, *, chunk_bits: int, steps: in
                           chunk_bits=chunk_bits, steps=steps, records=records)
     if B > 65535 or (nch + 1) * chunk_bits >= 2**31:
         raise ValueError(f"walk of {B} x {nch} chunks of {chunk_bits} bits is out of range")
-    if lut is None:
-        lut = walk_lut(aff, dD, inc)
-    cuda_ops.check(lut, "lut", 3)
-    cuda_ops.same_device(words, lut)
-    if lut.shape != (B, C.NUM_STREAMS, 1 << WALK_LUT_BITS) or lut.data_ptr() % 16:
-        raise ValueError(f"lut must be a 16-byte aligned ({B}, {C.NUM_STREAMS}, "
-                         f"{1 << WALK_LUT_BITS}) table from walk_lut")
     exits = torch.empty(B, nch, dtype=torch.int32, device=words.device)
     recs = [None] * 4
     if records:
@@ -357,8 +308,8 @@ def walk(words, entries, aff, dD, inc, pfx, wbits, *, chunk_bits: int, steps: in
     cuda_ops.launch(
         "walk", "nt_walk", cuda_ops.ptr(words), ctypes.c_int(Wn), cuda_ops.ptr(entries),
         cuda_ops.ptr(aff), cuda_ops.ptr(dD), cuda_ops.ptr(inc), cuda_ops.ptr(pfx),
-        cuda_ops.ptr(lut), cuda_ops.ptr(wbits), *rp, cuda_ops.ptr(exits), ctypes.c_int(B),
-        ctypes.c_int(nch), ctypes.c_int(chunk_bits), ctypes.c_int(steps), device=words.device,
+        cuda_ops.ptr(wbits), *rp, cuda_ops.ptr(exits), ctypes.c_int(B), ctypes.c_int(nch),
+        ctypes.c_int(chunk_bits), ctypes.c_int(steps), device=words.device,
     )
     return (*recs, exits)
 
@@ -519,11 +470,9 @@ def _decode_core_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: in
     wbits = wbits.to(torch.int32).contiguous()
     pfx = pfx.contiguous()
 
-    lut = walk_lut(aff, dD, inc) if dev.type == "cuda" else None
-
     def run(e, records):
         return walk(words, e, aff, dD, inc, pfx, wbits, chunk_bits=chunk_bits, steps=steps,
-                    records=records, lut=lut)
+                    records=records)
 
     # round 1 from the chunk starts; each later round from the previous
     # round's exits, anchored at bit 0

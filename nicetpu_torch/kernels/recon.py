@@ -20,6 +20,7 @@ import torch
 from nicetpu_torch.format import constants as C
 from nicetpu_torch.kernels import build, cuda_ops, decode_dev
 
+
 def reconstruct_rows(form, delta, refoff, *, width: int):
     """form, refoff (B, N) int32; delta (B, 3, N) int32 channel-planar;
     refoff holds 0 or one of `decode_dev._const_offsets(width)`.  Returns the

@@ -218,6 +218,28 @@ def test_walk_deep_codes_off_the_staged_words(dev, entries, chunk_bits):
         assert torch.equal(g, x)
 
 
+# arbitrary int32 tables through derive_walk_tables (as test_torch_decode
+# feeds them): wrapping index sums, lengths up to 31 bits, a stream with no
+# length present; the kernel builds its first-level table from them
+@pytest.mark.parametrize("seed", [5, 6])
+def test_walk_on_random_tables_matches_plain(dev, seed):
+    words, wbits, _, _, _, pfx = _walk_inputs([_smooth(40, 64, s) for s in range(2)], dev)
+    rng = np.random.default_rng(seed)
+    raf = rng.integers(-(2**31), 2**31, (2, 10, 32)).astype(np.int32)
+    rpr = (rng.random((2, 10, 32)) < 0.4).astype(np.int32)
+    rpr[:, 4] = 0
+    rib = rng.integers(-(2**31), 2**31, (2, 10, 32)).astype(np.int32)
+    aff, dD, inc = decode3.derive_walk_tables(*(torch.from_numpy(a).to(dev) for a in (raf, rpr, rib)))
+    chunk_bits = 512
+    nch = -(-int(wbits.max()) // chunk_bits)
+    e = (torch.arange(nch, dtype=torch.int32, device=dev) * chunk_bits).expand(2, nch).contiguous()
+    kw = dict(chunk_bits=chunk_bits, steps=decode3._steps(chunk_bits, 8))
+    got = decode3.walk(words, e, aff, dD, inc, pfx, wbits, **kw)
+    want = decode3.walk_plain(words, e, aff, dD, inc, pfx, wbits, **kw)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+
+
 @pytest.mark.parametrize("K,B,M", [(4, 2, 3000), (1, 1, 1), (4, 8, 100_003)])
 def test_value_join_matches_plain(dev, K, B, M):
     rng = np.random.default_rng(M)
@@ -241,13 +263,15 @@ def _recon_inputs(B, H, W, seed):
 
 # widths 4 and 20 (the smallest and the golden rasters'), a ragged width, the
 # main path's width at 64 rows (B = 1 and 8), 1100 (35 segments, the last one
-# ragged: the two-level resolve), 4096 (128 segments), and 5000, past the
-# shared-memory limit (LUTs, ring and row buffers in device-memory scratch)
+# ragged: the two-level resolve), 4096 (128 segments), and 5000 and 29,051,
+# past the shared-memory limit (LUTs, ring and row buffers in device-memory
+# scratch); at 29,051, 908 segments make 57 groups, more than a 1,024-thread
+# block has warps, so a warp composes several
 @pytest.mark.parametrize("B,H,W", [(1, 9, 4), (2, 7, 20), (3, 5, 37), (1, 64, 512), (8, 64, 512),
-                                   (2, 5, 1100), (1, 3, 4096), (1, 2, 5000)])
+                                   (2, 5, 1100), (1, 3, 4096), (1, 2, 5000), (1, 2, 29051)])
 def test_reconstruct_rows_matches_plain(dev, B, H, W):
     scratch = build.load().nt_recon_scratch_bytes(W, torch.cuda.current_device())
-    assert (scratch > 0) == (W == 5000)
+    assert (scratch > 0) == (W >= 5000)
     form, delta, refoff = (t.to(dev) for t in _recon_inputs(B, H, W, seed=W))
     before = cuda_ops.LAUNCHES["reconstruct_rows"]
     got = recon.reconstruct_rows(form, delta, refoff, width=W)

@@ -8,13 +8,11 @@ the true entry triples across the segments (past 32 segments through a
 two-level resolve over groups of 16 composed segments), replays every
 segment from its triple, and recomputes the last 3 columns (their CONST
 references land in columns 0..2 of the same row).  `_model` below does the
-same steps in numpy for any segment length L, with either candidate step:
-"float", the kernel's, where every form is v = ((k * x + c) >> 1) & 255 and
-a value v rides as the float 2^23 + v through one multiply-add rounded
-toward zero and a mask of the low byte (emulated exactly in float64), or
-"bytes", four candidates packed in a uint32 and pushed with `__vadd4` /
-`__vhaddu4` and a select on the form (the byte-SIMD intrinsics emulated
-with byte masks).  It is held, exactly, against the port's plain
+same steps in numpy for any segment length L, with the kernel's candidate
+step: every form is v = ((k * x + c) >> 1) & 255, and a value v rides as
+the float 2^23 + v through one multiply-add rounded toward zero and a mask
+of the low byte (emulated exactly in float64).  It is held, exactly,
+against the port's plain
 `decode_dev.reconstruct_rows` and, where L divides W, against JAX's
 segment-LUT `decode_dev.reconstruct_rows(..., segs=W // L)`.
 """
@@ -29,35 +27,6 @@ import torch
 
 from nicetpu.kernels import decode_dev as jdd
 from nicetpu_torch.kernels import decode_dev as tdd
-
-M7F, M80 = np.uint32(0x7F7F7F7F), np.uint32(0x80808080)
-
-
-def _vadd4(a, b):
-    """Per-byte a + b mod 256 (CUDA's __vadd4)."""
-    return ((a & M7F) + (b & M7F)) ^ ((a ^ b) & M80)
-
-
-def _vhaddu4(a, b):
-    """Per-byte (a + b) >> 1, unsigned, rounded down (CUDA's __vhaddu4)."""
-    return (a & b) + (((a ^ b) >> np.uint32(1)) & M7F)
-
-
-def _splat(v):
-    return np.asarray(v, np.uint32) * np.uint32(0x01010101)
-
-
-def _bytes(words):
-    """(..., 64) uint32 words -> (..., 256) candidate values (little endian)."""
-    return words.astype("<u4").view(np.uint8).astype(np.int64)
-
-
-def _chain_value(f, d, ab, cvv, r1, r2, r3):
-    """One pixel with selects, as the kernel's replay and fix-up do it."""
-    lag = r2 if f == 2 else (r3 if f == 3 else r1)
-    base = cvv if f == 0 else ((ab + r1) >> 1 if f == 4 else lag)
-    return (base + d) & 255
-
 
 TWO23 = float(2**23)
 
@@ -114,7 +83,7 @@ def _resolve(luts, tags, trip):
     return [out[s] for s in range(S)]
 
 
-def _model(form, delta, refoff, width: int, seg: int, step: str = "float"):
+def _model(form, delta, refoff, width: int, seg: int):
     """One (image, channel): form, delta, refoff (N,) int -> (N,) values."""
     W, L = width, seg
     H = form.shape[0] // W
@@ -122,7 +91,6 @@ def _model(form, delta, refoff, width: int, seg: int, step: str = "float"):
     f_all = np.where((form >= 0) & (form <= 3), form, 4)
     ring = np.zeros((4, W), np.int64)  # rows r-4 .. r-1 in slot (row & 3)
     out = np.zeros((H, W), np.int64)
-    cand = (np.arange(64, dtype=np.uint32) * np.uint32(0x04040404)) + np.uint32(0x03020100)
     for r in range(H):
         f, d = f_all[r * W : (r + 1) * W], delta[r * W : (r + 1) * W] & 255
         ro = refoff[r * W : (r + 1) * W]
@@ -139,59 +107,47 @@ def _model(form, delta, refoff, width: int, seg: int, step: str = "float"):
                 else:
                     back = (W - 1 - k) // W
                     cv[x] = ring[(r - back) & 3][k + back * W] if r >= back else 0
+        cc = np.where(f == 0, cc, 0)  # only CONST reads its reference
         # the kernel's per-pixel (lag, k, c): v = ((k * x + c) >> 1) & 255
         lag = np.where((f >= 1) & (f <= 3), f, 1)
         k_px = np.where(f == 0, 0, np.where(f == 4, 1, 2))
         c_px = np.where(f == 0, 2 * ((cv + d) & 255), np.where(f == 4, above + 2 * d, 2 * d))
-        # build: (S, 64) packed words or (S, 256) floats per lag; tags per segment
-        if step == "bytes":
-            r1 = np.broadcast_to(cand, (S, 64)).copy()
-        else:
-            r1 = np.broadcast_to(TWO23 + np.arange(256.0), (S, 256)).copy()
+        # build: (S, 256) candidates per lag, as floats; tags per segment
+        r1 = np.broadcast_to(TWO23 + np.arange(256.0), (S, 256)).copy()
         r2, r3 = r1.copy(), r1.copy()
         t1, t2, t3 = np.zeros(S, int), np.ones(S, int), np.full(S, 2)
         for j in range(L):
             x = np.arange(S) * L + j
             live = x < W  # a ragged last segment stops early
             xc = np.minimum(x, W - 1)
-            fj, dd = f[xc][:, None], _splat(d[xc])[:, None]
-            if step == "bytes":
-                new = np.where(fj == 0, _splat((cv[xc] + d[xc]) & 255)[:, None],
-                      np.where(fj == 1, _vadd4(r1, dd),
-                      np.where(fj == 2, _vadd4(r2, dd),
-                      np.where(fj == 3, _vadd4(r3, dd),
-                               _vadd4(_vhaddu4(r1, _splat(above[xc])[:, None]), dd)))))
-            else:
-                lj = lag[xc][:, None]
-                x = np.where(lj == 3, r3, np.where(lj == 2, r2, r1))
-                new = _float_step(x, k_px[xc][:, None], c_px[xc][:, None])
-            tn = np.where(fj[:, 0] == 2, t2, np.where(fj[:, 0] == 3, t3, t1))
+            lj = lag[xc]
+            xv = np.where(lj[:, None] == 3, r3, np.where(lj[:, None] == 2, r2, r1))
+            new = _float_step(xv, k_px[xc][:, None], c_px[xc][:, None])
+            tn = np.where(lj == 2, t2, np.where(lj == 3, t3, t1))
             lv = live[:, None]
             r1, r2, r3 = np.where(lv, new, r1), np.where(lv, r1, r2), np.where(lv, r2, r3)
             t1, t2, t3 = np.where(live, tn, t1), np.where(live, t1, t2), np.where(live, t2, t3)
-        if step == "bytes":
-            luts = [_bytes(r1), _bytes(r2), _bytes(r3)]  # (S, 256) each
-        else:
-            luts = [(r - TWO23).astype(np.int64) for r in (r1, r2, r3)]
+        luts = [(r - TWO23).astype(np.int64) for r in (r1, r2, r3)]  # (S, 256) each
         # resolve: entry triple of each segment, three byte lookups a segment
         trip = [int(above[W - 1]), int(above[W - 2]), int(above[W - 3])]
         bnd = _resolve(luts, np.stack([t1, t2, t3], axis=1), trip)
-        # replay: every segment from its true entry triple, with selects
+
+        def one(x, v1, v2, v3, c):  # the step on one value, with selects
+            xl = (v1, v2, v3)[lag[x] - 1]
+            return int(_float_step(TWO23 + xl, k_px[x], c) - TWO23)
+
+        # replay: every segment from its true entry triple
         row = np.zeros(W, np.int64)
         for s in range(S):
             v1, v2, v3 = bnd[s]
             for x in range(s * L, min((s + 1) * L, W)):
-                if step == "bytes":
-                    v = _chain_value(f[x], d[x], above[x], cv[x], v1, v2, v3)
-                else:
-                    xl = (v1, v2, v3)[lag[x] - 1]
-                    v = int(_float_step(TWO23 + xl, k_px[x], c_px[x]) - TWO23)
+                v = one(x, v1, v2, v3, c_px[x])
                 row[x], v1, v2, v3 = v, v, v1, v2
         # fix-up: the last 3 columns, serially, with this row's columns 0..2
         for x in range(W - 3, W):
-            cvv = row[cc[x] - 1] if cc[x] else cv[x]
-            lag = [row[x - k] if x >= k else above[W + x - k] for k in (1, 2, 3)]
-            row[x] = _chain_value(f[x], d[x], above[x], cvv, *lag)
+            c = 2 * ((row[cc[x] - 1] + d[x]) & 255) if cc[x] else c_px[x]
+            prev = [row[x - k] if x >= k else above[W + x - k] for k in (1, 2, 3)]
+            row[x] = one(x, *prev, c)
         ring[r & 3] = row
         out[r] = row
     return out.reshape(-1)
@@ -220,20 +176,19 @@ def _inputs(B, H, W, seed):
     return form, delta, refoff.astype(np.int32)
 
 
-def _check(B, H, W, L, step="float"):
+def _check(B, H, W, L):
     form, delta, refoff = _inputs(B, H, W, seed=W * 100 + L)
     want = tdd.reconstruct_rows(*(torch.from_numpy(a) for a in (form, delta, refoff)), H * W, W)
-    got = np.stack([np.stack([_model(form[b], delta[b, c], refoff[b], W, L, step)
+    got = np.stack([np.stack([_model(form[b], delta[b, c], refoff[b], W, L)
                               for c in range(3)]) for b in range(B)])
     np.testing.assert_array_equal(got, want.numpy())
     return form, delta, refoff, got
 
 
-@pytest.mark.parametrize("step", ["float", "bytes"])
 @pytest.mark.parametrize("W", [4, 20, 37, 512])
 @pytest.mark.parametrize("L", [4, 7, 32])
-def test_schedule_matches_plain(W, L, step):
-    _check(2, 3 if W == 512 else 5, W, L, step)
+def test_schedule_matches_plain(W, L):
+    _check(2, 3 if W == 512 else 5, W, L)
 
 
 # where L divides W (JAX needs segments of at least 4 pixels)
