@@ -28,24 +28,39 @@ Phases, one printed line or block each; any failure exits nonzero:
      per-stage milliseconds of the round trip;
   6. decode the 64 blobs with nicetpu_torch.decode_batch(device=dev.type):
      exact arrays, 0 fallbacks; MB/s;
-  7. the round trip of one 4096x4096 image, with peak device memory.
-The line before the last is the kernels' JSON record (launches from phase
-5); the last line is
+  7. the round trip of one 4096x4096 image, with peak device memory;
+  8. the scheduler: the 64 images as 8 uploaded batches of 8 through
+     pipeline.roundtrip_hybrid, with one GPU worker, with two, and with one
+     and two GPU workers beside one host worker: results complete and in order, every
+     blob equal to the native encoder's, every array equal to its image, 0
+     fallbacks, every kernel launched at least once per GPU batch; MB/s and
+     the GPU/host split of each run; then the 64 images through
+     Pipeline.encode_many with the pool at its default width and at 1, 2
+     and 4 threads, every blob equal to the native encoder's; MB/s of each;
+  9. the CLI on the card: one 512x512 PNG through nicetpu_torch.cli.main to
+     .nice and back with the default backend (where PIL is absent, the same
+     image through api.encode and api.decode with the "cuda" backend).
+Phase 2 also holds the fold against its plain version off the main path's
+shape.  The line before the last is the kernels' JSON record (launches from
+phase 5); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 import nicetpu_torch
-from nicetpu_torch import pipeline
+from nicetpu_torch import cli, pipeline
+from nicetpu_torch.config import RuntimeConfig
 from nicetpu_torch.convert import from_int32_bits
 from nicetpu_torch.hostref import oracle
 from nicetpu_torch.kernels import build, cuda_ops, decode3, decode_dev, recon
@@ -72,6 +87,12 @@ B, N, W512 = 8, 512 * 512, 512
 M, MG, S = N * 8, N // 8, 64
 HBM_BYTES_PER_MS = 3.35e12 / 1e3  # H100 SXM published memory rate
 OPS_PER_MS = 67e12 / 1e3  # published non-tensor-core rate (float32); the kernels' ops are int32
+# the fold, per slot: offset split, the two record words (about 16), the window
+# move, two ORs, the length sum and its range check
+FOLD_OPS_PER_SLOT = 28
+FOLD_EARLIER = ("0.2284 ms on an H100 80GB HBM3 at 700 W: one thread a group reading its slots from "
+                "device memory, the record in ten registers with a ten-way select a slot")
+HEAD_START_CYCLES = 20_000_000  # about 10 ms of device spin before a timed run of launches
 RECON_CHECK_ROWS = 32  # rows per image for the reconstruction's plain comparison
 RECON_RANDOM_ROWS = 64  # rows per image of the random-form comparison
 NPAYLOAD = (1, 3, 4, 1, 3)  # payload codes of modes 0..4
@@ -110,10 +131,14 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call of fn on the current stream (CUDA events)."""
+    """Mean milliseconds per call of fn on the current stream (CUDA events).
+    The stream first spins for about 10 ms, so that the host queues the calls
+    ahead of the device and a slow host's launch pace is not read as the
+    kernel's time."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HEAD_START_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -192,8 +217,45 @@ def phase_encode_kernels(dev) -> dict:
     out["histogram"].update(bound(nbytes(bins_d) + B * 858 * 4, bins_d.numel()))
     out["table_join"].update(bound(nbytes(bins_d, len_d, codes_d) + 2 * nbytes(bins_d), bins_d.numel()))
     rec_k = cuda_ops.fold_records(aob2, code2)
-    out["fold_records"].update(bound(nbytes(aob2, code2, *rec_k), 12 * aob2.numel()))
+    out["fold_records"].update(bound(nbytes(aob2, code2, *rec_k), FOLD_OPS_PER_SLOT * aob2.numel()))
+    over = int((rec_k[1] > 32 * cuda_ops.FOLD_CAPW).sum())
+    print(f"[kernel] fold_records at the main path's shape: {over} of {rec_k[1].numel()} records "
+          f"over {32 * cuda_ops.FOLD_CAPW} bits (longest {int(rec_k[1].max())}); earlier: {FOLD_EARLIER}")
+    check(over > 0, "the fold's main-shape input holds no record over 320 bits")
+    fold_odd_shapes(dev)
     return out
+
+
+def fold_odd_shapes(dev) -> None:
+    """The fold on shapes off the main path, each exact: S = 13 on an
+    unaligned view with a group count that fills no whole block; lengths up
+    to 32 with every record over 320 bits; lengths outside 0..32."""
+    rng = np.random.default_rng(13)
+
+    def slots(b, mg, s, top, holes, lead=0):
+        n = b * mg * s
+        aob = rng.integers(0, top + 1, n + lead).astype(np.int32)
+        aob[rng.random(n + lead) < holes] = 0
+        code = rng.integers(0, 2**32, n + lead, dtype=np.uint64).astype(np.uint32).view(np.int32)
+        return [torch.from_numpy(a).to(dev)[lead:].view(b, mg, s) for a in (aob, code)]
+
+    cases = {
+        "S=13, 1,003 groups, unaligned view": slots(2, 1003, 13, 31, 0.4, lead=1),
+        "S=64, lengths to 32, no holes": slots(2, 1003, 64, 32, 0.0),
+        "S=64, lengths outside 0..32": slots(2, 1003, 64, 31, 0.4),
+    }
+    check(cases["S=13, 1,003 groups, unaligned view"][0].data_ptr() % 16 != 0, "the view is aligned")
+    outside = cases["S=64, lengths outside 0..32"][0]
+    outside[:, ::5, 7], outside[:, 1::5, 40], outside[:, 2::5, 0] = 33, -3, 2**20
+    for what, (a, c) in cases.items():
+        got, want = cuda_ops.fold_records(a, c), cuda_ops.fold_records_plain(a, c)
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        print(f"[kernel] fold_records, {what}: exact={same} max_abs_err={err}; "
+              f"records over 320 bits: {int((want[1] > 320).sum())} of {want[1].numel()}")
+        check(same, f"fold_records disagrees with its plain version ({what})")
+    check(bool((cuda_ops.fold_records_plain(*cases["S=64, lengths to 32, no holes"])[1] > 320).all()),
+          "the long-record case holds a record within 320 bits")
 
 
 def random_recon_inputs(b: int, h: int, w: int, seed: int):
@@ -452,6 +514,77 @@ def phase_roundtrip_big(dev, img, ref) -> None:
           f"{peak:.2f} GiB; launches={launches}; stats={stats}; per-stage ms {json.dumps(per)}")
 
 
+def phase_scheduler(dev, imgs, refs) -> None:
+    """The 64 images as 8 uploaded batches of 8 through roundtrip_hybrid."""
+    host = [imgs[i : i + 8] for i in range(0, 64, 8)]
+    mb = sum(im.nbytes for im in imgs) / 1e6
+    for gpu_threads, cpu_threads in ((1, 0), (2, 0), (1, 1), (2, 1)):
+        batches = [(b, pipeline.upload_batch(b, dev)) for b in host]
+        torch.cuda.synchronize()
+        cuda_ops.reset_launches()
+        t0 = time.perf_counter()
+        res, stats = pipeline.roundtrip_hybrid(batches, gpu_threads=gpu_threads, cpu_threads=cpu_threads)
+        seconds = time.perf_counter() - t0
+        launches = dict(cuda_ops.LAUNCHES)
+        print(f"[scheduler] {gpu_threads} GPU + {cpu_threads} host workers, 8 resident batches of 8: "
+              f"{seconds:.4f} s, {mb / seconds:.2f} MB/s round trip; split GPU {stats['gpu_batches']} / "
+              f"host {stats['cpu_batches']}; stats={stats}; launches={launches}")
+        check([len(r) for r in res] == [8] * 8, "the scheduler's results are incomplete")
+        check([d for r in res for d, _ in r] == refs, "a scheduler blob differs from the native encoder's")
+        check(all(np.array_equal(a, im) for r, b in zip(res, host) for (_, a), im in zip(r, b)),
+              "a scheduler array differs from its image")
+        check(stats["gpu_batches"] + stats["cpu_batches"] == 8 and stats["gpu_batches"] >= 1,
+              f"the scheduler's split does not add up: {stats}")
+        check(cpu_threads > 0 or stats["gpu_batches"] == 8, f"host batches without a host worker: {stats}")
+        check(stats["fallbacks"] == 0 and stats["overflow_fallbacks"] == 0, f"scheduler fallbacks: {stats}")
+        check(all(launches[k] >= stats["gpu_batches"] for k in REPLACES),
+              f"a kernel was launched fewer times than there were GPU batches: {launches}")
+    # the thread pool: the same 64 images through Pipeline.encode_many, the
+    # pool at its default width on the card (workers None) and at 1, 2 and 4
+    for workers in (None, 1, 2, 4):
+        with pipeline.Pipeline(workers=workers, config=RuntimeConfig(backend="cuda", batch_size=8)) as p:
+            p.warmup(imgs)
+            cuda_ops.reset_launches()
+            stats = {}
+            t0 = time.perf_counter()
+            blobs = p.encode_many(imgs, stats)
+            seconds = time.perf_counter() - t0
+            width = p.workers
+        launches = dict(cuda_ops.LAUNCHES)
+        print(f"[pipeline] Pipeline(workers={workers}).encode_many, pool of {width}, 8 sub-batches of 8: "
+              f"{seconds:.4f} s, {mb / seconds:.2f} MB/s encode; stats={stats}; launches={launches}")
+        check(blobs == refs, "a Pipeline blob differs from the native encoder's")
+        check(stats == {"overflow_fallbacks": 0}, f"Pipeline fallbacks: {stats}")
+        check(launches["fold_records"] == 8, f"the Pipeline's sub-batches did not run on the card: {launches}")
+
+
+def phase_cli(img, ref) -> None:
+    """One image through the CLI with the default backend, both ways."""
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        print("[cli] PIL is absent: api.encode / api.decode with the cuda backend instead")
+        cfg = RuntimeConfig(backend="cuda")
+        data = nicetpu_torch.encode(img, config=cfg)
+        check(data == ref, "api.encode(config=cuda) differs from the native encoder's")
+        check(np.array_equal(nicetpu_torch.decode(data, config=cfg), img), "api.decode(config=cuda) differs")
+        return
+    check(RuntimeConfig.from_env().backend == "cuda", "the CLI's default backend is not the card")
+    cuda_ops.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        png, nice, back = (os.path.join(tmp, n) for n in ("in.png", "out.nice", "back.png"))
+        nicetpu_torch.imwrite(png, img)
+        check(cli.main([png, nice, "--verbose"]) == 0, "the CLI's encode failed")
+        with open(nice, "rb") as f:
+            check(f.read() == ref, "the CLI's .nice differs from the native encoder's")
+        check(cli.main([nice, back]) == 0, "the CLI's decode failed")
+        check(np.array_equal(nicetpu_torch.imread(back), img), "the CLI's PNG differs from the image")
+    launches = dict(cuda_ops.LAUNCHES)
+    check(all(launches[k] >= 1 for k in REPLACES), f"the CLI did not run on the card: {launches}")
+    print(f"[cli] .png -> .nice -> .png on the card: bytes equal hostref.encode_native, pixels equal; "
+          f"launches={launches}")
+
+
 def main() -> int:
     print(card_line())
     if not torch.cuda.is_available():
@@ -481,6 +614,8 @@ def main() -> int:
     launches, blobs = phase_roundtrip(dev, imgs, refs)
     phase_decode(dev, imgs, blobs)
     phase_roundtrip_big(dev, big, big_ref)
+    phase_scheduler(dev, imgs, refs)
+    phase_cli(imgs[0], refs[0])
 
     record = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

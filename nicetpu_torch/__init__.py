@@ -6,15 +6,42 @@ port produces the same `.nice` bytes and decodes them exactly.  It keeps its
 own copies of the framework-neutral parts (`format`, `hostref`) and imports
 nothing of `nicetpu` and no JAX.
 
-Public API (device="cuda" unless the caller asks for "cpu"):
-    encode(img, *, device)                                -> bytes
-    encode_batch(imgs, *, device, stats=None)             -> list[bytes]
-    decode(data, *, device)                               -> (H, W, 3) uint8
-    decode_batch(datas, *, device, chunk_bits=None, stats=None)
+Public API (on the card unless the caller asks for device="cpu" or, through
+a `RuntimeConfig`, for the "cpu" or "native" backend):
+    encode(img, *, device=None, config=None)              -> bytes
+    encode_batch(imgs, *, device, config, stats=None)     -> list[bytes]
+    decode(data, *, device=None, config=None)             -> (H, W, 3) uint8
+    decode_batch(datas, *, device, config, chunk_bits=None, stats=None)
                                                           -> list of arrays
     roundtrip_batch(imgs, *, device, stats=None)          -> (datas, verified)
+    imread(path) / imwrite(path, img)                     PNG <-> array
+    RuntimeConfig                                         backend, batch, workers
+Beside it: `pipeline.roundtrip_hybrid` and `pipeline.Pipeline` (the
+schedulers), `corpus.encode_corpus` (a streamed corpus with a manifest) and
+`python -m nicetpu_torch.cli <from> <to>` (PNG <-> `.nice`).
 """
 
-from nicetpu_torch.api import decode, decode_batch, encode, encode_batch, roundtrip_batch
+from nicetpu_torch.api import (
+    decode,
+    decode_batch,
+    encode,
+    encode_batch,
+    imread,
+    imwrite,
+    roundtrip_batch,
+)
+from nicetpu_torch.config import RuntimeConfig
 
-__all__ = ["encode", "encode_batch", "decode", "decode_batch", "roundtrip_batch"]
+__version__ = "0.1.0"
+
+__all__ = [
+    "encode",
+    "decode",
+    "encode_batch",
+    "decode_batch",
+    "roundtrip_batch",
+    "imread",
+    "imwrite",
+    "RuntimeConfig",
+    "__version__",
+]

@@ -1,10 +1,13 @@
-"""User-facing API of the PyTorch port: encode, decode and the verified
-round trip.
+"""User-facing API of the PyTorch port: encode, decode, the verified round
+trip and the PNG bridges.
 
-Every entry point runs on the card (device="cuda") unless the caller asks
-for the CPU: "cuda" runs the CUDA kernels and raises when CUDA is absent;
-"cpu" runs the kernels' plain PyTorch versions, which is the caller's
-explicit choice, never a fallback.
+Every entry point runs on the card unless the caller asks otherwise, by
+`device=` or by a `RuntimeConfig`'s backend (explicit device > config >
+NICETPU_BACKEND > "cuda"):
+    "cuda"    the CUDA kernels; raises when CUDA is absent;
+    "cpu"     the kernels' plain PyTorch versions, the caller's explicit
+              choice, never a fallback;
+    "native"  (a backend only) the port's host codec, `hostref`.
 """
 
 from __future__ import annotations
@@ -13,7 +16,9 @@ import numpy as np
 import torch
 
 from nicetpu_torch import pipeline
+from nicetpu_torch.config import BACKENDS, RuntimeConfig
 from nicetpu_torch.format import headers
+from nicetpu_torch.hostref import oracle
 from nicetpu_torch.kernels import decode3
 
 MAX_BATCH = 8  # images per fused device pass; bounds device memory per call
@@ -27,6 +32,21 @@ def _resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+def backend_device(backend: str) -> torch.device | None:
+    """The device a backend runs on; None for "native", the host codec.
+    "cuda" without CUDA raises: no other backend answers in its place."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}: use one of {BACKENDS}")
+    return None if backend == "native" else _resolve_device(backend)
+
+
+def target_device(device, config) -> torch.device | None:
+    """Explicit device > config > NICETPU_BACKEND > "cuda"."""
+    if device is not None:
+        return _resolve_device(device)
+    return backend_device((config or RuntimeConfig.from_env()).backend)
 
 
 def _to_rgb(img: np.ndarray, alpha: str = "drop") -> np.ndarray:
@@ -65,21 +85,27 @@ def _batches(keys: list) -> list[list[int]]:
     return [idxs[s : s + MAX_BATCH] for idxs in groups.values() for s in range(0, len(idxs), MAX_BATCH)]
 
 
-def encode(img: np.ndarray, *, device="cuda") -> bytes:
+def encode(img: np.ndarray, *, device=None, config=None) -> bytes:
     """Encode an (H, W, 3|4) uint8 array to `.nice` bytes (alpha dropped)."""
-    return encode_batch([img], device=device)[0]
+    return encode_batch([img], device=device, config=config)[0]
 
 
-def encode_batch(imgs: list[np.ndarray], *, device="cuda", stats: dict | None = None) -> list[bytes]:
+def encode_batch(imgs: list[np.ndarray], *, device=None, config=None,
+                 stats: dict | None = None) -> list[bytes]:
     """Encode a list of (H, W, 3|4) uint8 images; same-shape images share
     batches of up to MAX_BATCH.  Output order follows input order.
 
     stats: optional dict; receives "device" and "overflow_fallbacks" (the
     number of images the native encoder served because the device path
-    could not represent them).
+    could not represent them), or {"backend": "native"} when the config's
+    backend is the host codec.
     """
-    dev = _resolve_device(device)
+    dev = target_device(device, config)
     imgs = [_to_rgb(im) for im in imgs]
+    if dev is None:
+        if stats is not None:
+            stats["backend"] = "native"
+        return oracle.encode_batch_native(imgs)
     if stats is not None:
         stats["device"] = str(dev)
         stats.setdefault("overflow_fallbacks", 0)
@@ -91,12 +117,12 @@ def encode_batch(imgs: list[np.ndarray], *, device="cuda", stats: dict | None = 
     return out
 
 
-def decode(data: bytes, *, device="cuda") -> np.ndarray:
+def decode(data: bytes, *, device=None, config=None) -> np.ndarray:
     """Decode `.nice` bytes to an (H, W, 3) uint8 array."""
-    return decode_batch([data], device=device)[0]
+    return decode_batch([data], device=device, config=config)[0]
 
 
-def decode_batch(datas: list[bytes], *, device="cuda", chunk_bits: int | None = None,
+def decode_batch(datas: list[bytes], *, device=None, config=None, chunk_bits: int | None = None,
                  stats: dict | None = None) -> list[np.ndarray]:
     """Decode `.nice` streams; same-shape streams share device batches of up
     to MAX_BATCH, each through the retry ladder (`decode3.decode_batch_v3`).
@@ -104,8 +130,13 @@ def decode_batch(datas: list[bytes], *, device="cuda", chunk_bits: int | None = 
     given, sets every rung's chunk size.
 
     stats: optional dict; receives "device" and accumulates "retries" (rungs
-    retried) and "fallbacks" (streams the host decoded)."""
-    dev = _resolve_device(device)
+    retried) and "fallbacks" (streams the host decoded), or {"backend":
+    "native"} when the config's backend is the host codec."""
+    dev = target_device(device, config)
+    if dev is None:
+        if stats is not None:
+            stats["backend"] = "native"
+        return oracle.decode_batch_native(list(datas))
     if stats is not None:
         stats["device"] = str(dev)
         stats.setdefault("retries", 0)
@@ -153,3 +184,19 @@ def roundtrip_batch(imgs: list[np.ndarray], *, device="cuda",
             datas[i] = out[j]
             verified[i] = ok[j]
     return datas, verified
+
+
+def imread(path: str) -> np.ndarray:
+    """Read a PNG (or any PIL-supported image) as (H, W, 3|4) uint8."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        if im.mode not in ("RGB", "RGBA"):
+            im = im.convert("RGB")
+        return np.asarray(im, dtype=np.uint8)
+
+
+def imwrite(path: str, img: np.ndarray) -> None:
+    from PIL import Image
+
+    Image.fromarray(img).save(path)

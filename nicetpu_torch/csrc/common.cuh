@@ -14,6 +14,20 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// Asynchronous 4-byte copies from device memory into shared memory
+// (cp.async).  A thread's copies since its last commit form one group;
+// cp_async_wait<n> returns once all but its n newest groups have landed.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() { cp_async_wait<0>(); }
+
 // Contiguous slice [lo, hi) of one row of M elements for this block; lo is a
 // multiple of 4 so that the int4 path starts aligned.  Rounding the slice up
 // to a multiple of 4 can leave the last blocks with nothing: their slice is

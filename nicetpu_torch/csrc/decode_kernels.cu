@@ -17,6 +17,9 @@ namespace {
 
 using nt::aligned16;
 using nt::block_slice;
+using nt::cp_async4;
+using nt::cp_async_commit;
+using nt::cp_async_wait_all;
 using nt::kSymbols;
 using nt::kThreads;
 
@@ -26,16 +29,6 @@ constexpr int kPrefixStream = 1;    // SC_PREFIXES
 constexpr int kPrefixSymbols = 13;  // its alphabet
 constexpr int kModes = 5;           // prefixes 0..4 carry payload; 5..12 are run digits
 constexpr int kSlots = 4;
-
-// Asynchronous 4-byte copies from device memory into shared memory.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // ---------------------------------------------------------------------------
 // walk: replaces nicetpu/kernels/decode3.py walk_pallas (_walk_kernel,

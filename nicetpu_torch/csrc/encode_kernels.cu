@@ -118,70 +118,195 @@ __global__ void table_join_kernel(const int* __restrict__ bins, const int* __res
 
 // ---------------------------------------------------------------------------
 // fold_records: replaces pallas_ops.py fold_records_pallas (_fold_kernel).
-// One thread per group of 8 pixels: it walks the group's S (length, code)
-// slots and packs them MSB-first into a left-aligned kCapw-word record kept
-// in registers (the unrolled j loop keeps every index static), then writes
-// the record words and the bit length k.  Bits past 32*kCapw are dropped;
-// the caller flags k > 32*kCapw as overflow.  The arithmetic is that of the
-// Pallas kernel step for step, including its clipped shift amounts and its
-// update window j < s + 2, so overflowing groups agree too.  Bound by
-// device-memory bandwidth: 8*S bytes read and 4*(kCapw+1) written per group;
-// the slots load as int4.
+// One thread folds one group of 8 pixels: it packs the group's S (length,
+// code) slots MSB-first into a left-aligned kCapw-word record and writes the
+// record words and the bit length k.  Bits past 32*kCapw are dropped; the
+// caller flags k > 32*kCapw as overflow.  Bound by device-memory bandwidth:
+// 8*S bytes read and 4*(kCapw+1) written per group.
+//
+// The Pallas kernel keeps the record in ten vector registers and gives every
+// slot a ten-way compare-select-or, because a register cannot be indexed at
+// run time; one thread per group then reads its slots 4*S bytes apart from
+// its neighbour's.  This kernel does neither:
+//   * the slots of a block's kFoldThreads groups are one contiguous range of
+//     device memory.  The block copies it into shared memory with cp.async,
+//     kFoldTile slots of every group at a time into two buffers in turn, so
+//     the next tile arrives under this tile's arithmetic.  The copies are 4
+//     bytes each, a warp's covering two rows' 64 contiguous bytes, so any S
+//     and any alignment take the same path (16-byte copies measured no
+//     faster).  Each thread reads its own
+//     row as int4; the row stride of kFoldTile + 4 words spreads a quarter
+//     warp's 16-byte reads over all 32 banks.
+//   * a slot at bit offset cum only touches words cum >> 5 and the one after,
+//     and cum never falls, so the thread keeps just these two words (w0, w1)
+//     in registers.  When cum >> 5 moves on, the finished word goes to the
+//     thread's column of a shared-memory record tile, where a run-time index
+//     costs nothing.  The two words a slot contributes come from the same
+//     expressions as the generic fold's (slot_words), so codes with bits
+//     above their length, zero-length slots and 32-bit lengths give the
+//     same bits.  The record is then written out word by word, neighbouring
+//     threads to neighbouring addresses.
+// The window holds for lengths 0..32 (cum >> 5 then advances by at most one
+// a slot, and never beyond the Pallas kernel's update window j < s + 2).  A
+// group with any other length, which only an image that is re-encoded on the
+// host can hold, is folded again by fold_group_generic, the ten-register
+// fold whose arithmetic is the Pallas kernel's step for step, clipped shift
+// amounts and update window included.
 // ---------------------------------------------------------------------------
-constexpr int kCapw = 10;  // words per group record (320 bits)
+constexpr int kCapw = 10;          // words per group record (320 bits)
+constexpr int kFoldThreads = 128;  // groups (threads) a block
+constexpr int kFoldTile = 16;      // slots of every group a staged tile
+constexpr int kFoldStride = kFoldTile + 4;  // words between rows of a tile
+constexpr int kFoldStage = kFoldThreads * kFoldStride;  // words a buffer
+// two buffers each of lengths and codes, and the record tile
+constexpr int kFoldSmemBytes = (4 * kFoldStage + kCapw * kFoldThreads) * 4;
+static_assert(kFoldSmemBytes <= 48 * 1024, "the fold's shared memory is launched without opt-in");
+static_assert(kFoldTile % 4 == 0 && kFoldStride % 4 == 0, "rows of a tile are read as int4");
 
-__device__ __forceinline__ void fold_slot(int s, int L, uint32_t cd, int& cum,
-                                          uint32_t (&rec)[kCapw]) {
-  const int sw = cum >> 5;
-  const int sb = cum & 31;
+// The two record words a slot of length L and code cd contributes at bit
+// offset sb of a word: hi into that word, lo into the next.
+__device__ __forceinline__ void slot_words(int sb, int L, uint32_t cd, uint32_t& hi,
+                                           uint32_t& lo) {
   const bool fits = sb + L <= 32;
   const int k = fits ? 0 : sb + L - 32;
   const int sh_hi = min(max(fits ? 32 - sb - L : k, 0), 31);
-  const uint32_t hi = fits ? (cd << sh_hi) : (cd >> sh_hi);
+  hi = fits ? (cd << sh_hi) : (cd >> sh_hi);
   const uint32_t mask = k >= 32 ? 0xFFFFFFFFu : ((1u << k) - 1u);
   const int sh_lo = min(max(32 - k, 0), 31);
-  const uint32_t lo = fits ? 0u : ((cd & mask) << sh_lo);
-#pragma unroll
-  for (int j = 0; j < kCapw; ++j) {
-    if (j < s + 2) {
-      uint32_t upd = (sw == j) ? hi : 0u;
-      if (j > 0 && sw == j - 1) upd |= lo;
-      rec[j] |= upd;
-    }
-  }
-  cum += L;
+  lo = fits ? 0u : ((cd & mask) << sh_lo);
 }
 
-__global__ void fold_records_kernel(const int* __restrict__ aob, const uint32_t* __restrict__ code,
-                                    uint32_t* __restrict__ rec, int* __restrict__ kbits,
-                                    int Mg, int S) {
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= Mg) return;
-  const long long img = blockIdx.y;
-  const long long off = (img * Mg + g) * S;
+// The generic fold of one group, for any int32 lengths: the record in ten
+// registers, every slot a kCapw-way select.  Writes the record into the
+// thread's column of the record tile and returns the bit length.
+__device__ __noinline__ int fold_group_generic(const int* __restrict__ aob,
+                                               const uint32_t* __restrict__ code, int S,
+                                               uint32_t* col) {
   uint32_t r[kCapw];
 #pragma unroll
   for (int j = 0; j < kCapw; ++j) r[j] = 0u;
   int cum = 0;
-  if ((S & 3) == 0 && aligned16(aob + off) && aligned16(code + off)) {
-    const int4* a4 = reinterpret_cast<const int4*>(aob + off);
-    const uint4* c4 = reinterpret_cast<const uint4*>(code + off);
-    for (int v = 0; v < (S >> 2); ++v) {
-      const int4 L = __ldg(a4 + v);
-      const uint4 cd = __ldg(c4 + v);
-      fold_slot(4 * v + 0, L.x, cd.x, cum, r);
-      fold_slot(4 * v + 1, L.y, cd.y, cum, r);
-      fold_slot(4 * v + 2, L.z, cd.z, cum, r);
-      fold_slot(4 * v + 3, L.w, cd.w, cum, r);
+  for (int s = 0; s < S; ++s) {
+    const int L = __ldg(aob + s);
+    const int sw = cum >> 5;
+    uint32_t hi, lo;
+    slot_words(cum & 31, L, __ldg(code + s), hi, lo);
+#pragma unroll
+    for (int j = 0; j < kCapw; ++j) {
+      if (j < s + 2) {
+        uint32_t upd = (sw == j) ? hi : 0u;
+        if (j > 0 && sw == j - 1) upd |= lo;
+        r[j] |= upd;
+      }
     }
-  } else {
-    for (int s = 0; s < S; ++s) {
-      fold_slot(s, __ldg(aob + off + s), __ldg(code + off + s), cum, r);
-    }
+    cum += L;
   }
 #pragma unroll
-  for (int j = 0; j < kCapw; ++j) rec[(img * kCapw + j) * Mg + g] = r[j];
-  kbits[img * Mg + g] = cum;
+  for (int j = 0; j < kCapw; ++j) col[j * kFoldThreads] = r[j];
+  return cum;
+}
+
+// A thread's fold in flight: w0 and w1 are record words cur and cur + 1.
+struct FoldWindow {
+  uint32_t w0 = 0u, w1 = 0u;
+  int cum = 0, cur = 0;
+  uint32_t seen = 0u;  // largest length, as unsigned: over 32 if any is outside 0..32
+};
+
+__device__ __forceinline__ void window_slot(int L, uint32_t cd, FoldWindow& f, uint32_t* col) {
+  const int sw = f.cum >> 5;
+  uint32_t hi, lo;
+  slot_words(f.cum & 31, L, cd, hi, lo);
+  if (sw != f.cur) {  // word cur is finished
+    if ((unsigned)f.cur < kCapw) col[f.cur * kFoldThreads] = f.w0;
+    f.w0 = f.w1;
+    f.w1 = 0u;
+    f.cur = sw;
+  }
+  f.w0 |= hi;
+  f.w1 |= lo;
+  f.cum += L;
+  f.seen = max(f.seen, (uint32_t)L);
+}
+
+__global__ void __launch_bounds__(kFoldThreads)
+fold_records_kernel(const int* __restrict__ aob, const uint32_t* __restrict__ code,
+                    uint32_t* __restrict__ rec, int* __restrict__ kbits, int Mg, int S) {
+  extern __shared__ __align__(16) uint32_t fold_smem[];
+  uint32_t* s_len = fold_smem;                   // [2][kFoldStage]
+  uint32_t* s_code = fold_smem + 2 * kFoldStage;  // [2][kFoldStage]
+  uint32_t* col = fold_smem + 4 * kFoldStage + threadIdx.x;  // record tile [kCapw][kFoldThreads]
+
+  const int tid = threadIdx.x;
+  const long long img = blockIdx.y;
+  const int g0 = blockIdx.x * kFoldThreads;
+  const int rows = min(kFoldThreads, Mg - g0);
+  const long long base = (img * Mg + g0) * S;  // the block's first slot
+  const int tiles = (S + kFoldTile - 1) / kFoldTile;
+
+  auto fetch = [&](int p) {  // start the copy of tile p: slots [p*kFoldTile, +kFoldTile) of every row
+    const int c0 = p * kFoldTile;
+    uint32_t* dl = s_len + (p & 1) * kFoldStage;
+    uint32_t* dc = s_code + (p & 1) * kFoldStage;
+    for (int i = tid; i < kFoldThreads * kFoldTile; i += kFoldThreads) {
+      const int r = i / kFoldTile;
+      const int c = i % kFoldTile;
+      if (r < rows && c0 + c < S) {
+        const long long src = base + (long long)r * S + c0 + c;
+        nt::cp_async4(dl + r * kFoldStride + c, aob + src);
+        nt::cp_async4(dc + r * kFoldStride + c, code + src);
+      }
+    }
+    nt::cp_async_commit();
+  };
+
+  FoldWindow f;
+  fetch(0);
+  for (int p = 0; p < tiles; ++p) {
+    if (p + 1 < tiles) {
+      fetch(p + 1);
+      nt::cp_async_wait<1>();
+    } else {
+      nt::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile p has landed for every thread
+    if (tid < rows) {
+      const uint32_t* rl = s_len + (p & 1) * kFoldStage + tid * kFoldStride;
+      const uint32_t* rc = s_code + (p & 1) * kFoldStage + tid * kFoldStride;
+      const int left = S - p * kFoldTile;
+      if (left >= kFoldTile) {
+#pragma unroll
+        for (int v = 0; v < kFoldTile / 4; ++v) {
+          const uint4 L = reinterpret_cast<const uint4*>(rl)[v];
+          const uint4 cd = reinterpret_cast<const uint4*>(rc)[v];
+          window_slot((int)L.x, cd.x, f, col);
+          window_slot((int)L.y, cd.y, f, col);
+          window_slot((int)L.z, cd.z, f, col);
+          window_slot((int)L.w, cd.w, f, col);
+        }
+      } else {
+        for (int c = 0; c < left; ++c) window_slot((int)rl[c], rc[c], f, col);
+      }
+    }
+    __syncthreads();  // before the copy of tile p + 2 overwrites this buffer
+  }
+  if (tid >= rows) return;
+
+  const long long row = base + (long long)tid * S;
+  if (f.seen > 32u) {  // a length outside 0..32: the window does not hold
+    f.cum = fold_group_generic(aob + row, code + row, S, col);
+    f.cur = kCapw;
+  }
+  const long long g = g0 + tid;
+#pragma unroll
+  for (int j = 0; j < kCapw; ++j) {
+    uint32_t w = 0u;  // words the fold never reached
+    if (j < f.cur) w = col[j * kFoldThreads];
+    else if (j == f.cur) w = f.w0;
+    else if (j == f.cur + 1) w = f.w1;
+    rec[(img * kCapw + j) * Mg + g] = w;
+  }
+  kbits[img * Mg + g] = f.cum;
 }
 
 }  // namespace
@@ -216,9 +341,8 @@ int nt_fold_records(const void* aob, const void* code, void* rec, void* kbits, i
                     int S, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  constexpr int kFoldThreads = 128;
   dim3 grid((Mg + kFoldThreads - 1) / kFoldThreads, B);
-  fold_records_kernel<<<grid, kFoldThreads, 0, (cudaStream_t)stream>>>(
+  fold_records_kernel<<<grid, kFoldThreads, kFoldSmemBytes, (cudaStream_t)stream>>>(
       static_cast<const int*>(aob), static_cast<const uint32_t*>(code),
       static_cast<uint32_t*>(rec), static_cast<int*>(kbits), Mg, S);
   return (int)cudaGetLastError();

@@ -19,6 +19,7 @@ Tensors carrying uint32 values (codes, records) are int32 bit patterns.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -33,11 +34,13 @@ LAUNCHES = {
     "histogram": 0, "table_join": 0, "fold_records": 0,
     "walk": 0, "value_join": 0, "reconstruct_rows": 0,
 }
+_LAUNCHES_LOCK = threading.Lock()  # worker threads launch concurrently; the counts stay exact
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def check(t: torch.Tensor, name: str, ndim: int) -> None:
@@ -64,6 +67,12 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def count_launch(name: str) -> None:
+    """Add one to a kernel's launch count (exact under concurrent threads)."""
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
+
+
 def launch(name: str, fn, *args, device: torch.device) -> None:
     """Call a C entry point on `device`'s current stream; raise on error."""
     from nicetpu_torch.kernels import build
@@ -73,7 +82,7 @@ def launch(name: str, fn, *args, device: torch.device) -> None:
     err = getattr(lib, fn)(*args, ctypes.c_int(device.index), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{fn} failed: {lib.nt_error_string(err).decode()} ({err})")
-    LAUNCHES[name] += 1
+    count_launch(name)
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +188,16 @@ def fold_records_plain(aob2, code2):
 
 
 def fold_records(aob2, code2):
-    """Grouped record fold: (B, Mg, S) slots -> (rec (B, FOLD_CAPW, Mg), k (B, Mg))."""
+    """Grouped record fold: (B, Mg, S) slots -> (rec (B, FOLD_CAPW, Mg), k (B, Mg)).
+
+    Equal to `fold_records_plain` for any codes and any lengths whose
+    running sums stay inside int32 (beyond that the kernel's int32 sums
+    wrap, as the Pallas kernel's do, and the plain version's int64 do not).
+    The kernel folds a group through a two-word window, which holds while
+    every length of the group is in 0..32 (a valid image's are at most 31);
+    a group with any other length is folded again, in the same launch, by
+    the kernel's generic ten-word fold: such input is slower, not different,
+    and never reads or writes out of bounds."""
     check(aob2, "aob2", 3)
     check(code2, "code2", 3)
     same_device(aob2, code2)

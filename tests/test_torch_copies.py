@@ -1,8 +1,10 @@
 """The port's own copies of framework-neutral code, held against their
 originals: the format constants name by name, the header layouts, the
-code-length validation, the RGB normalisation, the native codec and the
-smoke run's test image."""
+code-length validation, the RGB normalisation, the native codec, the smoke
+run's test image, the stage timer, the mode statistics and the PNG bridges."""
 
+import inspect
+import json
 import os
 
 import numpy as np
@@ -11,15 +13,19 @@ import pytest
 import bench
 import chip_smoke
 from nicetpu import api as japi
+from nicetpu import corpus as jcorpus
 from nicetpu.format import constants as JC
 from nicetpu.format import headers as jheaders
 from nicetpu.format import huffman as jhuffman
 from nicetpu.hostref import oracle as joracle
+from nicetpu.utils import profiling as jprofiling
 from nicetpu_torch import api as tapi
+from nicetpu_torch import corpus as tcorpus
 from nicetpu_torch.format import constants as TC
 from nicetpu_torch.format import headers as theaders
 from nicetpu_torch.format import huffman as thuffman
 from nicetpu_torch.hostref import oracle as toracle
+from nicetpu_torch.utils import profiling as tprofiling
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 GOLDEN = ["random8x6", "gradient16x12", "flat9x7", "mixed20x14"]
@@ -100,3 +106,46 @@ def test_hostref_copy_builds_outside_the_source_tree():
 def test_make_image_copy_matches_bench():
     for h, w, seed in ((16, 24, 0), (512, 512, 7)):
         np.testing.assert_array_equal(chip_smoke.make_image(h, w, seed), bench.make_image(h, w, seed))
+
+
+def test_stage_timer_copy_matches_original(monkeypatch):
+    """The same clock readings give the same stages and the same summary."""
+    assert inspect.getsource(tprofiling.StageTimer) == inspect.getsource(jprofiling.StageTimer)
+    summaries = []
+    for mod in (tprofiling, jprofiling):
+        ticks = iter([0.0, 0.25, 1.0, 1.5, 2.0, 2.125])
+        monkeypatch.setattr(mod.time, "perf_counter", lambda: next(ticks))
+        t = mod.StageTimer()
+        with t.stage("a"):
+            pass
+        with t.stage("b"):
+            pass
+        with t.stage("a"):
+            pass
+        assert t.stages == {"a": 0.375, "b": 0.5}
+        summaries.append((t.summary(), t.summary(nbytes=7_000_000)))
+    assert summaries[0] == summaries[1]
+    assert json.loads(summaries[0][1]) == {"a": 375.0, "b": 500.0, "total_ms": 875.0, "MB/s": 8.0}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_mode_stats_copy_matches_original(seed):
+    counts = np.random.default_rng(seed).integers(0, 1000, TC.TOTAL_SYMBOLS)
+    assert tcorpus.mode_stats(counts) == jcorpus.mode_stats(counts)
+    assert inspect.getsource(tcorpus.mode_stats) == inspect.getsource(jcorpus.mode_stats)
+    assert [f.name for f in tcorpus.CorpusResult.__dataclass_fields__.values()] == [
+        f.name for f in jcorpus.CorpusResult.__dataclass_fields__.values()]
+
+
+def test_png_bridges_match(tmp_path):
+    rng = np.random.default_rng(2)
+    rgb = rng.integers(0, 256, (7, 9, 3)).astype(np.uint8)
+    rgba = rng.integers(0, 256, (7, 9, 4)).astype(np.uint8)
+    gray = rng.integers(0, 256, (7, 9)).astype(np.uint8)
+    for name, img in (("rgb", rgb), ("rgba", rgba), ("gray", gray)):
+        tp, jp = str(tmp_path / f"t_{name}.png"), str(tmp_path / f"j_{name}.png")
+        tapi.imwrite(tp, img)
+        japi.imwrite(jp, img)
+        for path in (tp, jp):
+            np.testing.assert_array_equal(tapi.imread(path), japi.imread(path))
+        assert tapi.imread(tp).shape == (7, 9, 4 if name == "rgba" else 3)

@@ -12,6 +12,8 @@ import pytest
 import torch
 
 import nicetpu_torch
+from nicetpu_torch import cli, corpus, pipeline
+from nicetpu_torch.config import RuntimeConfig
 from nicetpu_torch.format import constants as C
 from nicetpu_torch.hostref import oracle
 from nicetpu_torch.kernels import build, cuda_ops, decode3, decode_dev, recon
@@ -84,6 +86,43 @@ def test_fold_matches_plain(dev, S):
     before = cuda_ops.LAUNCHES["fold_records"]
     _same(cuda_ops.fold_records(aob, code), cuda_ops.fold_records_plain(aob, code))
     assert cuda_ops.LAUNCHES["fold_records"] == before + 1
+
+
+# group counts that fill no whole block of 128, one group, one slot, a last
+# tile of 4 or 8 slots (S = 20, 200)
+@pytest.mark.parametrize("B,Mg,S", [(1, 1, 64), (3, 129, 7), (1, 127, 1), (2, 257, 20), (1, 5, 200)])
+def test_fold_on_ragged_shapes(dev, B, Mg, S):
+    aob, code = (t.to(dev) for t in _slots(B, Mg, S, seed=Mg))
+    _same(cuda_ops.fold_records(aob, code), cuda_ops.fold_records_plain(aob, code))
+
+
+@pytest.mark.parametrize("S", [13, 64])
+def test_fold_on_an_unaligned_view(dev, S):
+    """A view starting one element in: no row is 16-byte aligned."""
+    aob, code = (t.to(dev).flatten()[1 : 1 + 1000 * S].view(1, 1000, S)
+                 for t in _slots(1, 1001, S, seed=S))
+    assert aob.is_contiguous() and aob.data_ptr() % 16 != 0
+    _same(cuda_ops.fold_records(aob, code), cuda_ops.fold_records_plain(aob, code))
+
+
+def test_fold_lengths_of_32_and_records_over_320_bits(dev):
+    rng = np.random.default_rng(32)
+    aob = torch.from_numpy(rng.integers(0, 33, (2, 1000, 64)).astype(np.int32)).to(dev)
+    code = _slots(2, 1000, 64, seed=33)[1].to(dev)
+    rec, k = cuda_ops.fold_records(aob, code)
+    assert bool((k > 32 * cuda_ops.FOLD_CAPW).all())
+    _same((rec, k), cuda_ops.fold_records_plain(aob, code))
+
+
+@pytest.mark.parametrize("bad", [33, 100, -1, 2**20, -(2**20)])
+def test_fold_lengths_outside_the_window(dev, bad):
+    """Groups holding a length outside 0..32 take the kernel's generic fold
+    and still equal the plain version; their neighbours keep the window.
+    (Lengths whose sums leave int32 wrap in the kernel as in the Pallas
+    kernel, and not in the plain version's int64.)"""
+    aob, code = (t.to(dev) for t in _slots(2, 1000, 64, seed=9))
+    aob[:, ::3, 5] = bad
+    _same(cuda_ops.fold_records(aob, code), cuda_ops.fold_records_plain(aob, code))
 
 
 def test_wrappers_reject_mixed_devices(dev):
@@ -292,3 +331,80 @@ def test_roundtrip_and_decode_on_the_card(dev):
     out = nicetpu_torch.decode_batch(datas, device="cuda", stats=dstats)
     assert all(np.array_equal(o, im) for o, im in zip(out, imgs))
     assert dstats["fallbacks"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the schedulers, the CLI and the corpus on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("gpu_threads,cpu_threads", [(1, 0), (3, 0), (2, 1)])
+def test_roundtrip_hybrid_on_the_card(dev, gpu_threads, cpu_threads):
+    """Worker threads on streams of their own: results complete, in order
+    and exact, the launch counts exact under concurrent launches."""
+    host = [[_smooth(48, 64, 10 * b + s) for s in range(3)] for b in range(6)]
+    batches = [(b, pipeline.upload_batch(b, dev)) for b in host] + [([_smooth(20, 36, 99)], None)]
+    cuda_ops.reset_launches()
+    res, stats = pipeline.roundtrip_hybrid(batches, gpu_threads=gpu_threads, cpu_threads=cpu_threads)
+    assert stats["gpu_batches"] + stats["cpu_batches"] == 7 and stats["cpu_batches"] >= 1
+    assert cpu_threads > 0 or stats["gpu_batches"] == 6
+    assert stats["fallbacks"] == 0 and stats["overflow_fallbacks"] == 0
+    for out, (b, _) in zip(res, batches):
+        assert [d for d, _ in out] == [oracle.encode_native(im) for im in b]
+        assert all(np.array_equal(a, im) for (_, a), im in zip(out, b))
+    n = stats["gpu_batches"]
+    assert {k: v for k, v in cuda_ops.LAUNCHES.items() if k != "walk"} == {
+        k: n for k in cuda_ops.LAUNCHES if k != "walk"}
+    assert cuda_ops.LAUNCHES["walk"] == 2 * n + stats["retries"]
+
+
+def test_an_exception_in_a_gpu_worker_fails_the_call(dev, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("injected kernel bug")
+
+    host = [[_smooth(20, 36, s)] for s in range(4)]
+    batches = [(b, pipeline.upload_batch(b, dev)) for b in host]
+    monkeypatch.setattr(cuda_ops, "fold_records", boom)
+    with pytest.raises(AssertionError, match="injected kernel bug"):
+        pipeline.roundtrip_hybrid(batches, gpu_threads=2, cpu_threads=1)
+
+
+def test_pipeline_on_the_card(dev):
+    imgs = [_smooth(48, 64, s) for s in range(9)] + [_smooth(20, 36, s) for s in range(3)]
+    want = [oracle.encode_native(im) for im in imgs]
+    with pipeline.Pipeline(config=RuntimeConfig(batch_size=4, workers=3)) as p:
+        # on the card the pool's default width is the measured one, not config.workers
+        assert p.device == torch.device("cuda") and p.workers == pipeline.Pipeline.DEVICE_WORKERS
+    with pipeline.Pipeline(workers=3, config=RuntimeConfig(batch_size=4)) as p:
+        assert p.workers == p._pool._max_workers == 3
+        p.warmup(imgs)
+        cuda_ops.reset_launches()
+        assert p.encode_many(imgs) == want
+        assert cuda_ops.LAUNCHES["fold_records"] == 4  # sub-batches of 4, 4, 1 and 3 images
+        pairs = p.roundtrip_many(imgs)
+    assert [d for d, _ in pairs] == want
+    assert all(np.array_equal(a, im) for (_, a), im in zip(pairs, imgs))
+
+
+def test_cli_and_corpus_on_the_card(dev, tmp_path, monkeypatch):
+    pytest.importorskip("PIL")
+    monkeypatch.delenv("NICETPU_BACKEND", raising=False)
+    img = _smooth(48, 64, 5)
+    png = str(tmp_path / "in.png")
+    nicetpu_torch.imwrite(png, img)
+    cuda_ops.reset_launches()
+    assert cli.main([png, str(tmp_path / "out")]) == 0  # the default backend: the card
+    data = (tmp_path / "out.nice").read_bytes()
+    assert data == oracle.encode_native(img)
+    assert cli.main([str(tmp_path / "out.nice"), str(tmp_path / "back.png")]) == 0
+    assert np.array_equal(nicetpu_torch.imread(str(tmp_path / "back.png")), img)
+    assert all(n > 0 for n in cuda_ops.LAUNCHES.values())
+
+    res = corpus.encode_corpus([png, str(tmp_path / "missing.png")], str(tmp_path / "enc"))
+    assert (res.encoded, res.failed) == (1, 1)
+    assert (tmp_path / "enc" / "in.nice").read_bytes() == data
+    before = cuda_ops.LAUNCHES["histogram"]
+    stats = corpus.stats_from_bitstream(data)
+    assert cuda_ops.LAUNCHES["histogram"] == before + 1
+    assert stats == corpus.stats_from_bitstream(data, device="cpu")
+    assert nicetpu_torch.encode(img, config=RuntimeConfig(backend="native")) == data
