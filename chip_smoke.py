@@ -39,7 +39,22 @@ Phases, one printed line or block each; any failure exits nonzero:
      and 4 threads, every blob equal to the native encoder's; MB/s of each;
   9. the CLI on the card: one 512x512 PNG through nicetpu_torch.cli.main to
      .nice and back with the default backend (where PIL is absent, the same
-     image through api.encode and api.decode with the "cuda" backend).
+     image through api.encode and api.decode with the "cuda" backend);
+ 10. the sharded codec (nicetpu_torch.dist): (a) the walk's shard offsets and
+     the reconstruction's carry at full size, exact: the final-round walk
+     over the 4096x4096 raster's words as 4 shard-local walks (chunk0,
+     bit_base) against the unsharded walk, its reconstruction as 4 row
+     blocks chained through prev4 against the unsharded kernel, chained
+     blocks at 5,000 wide (the scratch path), and both kernels with their
+     new arguments against their plain versions at small sizes; (b) the
+     4096x4096 raster through encode_sharded and decode_sharded as 4 gloo
+     ranks on the one card (NCCL will not put two ranks on one GPU; the
+     contexts time-slice, so the timing says nothing of scaling): bytes
+     equal to the native encoder's, raster exact, 0 fallbacks, all six
+     kernels launched on every rank, seconds, MB/s and per-rank stage
+     times; (c) decode_batch_sharded of 8 of the 512x512 blobs over the
+     same 4 ranks, exact; (d) dryrun_multichip over one NCCL rank.  The
+     spawned ranks run under a time limit of their own.
 Phase 2 also holds the fold against its plain version off the main path's
 shape.  The line before the last is the kernels' JSON record (launches from
 phase 5); the last line is
@@ -62,6 +77,8 @@ import nicetpu_torch
 from nicetpu_torch import cli, pipeline
 from nicetpu_torch.config import RuntimeConfig
 from nicetpu_torch.convert import from_int32_bits
+from nicetpu_torch.dist import launch, sharded_decode
+from nicetpu_torch.format import constants as C
 from nicetpu_torch.hostref import oracle
 from nicetpu_torch.kernels import build, cuda_ops, decode3, decode_dev, recon
 from nicetpu_torch.kernels.encode2 import encode_fused_core, mark_stage
@@ -585,6 +602,180 @@ def phase_cli(img, ref) -> None:
           f"launches={launches}")
 
 
+SHARDS = 4  # ranks of phase 10
+SCRATCH_W = 5000  # a width past the reconstruction's shared memory: the scratch path
+SHARDED_TIMEOUT = 420.0  # seconds phase 10's spawned ranks may take in all
+
+
+def shard_slices(data: bytes, nlc: int, chunk_bits: int, dev):
+    """The 4 ranks' word slices of a blob and the unsharded words they cut."""
+    payload = data[C.FILE_HEADER_BYTES + C.STREAM_HEADERS_BYTES : len(data) - 4]
+    slices = [torch.from_numpy(sharded_decode.shard_words(payload, d, nlc, chunk_bits).view(np.int32))
+              for d in range(SHARDS)]
+    wpc = chunk_bits // 32
+    full = torch.cat([s[: nlc * wpc] for s in slices] + [slices[-1][nlc * wpc :]])
+    return [s[None].to(dev) for s in slices], full[None].to(dev)
+
+
+def sharded_walk_check(dev, data: bytes, cfg, what: str, plain: bool) -> tuple:
+    """The final round over a blob's words as SHARDS shard-local walks
+    against the unsharded walk for the same entries (and, where plain, each
+    shard against walk_plain).  Returns the unsharded final round and its
+    tables for the reconstruction check."""
+    (_, wbits, af, pr, ib, pfx, sym_tbl), _ = decode3.prepare_batch_args([data], device=dev)
+    aff, dD, inc = decode3.derive_walk_tables(af, pr, ib)
+    nlc, steps = sharded_decode.shard_geometry(int(wbits[0]), SHARDS, cfg)
+    slices, full = shard_slices(data, nlc, cfg.chunk_bits, dev)
+    kw = dict(chunk_bits=cfg.chunk_bits, steps=steps)
+    e = (torch.arange(SHARDS * nlc, dtype=torch.int32, device=dev) * cfg.chunk_bits)[None]
+    ex = decode3.walk(full, e, aff, dD, inc, pfx, wbits, records=False, **kw)[4]
+    e = torch.cat([torch.zeros_like(ex[:, :1]), ex[:, :-1]], dim=1).contiguous()
+    whole = decode3.walk(full, e, aff, dD, inc, pfx, wbits, **kw)
+    for d, sl in enumerate(slices):
+        c0 = d * nlc
+        ed = e[:, c0 : c0 + nlc].contiguous()
+        skw = dict(kw, chunk0=c0, bit_base=c0 * cfg.chunk_bits)
+        got = decode3.walk(sl, ed, aff, dD, inc, pfx, wbits, **skw)
+        same = all(torch.equal(g, w[:, c0 : c0 + nlc]) for g, w in zip(got, whole))
+        check(same, f"shard {d}'s walk differs from the unsharded walk ({what})")
+        if plain:
+            want = decode3.walk_plain(sl, ed, aff, dD, inc, pfx, wbits, **skw)
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"shard {d}'s walk differs from walk_plain ({what})")
+    print(f"[sharded-kernel] walk, {what}: {SHARDS} shard-local final rounds ({nlc} chunks x {steps} "
+          f"steps each, chunk0/bit_base) equal the unsharded walk's records and exits"
+          f"{' and walk_plain' if plain else ''}")
+    return whole, wbits, sym_tbl, nlc * SHARDS * steps
+
+
+def chained_recon(form, delta, refoff, W: int, rows: list[int]):
+    """The reconstruction as row blocks chained through prev4."""
+    carry = torch.zeros(form.shape[0], 3, 4 * W, dtype=torch.int32, device=form.device)
+    outs, r0 = [], 0
+    for h in rows:
+        cut = slice(r0 * W, (r0 + h) * W)
+        out, carry = recon.reconstruct_rows(form[:, cut].contiguous(), delta[:, :, cut].contiguous(),
+                                            refoff[:, cut].contiguous(), width=W, prev4=carry)
+        outs.append(out)
+        r0 += h
+    return torch.cat(outs, dim=2)
+
+
+def phase_sharded_kernels(dev, big, big_ref, blob512) -> None:
+    """10(a): the walk's shard offsets and the reconstruction's carry."""
+    H, W = big.shape[:2]
+    whole, wbits, sym_tbl, S = sharded_walk_check(dev, big_ref, decode3.LADDER[-1],
+                                                  "4096x4096 raster, 4096-bit chunks", plain=False)
+    pos, sym, i12, i34, _ = whole
+    bins = decode3._payload_bins(sym.view(1, S), i12.view(1, S), i34.view(1, S))
+    syms = cuda_ops.value_join(bins, sym_tbl)
+    rec, dst, _ = decode3.assemble_v3(pos.view(1, S), sym.view(1, S), *syms, H * W, W, wbits)
+    form, delta, refoff = decode3.place_and_unpack(rec, dst, H * W, W)
+    full = recon.reconstruct_rows(form, delta, refoff, width=W)
+    check(torch.equal(full, torch.from_numpy(big.reshape(1, -1, 3)).to(dev).transpose(1, 2).to(torch.int32)),
+          "the 4096x4096 reconstruction differs from the image")
+    blocks = [H // SHARDS] * SHARDS
+    chained = chained_recon(form, delta, refoff, W, blocks)
+    check(torch.equal(chained, full), "4 chained row blocks differ from the unsharded reconstruction")
+    whole_ms = cuda_ms(lambda: recon.reconstruct_rows(form, delta, refoff, width=W), 3, warmup=1)
+    chain_ms = cuda_ms(lambda: chained_recon(form, delta, refoff, W, blocks), 3, warmup=1)
+    print(f"[sharded-kernel] reconstruct_rows, 4096x4096 raster: {SHARDS} blocks of {blocks[0]} rows "
+          f"chained through prev4 equal the unsharded kernel bit for bit; {chain_ms:.4f} ms chained, "
+          f"{whole_ms:.4f} ms unsharded (CUDA events, 3 calls)")
+    args = [t.to(dev) for t in random_recon_inputs(1, 6, SCRATCH_W, seed=SCRATCH_W)]
+    check(torch.equal(chained_recon(*args, SCRATCH_W, [1, 2, 3]),
+                      recon.reconstruct_rows(*args, width=SCRATCH_W)),
+          f"chained blocks at {SCRATCH_W} wide (the scratch path) differ from the unsharded kernel")
+    print(f"[sharded-kernel] reconstruct_rows at {SCRATCH_W} wide (device-memory scratch): blocks of 1, "
+          "2 and 3 rows chained through prev4 equal the unsharded kernel")
+    # both kernels with their new arguments against their plain versions
+    sharded_walk_check(dev, blob512, decode3.WalkCfg(2048, 32, 8, 2), "one 512x512 blob, 2048-bit chunks",
+                       plain=True)
+    for b_, h_, w_ in ((2, 16, W512), (1, 2, SCRATCH_W)):
+        args = [t.to(dev) for t in random_recon_inputs(b_, h_, w_, seed=w_ + 1)]
+        prev4 = torch.from_numpy(np.random.default_rng(w_).integers(0, 256, (b_, 3, 4 * w_))
+                                 .astype(np.int32)).to(dev)
+        got = recon.reconstruct_rows(*args, width=w_, prev4=prev4)
+        want = decode_dev.reconstruct_rows(*args, h_ * w_, w_, prev4=prev4)
+        err = max(max_abs_err(g, x) for g, x in zip(got, want))
+        same = all(torch.equal(g, x) for g, x in zip(got, want))
+        print(f"[sharded-kernel] reconstruct_rows with a random carry at {b_} x {h_} rows x {w_}: "
+              f"out and tail exact={same} max_abs_err={err}")
+        check(same, f"reconstruct_rows with a carry disagrees with its plain version at width {w_}")
+
+
+def _sharded_rank(comm, device: str, big, big_ref, blobs, imgs) -> dict:
+    """One rank of phase 10(b) and (c)."""
+    import torch.distributed as dist
+
+    from nicetpu_torch.dist.sharded import encode_sharded
+    from nicetpu_torch.dist.sharded_decode import decode_batch_sharded, decode_sharded
+
+    def timed(fn, *args, **kw):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = fn(*args, device=device, **kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    timed(encode_sharded, big)  # warm-up: library load, allocator
+    timed(decode_sharded, big_ref)
+    es, ds, bs = {}, {}, {}
+    cuda_ops.reset_launches()
+    data, enc_s = timed(encode_sharded, big, stats=es)
+    out, dec_s = timed(decode_sharded, data, stats=ds)
+    launches = dict(cuda_ops.LAUNCHES)
+    arrs, batch_s = timed(decode_batch_sharded, blobs, stats=bs)
+    return {"rank": comm.rank, "encode_s": enc_s, "decode_s": dec_s, "batch_s": batch_s,
+            "bytes_equal": data == big_ref, "raster_equal": bool(np.array_equal(out, big)),
+            "batch_equal": all(np.array_equal(a, im) for a, im in zip(arrs, imgs)),
+            "encode_stats": es, "decode_stats": ds, "batch_stats": bs, "launches": launches}
+
+
+def phase_sharded(dev, big, big_ref, imgs, blobs) -> None:
+    """10: the sharded codec on the card."""
+    t_phase = time.perf_counter()
+    phase_sharded_kernels(dev, big, big_ref, blobs[0])
+    left = SHARDED_TIMEOUT - (time.perf_counter() - t_phase)
+    t0 = time.perf_counter()
+    res = launch.run(_sharded_rank, SHARDS, backend="gloo", device=dev.type,
+                     args=(dev.type, big, big_ref, blobs[:8], imgs[:8]), timeout=left)
+    wall = time.perf_counter() - t0
+    mb = big.nbytes / 1e6
+    enc_s = max(r["encode_s"] for r in res)
+    dec_s = max(r["decode_s"] for r in res)
+    print(f"[sharded] 4096x4096 RGB8 over {SHARDS} gloo ranks on one card ({card_line()}; the "
+          f"ranks' contexts time-slice one GPU and gloo stages every collective through host "
+          f"memory, so this says nothing of scaling across chips): encode_sharded {enc_s:.4f} s "
+          f"({mb / enc_s:.2f} MB/s), decode_sharded {dec_s:.4f} s ({mb / dec_s:.2f} MB/s); spawn, "
+          f"warm-up and batch phase {wall:.1f} s")
+    for r in res:
+        stages = {f"{side}.{k}": round(v * 1e3, 1) for side in ("encode", "decode")
+                  for k, v in r[f"{side}_stats"]["stages"].items()}
+        print(f"[sharded] rank {r['rank']}: stage ms (host clock, device synchronized) "
+              f"{json.dumps(stages)}; launches={r['launches']}")
+    for r in res:
+        check(r["bytes_equal"], f"rank {r['rank']}: sharded bytes differ from hostref.encode_native")
+        check(r["raster_equal"], f"rank {r['rank']}: the sharded decode differs from the image")
+        check(r["encode_stats"]["overflow_fallbacks"] == 0 and r["decode_stats"]["fallbacks"] == 0,
+              f"rank {r['rank']}: sharded fallbacks {r['encode_stats']} {r['decode_stats']}")
+        check(all(r["launches"][k] >= 1 for k in REPLACES),
+              f"rank {r['rank']} did not launch every kernel on the sharded path: {r['launches']}")
+        check(r["batch_equal"] and r["batch_stats"] == {"retries": 0, "fallbacks": 0},
+              f"rank {r['rank']}: decode_batch_sharded differs or fell back: {r['batch_stats']}")
+    print(f"[sharded] every rank: bytes equal hostref.encode_native, raster exact, 0 fallbacks, "
+          f"all six kernels launched; decode_batch_sharded of 8 512x512 blobs over {SHARDS} ranks "
+          f"exact in {max(r['batch_s'] for r in res):.4f} s")
+    left = SHARDED_TIMEOUT - (time.perf_counter() - t_phase)
+    res = launch.dryrun_multichip(1, "nccl", "cuda", timeout=left)
+    check(all(v >= 1 for v in res[0]["launches"].values()), f"the NCCL dry run skipped a kernel: {res}")
+    print(f"[sharded] dryrun_multichip(1, 'nccl', 'cuda'): exact, launches={res[0]['launches']}; "
+          f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     print(card_line())
     if not torch.cuda.is_available():
@@ -616,6 +807,7 @@ def main() -> int:
     phase_roundtrip_big(dev, big, big_ref)
     phase_scheduler(dev, imgs, refs)
     phase_cli(imgs[0], refs[0])
+    phase_sharded(dev, big, big_ref, imgs, refs)
 
     record = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

@@ -60,7 +60,12 @@ constexpr int kSlots = 4;
 // past the end as in walk_ref; a window outside the staged range (an entry
 // before its chunk's start, when the previous chunk ran out of steps) is read
 // from device memory.  This replaces the TPU's per-chunk word blocks and
-// two-level one-hot fetch.  A chunk freezes at its bound or at wbits and
+// two-level one-hot fetch.  For a shard's slice of the words (decode across
+// ranks), chunk c is global chunk chunk0 + c and the words start at bit
+// bit_base: positions stay global, bounds are (chunk0 + c + 1) * chunk_bits
+// and words are read at (p - bit_base) >> 5, clamped into the slice (an
+// entry before bit_base comes only from a previous shard's chunk that failed
+// to cross, so its records do not matter: the gates reject the raster).  A chunk freezes at its bound or at wbits and
 // writes pos = -1 and zeros for every later step.  A thread keeps kTile steps of records in registers and stores
 // them as whole 32-byte sectors: neighbouring threads' records lie steps * 4
 // bytes apart, so one record a store would cost a sector each.  With records
@@ -108,9 +113,11 @@ struct Words {
   int Wn;
 };
 
+// The window at bit q of the words (q counted from their first bit; below 0
+// only when an entry lies before a shard's slice, which the gates reject).
 __device__ __forceinline__ uint32_t window(const Words& w, int q) {
-  const int i0 = min(q >> 5, w.Wn - 1);
-  const int i1 = min((q >> 5) + 1, w.Wn - 1);
+  const int i0 = min(max(q >> 5, 0), w.Wn - 1);
+  const int i1 = min(max((q >> 5) + 1, 0), w.Wn - 1);
   const int sh = q & 31;
   uint32_t w0, w1;
   if (i0 >= w.lo && i1 < w.lo + w.n) {
@@ -173,7 +180,7 @@ __global__ void __launch_bounds__(kWalkThreads)
                 const int* __restrict__ inc, const int* __restrict__ pfx,
                 const int* __restrict__ wbits, int* __restrict__ pos, int* __restrict__ sym,
                 uint32_t* __restrict__ i12, uint32_t* __restrict__ i34, int* __restrict__ exits,
-                int nch, int chunk_bits, int steps) {
+                int nch, int chunk_bits, int steps, int chunk0, int bit_base) {
   extern __shared__ __align__(16) uint8_t smem[];
   WalkTables& t = *reinterpret_cast<WalkTables*>(smem);
   uint32_t* s_words = reinterpret_cast<uint32_t*>(smem + sizeof(WalkTables));
@@ -182,7 +189,10 @@ __global__ void __launch_bounds__(kWalkThreads)
   w.g = words + (long long)b * Wn;
   w.Wn = Wn;
   w.s = s_words;
-  w.lo = blockIdx.x * blockDim.x * (chunk_bits >> 5);
+  // the block's first chunk starts at bit (chunk0 + blockIdx.x * blockDim.x) *
+  // chunk_bits; the words start at bit bit_base
+  const long long lo_bit = (long long)(chunk0 + blockIdx.x * blockDim.x) * chunk_bits - bit_base;
+  w.lo = (int)min(max(lo_bit >> 5, 0LL), (long long)Wn);
   const long long span = (long long)blockDim.x * (chunk_bits >> 5) + 8;
   w.n = (int)max(0LL, min(min(span, (long long)kStageWords), (long long)Wn - w.lo));
   // the words arrive while the tables are built
@@ -240,7 +250,7 @@ __global__ void __launch_bounds__(kWalkThreads)
 
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= nch) return;
-  const int limit = min((c + 1) * chunk_bits, wbits[b]);
+  const int limit = min((chunk0 + c + 1) * chunk_bits, wbits[b]);
   const long long chunk = (long long)b * nch + c;
   // records go out kTile steps at a time, two 16-byte stores per array
   // (whole 32-byte sectors); steps is a multiple of kTile
@@ -256,7 +266,7 @@ __global__ void __launch_bounds__(kWalkThreads)
       rb[u] = 0;
       if (p < limit) {
         int L0, idx0;
-        canon(t, kPrefixStream, window(w, p), &L0, &idx0);
+        canon(t, kPrefixStream, window(w, p - bit_base), &L0, &idx0);
         const int m = (idx0 >= 0 && idx0 < kPrefixSymbols) ? t.pfx[idx0] : 0;
         int q = p + L0;
         int idx[kSlots] = {0, 0, 0, 0};
@@ -265,7 +275,7 @@ __global__ void __launch_bounds__(kWalkThreads)
             const int s = t.slot[m][k];
             if (s < 0) continue;
             int Lk;
-            canon(t, s, window(w, q), &Lk, &idx[k]);
+            canon(t, s, window(w, q - bit_base), &Lk, &idx[k]);
             q += Lk;
           }
         }
@@ -360,7 +370,10 @@ __global__ void value_join_kernel(const int* __restrict__ bins, const int* __res
 //      with cp.async while the previous row computed; the threads turn each
 //      pixel into its (lag, k, c), reading the pixel above and the CONST
 //      reference from a ring of the last 4 rows (every reference reaches at
-//      most 3W + 3 back), then start the next row's copy;
+//      most 3W + 3 back), then start the next row's copy.  The ring starts
+//      as the four rows before the block: zeros, or the carry prev4 (B, 3,
+//      4W) of a row block decoded after the rows above it (decode across
+//      ranks), whose values must lie in 0..255;
 //   2. build: one warp per segment, 8 candidate entry values a lane, pushes
 //      the candidates through the segment's pixels.  A value v rides as the
 //      float 2^23 + v, so one fused multiply-add rounded toward zero,
@@ -384,8 +397,8 @@ __global__ void value_join_kernel(const int* __restrict__ bins, const int* __res
 //      land in columns 0..2 of the current row, which the build and replay
 //      read stale (as the JAX scheme does); one thread recomputes those three
 //      columns serially and stores them.
-// Reads before the raster start are zeros, as in decode_dev.reconstruct_rows
-// and the Pallas kernel.  refoff must hold 0 or one of
+// Reads before the raster start are zeros (or the carry), as in
+// decode_dev.reconstruct_rows and the Pallas kernel.  refoff must hold 0 or one of
 // decode_dev._const_offsets(W) (every offset is >= max(4, W - 3)).
 //
 // Bound: its least time is set by bytes (32 a pixel), but the scheme does 256
@@ -548,8 +561,8 @@ __device__ __forceinline__ uint32_t pack4(const float* x) {
 template <bool kStaged>
 __global__ void __launch_bounds__(1024)
     reconstruct_rows_kernel(const int* __restrict__ form, const int* __restrict__ delta,
-                            const int* __restrict__ refoff, int* __restrict__ out,
-                            uint8_t* scratch, int N, int W) {
+                            const int* __restrict__ refoff, const int* __restrict__ prev4,
+                            int* __restrict__ out, uint8_t* scratch, int N, int W) {
   extern __shared__ __align__(16) uint8_t smem[];
   const ReconLayout lay(W);
   const int bc = blockIdx.x;  // b * 3 + c
@@ -580,7 +593,13 @@ __global__ void __launch_bounds__(1024)
   const int* d_img = delta + (long long)bc * N;
   int* o_img = out + (long long)bc * N;
 
-  for (int i = tid; i < 4 * Wp; i += nt) ring[i] = 0;
+  // rows -4 .. -1: the carry (row -4 + j in slot j, since row r lives in
+  // slot r & 3), or zeros before the raster start
+  const int* p4 = prev4 != nullptr ? prev4 + (long long)bc * 4 * W : nullptr;
+  for (int i = tid; i < 4 * Wp; i += nt) {
+    const int j = i / Wp, x = i - j * Wp;
+    ring[i] = p4 != nullptr && x < W ? (uint8_t)p4[j * W + x] : 0;
+  }
   for (int s = tid; s < S; s += nt) flag[s] = 0;
   auto fetch = [&](int r) {  // cp.async the inputs of row r into the stage
     const long long base = (long long)r * W;
@@ -611,9 +630,10 @@ __global__ void __launch_bounds__(1024)
         if (k >= 0) {
           cc = k + 1;  // 1 + column of a reference into this row, fixed up later
         } else {
-          // rows back, 1..4 (k >= -(3W + 3))
+          // rows back, 1..4 (k >= -(3W + 3)); a row before the block is
+          // still in its ring slot (the carry, or zeros)
           const int back = k >= -W ? 1 : (k >= -2 * W ? 2 : (k >= -3 * W ? 3 : 4));
-          cv = r >= back ? ring[((r - back) & 3) * Wp + k + back * W] : 0;
+          cv = ring[((r - back) & 3) * Wp + k + back * W];
         }
       }
       uint32_t c, k, lag = 1;
@@ -799,8 +819,8 @@ extern "C" {
 
 int nt_walk(const void* words, int Wn, const void* entries, const void* aff, const void* dD,
             const void* inc, const void* pfx, const void* wbits, void* pos, void* sym, void* i12,
-            void* i34, void* exits, int B, int nch, int chunk_bits, int steps, int device,
-            void* stream) {
+            void* i34, void* exits, int B, int nch, int chunk_bits, int steps, int chunk0,
+            int bit_base, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const long long stage = (long long)kWalkThreads * (chunk_bits / 32) + 8;
@@ -815,7 +835,8 @@ int nt_walk(const void* words, int Wn, const void* entries, const void* aff, con
       static_cast<const int*>(aff), static_cast<const int*>(dD), static_cast<const int*>(inc),
       static_cast<const int*>(pfx), static_cast<const int*>(wbits),
       static_cast<int*>(pos), static_cast<int*>(sym), static_cast<uint32_t*>(i12),
-      static_cast<uint32_t*>(i34), static_cast<int*>(exits), nch, chunk_bits, steps);
+      static_cast<uint32_t*>(i34), static_cast<int*>(exits), nch, chunk_bits, steps, chunk0,
+      bit_base);
   return (int)cudaGetLastError();
 }
 
@@ -839,8 +860,9 @@ long long nt_recon_scratch_bytes(int W, int device) {
   return lay.end <= (size_t)optin ? 0 : (long long)lay.stage;
 }
 
-int nt_reconstruct_rows(const void* form, const void* delta, const void* refoff, void* out,
-                        void* scratch, int B, int N, int W, int device, void* stream) {
+// prev4: the (B, 3, 4W) carry, or nullptr for zeros before the raster start.
+int nt_reconstruct_rows(const void* form, const void* delta, const void* refoff, const void* prev4,
+                        void* out, void* scratch, int B, int N, int W, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int S = (W + kSeg - 1) / kSeg;
@@ -848,11 +870,12 @@ int nt_reconstruct_rows(const void* form, const void* delta, const void* refoff,
   const int* f = static_cast<const int*>(form);
   const int* d = static_cast<const int*>(delta);
   const int* ro = static_cast<const int*>(refoff);
+  const int* p4 = static_cast<const int*>(prev4);
   int* o = static_cast<int*>(out);
   cudaStream_t st = (cudaStream_t)stream;
   if (scratch) {
     reconstruct_rows_kernel<false>
-        <<<3 * B, threads, 0, st>>>(f, d, ro, o, static_cast<uint8_t*>(scratch), N, W);
+        <<<3 * B, threads, 0, st>>>(f, d, ro, p4, o, static_cast<uint8_t*>(scratch), N, W);
   } else {
     const size_t smem = ReconLayout(W).end;
     if (smem > 48 * 1024) {
@@ -860,7 +883,7 @@ int nt_reconstruct_rows(const void* form, const void* delta, const void* refoff,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return (int)err;
     }
-    reconstruct_rows_kernel<true><<<3 * B, threads, smem, st>>>(f, d, ro, o, nullptr, N, W);
+    reconstruct_rows_kernel<true><<<3 * B, threads, smem, st>>>(f, d, ro, p4, o, nullptr, N, W);
   }
   return (int)cudaGetLastError();
 }

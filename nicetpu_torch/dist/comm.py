@@ -1,0 +1,100 @@
+"""The collectives of the sharded codec over `torch.distributed`.
+
+The JAX package runs its sharded code inside `shard_map`, whose collectives
+(`ppermute`, `all_gather`, `psum`) run over the mesh.  Here every rank is a
+process of a `torch.distributed` group, and `Comm` holds that group and the
+device its collectives run on: the rank's CUDA device under NCCL, the CPU
+under gloo, where tensors are staged through host memory.  Every method
+takes and returns tensors on the caller's device and moves them as needed.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+
+class Comm:
+    """One rank's view of a process group (the default group if None)."""
+
+    def __init__(self, group=None):
+        if not dist.is_initialized():
+            raise RuntimeError("torch.distributed is not initialized (see multihost.initialize_distributed)")
+        self.group = group if group is not None else dist.group.WORLD
+        self.rank = dist.get_rank(self.group)
+        self.size = dist.get_world_size(self.group)
+        backend = dist.get_backend(self.group)
+        if backend == "nccl":
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        elif backend == "gloo":
+            self.device = torch.device("cpu")
+        else:
+            raise ValueError(f"unsupported backend {backend!r}: use 'nccl' or 'gloo'")
+
+    def _global(self, r: int) -> int:
+        return dist.get_global_rank(self.group, r)
+
+    def _on(self, t: torch.Tensor) -> torch.Tensor:
+        return t.to(self.device).contiguous()
+
+    def ppermute(self, t: torch.Tensor) -> torch.Tensor:
+        """Rank d sends t to rank d + 1; returns what rank d - 1 sent (zeros
+        on rank 0), like `jax.lax.ppermute` with pairs (i, i + 1).  Sends and
+        receives are posted together, so no order of ranks can deadlock."""
+        x = self._on(t)
+        buf = torch.zeros_like(x)
+        ops = []
+        if self.rank + 1 < self.size:
+            ops.append(dist.P2POp(dist.isend, x, self._global(self.rank + 1), self.group))
+        if self.rank > 0:
+            ops.append(dist.P2POp(dist.irecv, buf, self._global(self.rank - 1), self.group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return buf.to(t.device)
+
+    def send_next(self, t: torch.Tensor) -> None:
+        """Send t to rank d + 1 (nothing on the last rank)."""
+        if self.rank + 1 < self.size:
+            dist.send(self._on(t), self._global(self.rank + 1), self.group)
+
+    def recv_prev(self, like: torch.Tensor) -> torch.Tensor:
+        """Receive from rank d - 1 a tensor shaped like `like` (zeros on rank 0)."""
+        buf = torch.zeros_like(self._on(like))
+        if self.rank > 0:
+            dist.recv(buf, self._global(self.rank - 1), self.group)
+        return buf.to(like.device)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """(size, *t.shape): every rank's t, in rank order."""
+        x = self._on(t)
+        out = torch.empty((self.size,) + tuple(x.shape), dtype=x.dtype, device=self.device)
+        dist.all_gather(list(out.unbind(0)), x, group=self.group)
+        return out.to(t.device)
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of t over the ranks."""
+        x = self._on(t).clone()
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
+        return x.to(t.device)
+
+    def gather_root(self, t: torch.Tensor) -> torch.Tensor | None:
+        """(size, *t.shape) on rank 0, in rank order; None elsewhere."""
+        x = self._on(t)
+        if self.rank == 0:
+            out = torch.empty((self.size,) + tuple(x.shape), dtype=x.dtype, device=self.device)
+            dist.gather(x, list(out.unbind(0)), dst=self._global(0), group=self.group)
+            return out.to(t.device)
+        dist.gather(x, None, dst=self._global(0), group=self.group)
+        return None
+
+    def broadcast_bytes(self, data: bytes | None) -> bytes:
+        """Rank 0's bytes on every rank."""
+        n = torch.tensor([len(data) if self.rank == 0 else 0], dtype=torch.int64, device=self.device)
+        dist.broadcast(n, self._global(0), group=self.group)
+        buf = torch.empty(int(n.item()), dtype=torch.uint8, device=self.device)
+        if self.rank == 0:
+            buf.copy_(torch.frombuffer(bytearray(data), dtype=torch.uint8))
+        dist.broadcast(buf, self._global(0), group=self.group)
+        return buf.cpu().numpy().tobytes()
+

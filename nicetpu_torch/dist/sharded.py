@@ -1,0 +1,201 @@
+"""Sharded `.nice` encode over `torch.distributed` ranks (row blocks).
+
+Counterpart of `nicetpu/dist/sharded.py`.  The raster is cut into
+contiguous row blocks, one a rank.  Each rank:
+  1. receives its 4-row halo from the previous rank (`Comm.ppermute`),
+  2. tokenizes its block with `cascade` at g0 = rank * n_local (mode
+     decisions depend only on input bytes, so shard-local tokenization
+     composes exactly),
+  3. fixes cross-shard run lengths with one all-gather of every shard's
+     first change,
+  4. counts its tokens with the histogram kernel and sums the counts over
+     the ranks,
+  5. builds the Huffman tables from the summed counts on its device
+     (`huffman_dev.build_tables_device`: the same tables on every rank, and
+     the same as the host tables, by the shared tie-break),
+  6. packs its own token range: the table-join kernel, then the fold kernel,
+     the bit-offset scan and the word placement of
+     `encode2._fold_place_grouped_batched`.
+The shards' words, trimmed to the longest shard's, go to rank 0, which
+concatenates them at their global bit offsets (`stitch_payload`, the
+ordered gather) and assembles the bytes.
+
+Divergences from the JAX package, on purpose: the word capacity a shard
+(2 * n_local + 64, JAX's) is not asserted; totals are int64; and any
+overflow flag on any rank (run digits, code length, group record,
+capacity, total) sends the whole raster to `hostref.encode_native`,
+counted in stats["overflow_fallbacks"].
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from nicetpu_torch.api import _resolve_device
+from nicetpu_torch.dist.comm import Comm
+from nicetpu_torch.format import constants as C
+from nicetpu_torch.format import headers
+from nicetpu_torch.hostref import oracle
+from nicetpu_torch.kernels import cuda_ops
+from nicetpu_torch.kernels.encode2 import _fold_place_grouped_batched, total_bits_overflow
+from nicetpu_torch.kernels.huffman_dev import build_tables_device
+from nicetpu_torch.kernels.scan import suffix_min
+from nicetpu_torch.kernels.tokenize import assemble_bins, cascade, halo_pixels
+from nicetpu_torch.utils.profiling import MarkedStageTimer
+
+
+def stitch_payload(shard_words: np.ndarray, shard_bits: np.ndarray, n_dev: int) -> tuple[bytes, int]:
+    """Host-side ordered gather: concatenate per-shard bitstreams at their
+    global bit offsets (exclusive scan of shard totals).  The port's copy of
+    `nicetpu.dist.sharded.stitch_payload`."""
+    words_per = shard_words.shape[0] // n_dev
+    if int(shard_bits.max()) > 32 * words_per:
+        raise ValueError(
+            "shard payload exceeded its word capacity; re-run with a larger "
+            "w_cap (pathological bits/pixel)"
+        )
+    total_bits = int(shard_bits.sum())
+    out = np.zeros((total_bits + 31) // 32 + 2, dtype=np.uint64)
+    base = 0
+    for d in range(n_dev):
+        bits = int(shard_bits[d])
+        if bits == 0:
+            continue
+        w = shard_words[d * words_per : d * words_per + (bits + 31) // 32].astype(
+            np.uint64
+        )
+        sw, sb = base >> 5, base & 31
+        if sb == 0:
+            out[sw : sw + len(w)] |= w
+        else:
+            out[sw : sw + len(w)] |= w >> sb
+            out[sw + 1 : sw + 1 + len(w)] |= (w << (32 - sb)) & 0xFFFFFFFF
+        base += bits
+    return out.astype(np.uint32).astype(">u4").tobytes(), total_bits
+
+
+def rows_per_rank(height: int, width: int, n: int) -> int:
+    """Rows of each rank's block; raises where the raster cannot be split
+    (the halo of 4 rows must come from one previous rank)."""
+    if width < C.MIN_WIDTH:
+        raise ValueError(f"width must be >= {C.MIN_WIDTH} (SURVEY A.8.7)")
+    if height % n or height // n < 4:
+        raise ValueError(f"height {height} must split into blocks of >= 4 rows over {n} ranks")
+    return height // n
+
+
+def _tokenize_block(x, comm: Comm, *, width: int, n_local: int):
+    """x (n_local, 3) int32, this rank's rows -> flat bins (1, n_local * S)
+    with 858 holes, and the run-digit overflow flag."""
+    N = comm.size * n_local
+    halo = halo_pixels(width)
+    # the previous rank's last 4 rows (zeros on rank 0, whose halo reads the
+    # cascade masks by position)
+    x_ext = torch.cat([comm.ppermute(x[n_local - halo :]), x], dim=0)
+    cas = cascade(x_ext, comm.rank * n_local, n_local, width=width, halo=halo)
+    pos = cas["pos"]
+    sfx = suffix_min(torch.where(cas["changed"], pos, N))
+    # every shard's first change (N if it is all run); the run of this
+    # shard's last change ends at the first change of a later shard
+    firsts = comm.all_gather(sfx[:1])[:, 0]
+    later = torch.arange(comm.size, device=x.device) > comm.rank
+    tail_change = torch.where(later, firsts, N).min()
+    next_change = torch.minimum(torch.cat([sfx[1:], sfx.new_full((1,), N)]), tail_change)
+    bins, run_ovf = assemble_bins(
+        cas, next_change - pos - 1, ndigits_cap=C.MAX_RUN_DIGITS, invalid_bin=C.TOTAL_SYMBOLS
+    )
+    return bins.reshape(1, -1), run_ovf
+
+
+def encode_shards(img: np.ndarray, comm: Comm, device: torch.device, stats=None):
+    """The device half on one rank: tokenize, count, tables, pack.
+
+    Returns (words (k_max,) int32 bit patterns of this shard's payload, the
+    shard bit totals (n,) int64 numpy, the flat code lengths (858,) numpy),
+    or None on every rank where any rank overflowed."""
+    H, W, _ = img.shape
+    rows = rows_per_rank(H, W, comm.size)
+    n_local = rows * W
+    clock = MarkedStageTimer(stats, device)
+    block = np.ascontiguousarray(img[comm.rank * rows : (comm.rank + 1) * rows]).reshape(n_local, 3)
+    x = torch.from_numpy(block).to(device).to(torch.int32)
+    bins, run_ovf = _tokenize_block(x, comm, width=W, n_local=n_local)
+    clock.mark("tokenize")
+    counts = comm.psum(cuda_ops.histogram(bins).to(torch.int64))
+    clock.mark("histogram")
+    lengths, codes, len_ovf = build_tables_device(counts)
+    clock.mark("huffman_build")
+
+    S = bins.shape[1] // n_local
+    aob, code = cuda_ops.table_join(bins, lengths, codes)
+    w_cap = 2 * n_local + 64  # JAX's capacity, flagged here instead of asserted
+    words, totals, fold_ovf = _fold_place_grouped_batched(
+        aob.view(1, n_local, S), code.view(1, n_local, S), w_cap=w_cap
+    )
+    ovf = run_ovf | len_ovf | fold_ovf | (totals > 32 * (w_cap - 2)) | total_bits_overflow(totals)
+    # one all-gather of [bits, overflow, needed bits]: the code lengths
+    # times the summed counts, which the stitched total must equal
+    needed = (counts * lengths.to(torch.int64)).sum()
+    small = comm.all_gather(torch.stack([totals[0], ovf[0].to(torch.int64), needed]))
+    clock.mark("pack")
+    if bool(small[:, 1].any()):
+        return None
+    bits = small[:, 0].cpu().numpy()
+    if int(bits.sum()) != int(small[0, 2]):
+        raise RuntimeError(f"stitched payload of {int(bits.sum())} bits, tables need {int(small[0, 2])}")
+    k_max = int(min(w_cap, (int(bits.max()) + 31) // 32 + 1))
+    return words[0, :k_max].contiguous(), bits, lengths[0].cpu().numpy()
+
+
+def _file_bytes(W: int, H: int, lengths: np.ndarray, payload: bytes, total_bits: int) -> bytes:
+    n_bytes = total_bits // 8
+    B = payload[n_bytes] if total_bits % 8 else 0
+    return (
+        headers.pack_file_header(W, H, 3)
+        + headers.pack_stream_headers(lengths.astype(np.uint8))
+        + payload[:n_bytes]
+        + bytes([B, B, 0, 0, 0])
+    )
+
+
+def encode_across(img: np.ndarray, comm: Comm, device: torch.device, *, everywhere: bool,
+                  stats=None) -> bytes | None:
+    """Encode one raster across the ranks of `comm`; every rank passes the
+    same full raster.  The shards' words go to rank 0, which stitches them;
+    with everywhere=True every rank returns the bytes, else rank 0 only
+    (None elsewhere)."""
+    if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
+        raise ValueError("expected (H, W, 3) uint8 image")
+    H, W, _ = img.shape
+    if stats is not None:
+        stats.setdefault("overflow_fallbacks", 0)
+    res = encode_shards(img, comm, device, stats)
+    if res is None:
+        if stats is not None:
+            stats["overflow_fallbacks"] += 1
+        return oracle.encode_native(img) if everywhere or comm.rank == 0 else None
+    words, bits, lengths = res
+    clock = MarkedStageTimer(stats, device)
+    shards = comm.gather_root(words)  # the ordered gather, bounded by k_max a shard
+    data = None
+    if comm.rank == 0:
+        w_np = shards.cpu().numpy().view(np.uint32).reshape(-1)
+        payload, total_bits = stitch_payload(w_np, bits, comm.size)
+        data = _file_bytes(W, H, lengths, payload, total_bits)
+    if everywhere:
+        data = comm.broadcast_bytes(data)
+    clock.mark("stitch")
+    return data
+
+
+def encode_sharded(img: np.ndarray, *, device="cuda", group=None, stats: dict | None = None) -> bytes:
+    """Encode an (H, W, 3) uint8 raster across the ranks of `group` (the
+    default group if None): call it on every rank with the same raster.
+    Every rank returns the `.nice` bytes, equal to `hostref.encode_native`'s.
+
+    device: "cuda" (the rank's current CUDA device; raises without CUDA) or
+    "cpu" (the kernels' plain versions).  stats: optional dict; receives
+    "overflow_fallbacks" (1 when the raster went to the host encoder) and
+    "stages" (host-clock seconds per stage of this rank)."""
+    return encode_across(img, Comm(group), _resolve_device(device), everywhere=True, stats=stats)

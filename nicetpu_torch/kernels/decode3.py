@@ -228,7 +228,7 @@ def _decode_group(p, win_at, tabs, pfx64):
 
 
 def walk_plain(words, entries, aff, dD, inc, pfx, wbits, *, chunk_bits: int, steps: int,
-               records: bool = True):
+               records: bool = True, chunk0: int = 0, bit_base: int = 0):
     """`walk_ref` batched in torch: the plain version of the walk kernel.
 
     words (B, Wn) int32 bit patterns; entries (B, nch) int32 absolute bit
@@ -236,21 +236,28 @@ def walk_plain(words, entries, aff, dD, inc, pfx, wbits, *, chunk_bits: int, ste
     (pos, sym, i12, i34), each (B, nch, steps) int32 in serial order (pos =
     -1 where a chunk is frozen), and exits (B, nch); the four record arrays
     are None when records is False.  Windows past the last word read the
-    last word, as in `walk_ref`."""
+    last word, as in `walk_ref`.
+
+    chunk0/bit_base (a shard's slice, as in `walk_ref`): the chunks are
+    [chunk0, chunk0 + nch) and `words` starts at absolute bit bit_base;
+    positions stay global.  A window before bit_base (an entry from a
+    previous shard's chunk that failed to cross, which the gates reject)
+    reads the slice's first word, where JAX's negative index wraps."""
     B, Wn = words.shape
     nch = entries.shape[1]
     dev = words.device
     wu = from_int32_bits(words)
-    bound = ((torch.arange(nch, device=dev) + 1) * chunk_bits)[None, :]
+    bound = ((chunk0 + torch.arange(nch, device=dev) + 1) * chunk_bits)[None, :]
     wb = wbits.to(torch.int64)[:, None]
     pfx64 = pfx.reshape(B, 16).to(torch.int64)
     tabs = _stream_tables(aff, dD, inc)
 
     def win_at(q):
+        q = q - bit_base
         w = q >> 5
         sh = q & 31
-        w0 = wu.gather(1, w.clamp(max=Wn - 1))
-        w1 = wu.gather(1, (w + 1).clamp(max=Wn - 1))
+        w0 = wu.gather(1, w.clamp(0, Wn - 1))
+        w1 = wu.gather(1, (w + 1).clamp(0, Wn - 1))
         lo = torch.where(sh == 0, 0, w1 >> (32 - sh))
         return ((w0 << sh) & MASK32) | lo
 
@@ -277,11 +284,12 @@ def walk_plain(words, entries, aff, dD, inc, pfx, wbits, *, chunk_bits: int, ste
 
 
 def walk(words, entries, aff, dD, inc, pfx, wbits, *, chunk_bits: int, steps: int,
-         records: bool = True):
-    """The speculative chunk walk (see `walk_plain` for shapes and results):
-    launches `nt_walk` for CUDA tensors, runs `walk_plain` for CPU ones.
-    records=False skips the record stores (the non-final rounds need only
-    the exits) and returns None for the four record arrays."""
+         records: bool = True, chunk0: int = 0, bit_base: int = 0):
+    """The speculative chunk walk (see `walk_plain` for shapes, results and
+    the shard offsets chunk0/bit_base): launches `nt_walk` for CUDA tensors,
+    runs `walk_plain` for CPU ones.  records=False skips the record stores
+    (the non-final rounds need only the exits) and returns None for the four
+    record arrays."""
     for t, name, nd in ((words, "words", 2), (entries, "entries", 2), (aff, "aff", 3),
                         (dD, "dD", 3), (inc, "inc", 3), (pfx, "pfx", 3), (wbits, "wbits", 1)):
         cuda_ops.check(t, name, nd)
@@ -295,10 +303,12 @@ def walk(words, entries, aff, dD, inc, pfx, wbits, *, chunk_bits: int, steps: in
     if chunk_bits % 32 or chunk_bits <= 0 or steps % WALK_TILE or steps <= 0:
         raise ValueError(f"bad walk geometry chunk_bits={chunk_bits} steps={steps} (steps must "
                          f"be a positive multiple of {WALK_TILE})")
+    if chunk0 < 0 or bit_base < 0:
+        raise ValueError(f"chunk0 {chunk0} and bit_base {bit_base} must be >= 0")
     if words.device.type == "cpu":
-        return walk_plain(words, entries, aff, dD, inc, pfx, wbits,
-                          chunk_bits=chunk_bits, steps=steps, records=records)
-    if B > 65535 or (nch + 1) * chunk_bits >= 2**31:
+        return walk_plain(words, entries, aff, dD, inc, pfx, wbits, chunk_bits=chunk_bits,
+                          steps=steps, records=records, chunk0=chunk0, bit_base=bit_base)
+    if B > 65535 or (chunk0 + nch + 1) * chunk_bits >= 2**31 or bit_base >= 2**31:
         raise ValueError(f"walk of {B} x {nch} chunks of {chunk_bits} bits is out of range")
     exits = torch.empty(B, nch, dtype=torch.int32, device=words.device)
     recs = [None] * 4
@@ -309,7 +319,8 @@ def walk(words, entries, aff, dD, inc, pfx, wbits, *, chunk_bits: int, steps: in
         "walk", "nt_walk", cuda_ops.ptr(words), ctypes.c_int(Wn), cuda_ops.ptr(entries),
         cuda_ops.ptr(aff), cuda_ops.ptr(dD), cuda_ops.ptr(inc), cuda_ops.ptr(pfx),
         cuda_ops.ptr(wbits), *rp, cuda_ops.ptr(exits), ctypes.c_int(B), ctypes.c_int(nch),
-        ctypes.c_int(chunk_bits), ctypes.c_int(steps), device=words.device,
+        ctypes.c_int(chunk_bits), ctypes.c_int(steps), ctypes.c_int(chunk0),
+        ctypes.c_int(bit_base), device=words.device,
     )
     return (*recs, exits)
 

@@ -86,19 +86,25 @@ def reconstruct_serial(form, delta, refoff, n_pixels: int, width: int):
     return out
 
 
-def reconstruct_rows(form, delta, refoff, n_pixels: int, width: int):
-    """The value chain for a batch, reading zeros before the raster start:
-    the plain version of `recon.reconstruct_rows`.
+def reconstruct_rows(form, delta, refoff, n_pixels: int, width: int, prev4=None):
+    """The value chain for a batch, reading zeros (or the carry) before the
+    block's first row: the plain version of `recon.reconstruct_rows`.
 
     form, refoff (B, N) int32; delta (B, 3, N) int32 channel-planar; refoff
     holds 0 or one of `_const_offsets(width)`.  Returns (B, 3, N) int32.
+    prev4: optional (B, 3, 4W) int32 carry, the four rows before the block,
+    oldest first (values in 0..255), as the JAX `reconstruct_rows(prev4=)`
+    takes for one image; with it the result is (out, tail), tail the last
+    four rows of carry and block, the next block's carry.
     One step per pixel, vectorized over images and channels: slow, and meant
     for the CPU tests and the card's check of the kernel at small sizes."""
     N, W = n_pixels, width
     B = form.shape[0]
     offs = torch.as_tensor(_const_offsets(W), dtype=torch.int32, device=form.device)
-    pad = 3 * W + 4  # the deepest reference (3W + 3) lands inside the zero pad
+    pad = 4 * W  # four whole rows; the deepest reference (3W + 3) lands inside
     buf = torch.zeros(B, 3, pad + N, dtype=torch.int32, device=form.device)
+    if prev4 is not None:
+        buf[:, :, :pad] = prev4
     ro = torch.where(torch.isin(refoff, offs), refoff, 0).to(torch.int64)
     src = (pad + torch.arange(N, device=form.device))[None, :] - ro  # (B, N)
     for i in range(N):
@@ -109,4 +115,5 @@ def reconstruct_rows(form, delta, refoff, n_pixels: int, width: int):
             form[:, i, None], delta[:, :, i], cv, buf[:, :, j - W],
             buf[:, :, j - 1], buf[:, :, j - 2], buf[:, :, j - 3],
         )
-    return buf[:, :, pad:].contiguous()
+    out = buf[:, :, pad:].contiguous()
+    return out if prev4 is None else (out, buf[:, :, N:].contiguous())

@@ -1,6 +1,7 @@
 """Vectorized `.nice` tokenizer in PyTorch.
 
-Counterpart of `nicetpu/kernels/tokenize.py` (`cascade`, `assemble_bins`).
+Counterpart of `nicetpu/kernels/tokenize.py` (`halo_pixels`, `cascade`,
+`assemble_bins`).
 All predictors are statically shifted reads of the raster, the mode is a
 priority select over per-mode validity masks, and every token slot becomes
 a flat histogram bin.  The functions take any number of leading batch
@@ -15,6 +16,12 @@ import torch
 import torch.nn.functional as F
 
 from nicetpu_torch.format import constants as C
+
+
+def halo_pixels(width: int) -> int:
+    """Halo (in pixels) a shard needs before its first pixel: 4 rows covers
+    the deepest predictor reach 3W+3 (ref code.rs:141-145) for any W >= 4."""
+    return 4 * width
 
 
 def cascade(x_ext: torch.Tensor, g0, n_local: int, *, width: int, halo: int) -> dict:

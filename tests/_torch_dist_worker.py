@@ -1,0 +1,71 @@
+"""Rank functions for tests/test_torch_dist.py, run by
+`nicetpu_torch.dist.launch.run` in spawned processes.  This module imports
+no JAX, so that each rank starts quickly."""
+
+import time
+
+import torch
+
+from nicetpu_torch.dist import launch, sharded
+from nicetpu_torch.dist.multihost import decode_multihost, encode_multihost
+from nicetpu_torch.dist.sharded import encode_sharded
+from nicetpu_torch.dist.sharded_decode import decode_batch_sharded, decode_sharded
+from nicetpu_torch.hostref import oracle
+
+
+def sharded_cases(comm, images, blobs, cfg, batch, tall, tight_cfg):
+    """Every single-raster and batch case of the test file on one rank."""
+    res = {"encode": [], "decode": []}
+    for img in images:
+        st: dict = {}
+        res["encode"].append((encode_sharded(img, device="cpu", stats=st), st))
+    for data in blobs:
+        st = {}
+        res["decode"].append((decode_sharded(data, device="cpu", cfg=cfg, stats=st), st))
+    st = {}
+    res["batch"] = (decode_batch_sharded(batch, device="cpu", stats=st), st)
+    st = {}
+    res["tall"] = (decode_sharded(tall, device="cpu", stats=st), st)
+    st = {}
+    res["tight"] = (decode_sharded(blobs[0], device="cpu", cfg=tight_cfg, stats=st), st)
+
+    # an overflow flag on rank 1 only sends the whole raster to the host
+    place = sharded._fold_place_grouped_batched
+
+    def overflow_on_rank_1(*args, **kwargs):
+        words, totals, ovf = place(*args, **kwargs)
+        return words, totals, ovf | (comm.rank == 1)
+
+    sharded._fold_place_grouped_batched = overflow_on_rank_1
+    try:
+        st = {}
+        res["overflow"] = (encode_sharded(images[0], device="cpu", stats=st), st)
+    finally:
+        sharded._fold_place_grouped_batched = place
+    try:
+        encode_sharded(images[0], device="cuda")
+        res["cuda"] = "no error"
+    except RuntimeError as e:
+        res["cuda"] = str(e)
+    return res
+
+
+def multihost_pair(comm, img):
+    """encode_multihost and decode_multihost on a pair of ranks, then the
+    dry run's checks."""
+    data = encode_multihost(img, device="cpu")
+    out = decode_multihost(oracle.encode_native(img), device="cpu")
+    dry = launch._dryrun_rank(comm, "cpu")
+    return data, out, dry
+
+
+def fail_on_rank_1(comm):
+    if comm.rank == 1:
+        raise ValueError("rank 1 fails on purpose")
+    comm.all_gather(torch.zeros(1))  # waits for rank 1, which never comes
+    return comm.rank
+
+
+def sleep(comm, seconds):
+    time.sleep(seconds)
+    return comm.rank

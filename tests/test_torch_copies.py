@@ -1,7 +1,8 @@
 """The port's own copies of framework-neutral code, held against their
 originals: the format constants name by name, the header layouts, the
 code-length validation, the RGB normalisation, the native codec, the smoke
-run's test image, the stage timer, the mode statistics and the PNG bridges."""
+run's test image, the stage timer, the mode statistics, the PNG bridges and
+the sharded codec's halo size and payload stitch."""
 
 import inspect
 import json
@@ -14,17 +15,21 @@ import bench
 import chip_smoke
 from nicetpu import api as japi
 from nicetpu import corpus as jcorpus
+from nicetpu.dist import sharded as jsharded
 from nicetpu.format import constants as JC
 from nicetpu.format import headers as jheaders
 from nicetpu.format import huffman as jhuffman
 from nicetpu.hostref import oracle as joracle
+from nicetpu.kernels import tokenize as jtokenize
 from nicetpu.utils import profiling as jprofiling
 from nicetpu_torch import api as tapi
 from nicetpu_torch import corpus as tcorpus
 from nicetpu_torch.format import constants as TC
 from nicetpu_torch.format import headers as theaders
 from nicetpu_torch.format import huffman as thuffman
+from nicetpu_torch.dist import sharded as tsharded
 from nicetpu_torch.hostref import oracle as toracle
+from nicetpu_torch.kernels import tokenize as ttokenize
 from nicetpu_torch.utils import profiling as tprofiling
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -149,3 +154,31 @@ def test_png_bridges_match(tmp_path):
         for path in (tp, jp):
             np.testing.assert_array_equal(tapi.imread(path), japi.imread(path))
         assert tapi.imread(tp).shape == (7, 9, 4 if name == "rgba" else 3)
+
+
+def test_halo_pixels_copy_matches_original():
+    for w in (4, 5, 12, 128, 4096):
+        assert ttokenize.halo_pixels(w) == jtokenize.halo_pixels(w)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_stitch_payload_copy_matches_original(seed):
+    """Shards of random bit lengths (empty, word-aligned and ragged) stitch
+    to the same bytes and total; a shard over its capacity fails in both."""
+    rng = np.random.default_rng(seed)
+    n, words_per = 4, 9
+    words = rng.integers(0, 2**32, n * words_per, dtype=np.uint64).astype(np.uint32)
+    bits = rng.integers(0, 32 * words_per + 1, n).astype(np.int64)
+    bits[seed % n] = 0
+    bits[(seed + 1) % n] = 32 * (seed + 2)
+    for w in range(n):  # the encoder leaves the bits past a shard's total zero
+        k = int(bits[w])
+        shard = words[w * words_per : (w + 1) * words_per]
+        shard[k // 32 + (k % 32 > 0) :] = 0
+        if k % 32:
+            shard[k // 32] &= np.uint32((0xFFFFFFFF << (32 - k % 32)) & 0xFFFFFFFF)
+    assert tsharded.stitch_payload(words, bits, n) == jsharded.stitch_payload(words, bits, n)
+    bits[0] = 32 * words_per + 1
+    for fn in (tsharded.stitch_payload, jsharded.stitch_payload):
+        with pytest.raises(ValueError):
+            fn(words, bits, n)

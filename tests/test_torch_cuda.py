@@ -14,6 +14,7 @@ import torch
 import nicetpu_torch
 from nicetpu_torch import cli, corpus, pipeline
 from nicetpu_torch.config import RuntimeConfig
+from nicetpu_torch.dist import launch, sharded_decode
 from nicetpu_torch.format import constants as C
 from nicetpu_torch.hostref import oracle
 from nicetpu_torch.kernels import build, cuda_ops, decode3, decode_dev, recon
@@ -331,6 +332,83 @@ def test_roundtrip_and_decode_on_the_card(dev):
     out = nicetpu_torch.decode_batch(datas, device="cuda", stats=dstats)
     assert all(np.array_equal(o, im) for o, im in zip(out, imgs))
     assert dstats["fallbacks"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the kernels' shard offsets and carry, and the sharded codec on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("chunk_bits,n", [(512, 4), (4096, 3)])
+def test_walk_shard_offsets_match_plain_and_the_unsharded_walk(dev, chunk_bits, n):
+    """Each shard's walk over its slice of the words, with chunk0/bit_base,
+    equals its plain version and the unsharded walk's chunks for the same
+    entries; entries before a slice (clamped reads) equal the plain version."""
+    img = _smooth(96, 128, 3)
+    data = oracle.encode_native(img)
+    (words, wbits, af, pr, ib, pfx, _), _ = decode3.prepare_batch_args([data], device=dev)
+    aff, dD, inc = decode3.derive_walk_tables(af, pr, ib)
+    cfg = decode3.WalkCfg(chunk_bits, 8, 3, 3)
+    nlc, steps = sharded_decode.shard_geometry(int(wbits[0]), n, cfg)
+    payload = data[C.FILE_HEADER_BYTES + C.STREAM_HEADERS_BYTES : len(data) - 4]
+    full = torch.cat([torch.from_numpy(sharded_decode.shard_words(payload, d, nlc, chunk_bits)
+                                       .view(np.int32)[: nlc * chunk_bits // 32]) for d in range(n)])
+    full = torch.cat([full, torch.zeros(decode3._wrows(chunk_bits), dtype=torch.int32)])[None].to(dev)
+    e = (torch.arange(n * nlc, dtype=torch.int32, device=dev) * chunk_bits)[None]
+    kw = dict(chunk_bits=chunk_bits, steps=steps)
+    ex = decode3.walk(full, e, aff, dD, inc, pfx, wbits, records=False, **kw)[4]
+    e = torch.cat([torch.zeros_like(ex[:, :1]), ex[:, :-1]], dim=1).contiguous()
+    whole = decode3.walk(full, e, aff, dD, inc, pfx, wbits, **kw)
+    for d in range(n):
+        c0 = d * nlc
+        sl = torch.from_numpy(sharded_decode.shard_words(payload, d, nlc, chunk_bits).view(np.int32))
+        sl = sl[None].to(dev)
+        ed = e[:, c0 : c0 + nlc].contiguous()
+        skw = dict(kw, chunk0=c0, bit_base=c0 * chunk_bits)
+        got = decode3.walk(sl, ed, aff, dD, inc, pfx, wbits, **skw)
+        _same(got, decode3.walk_plain(sl, ed, aff, dD, inc, pfx, wbits, **skw))
+        _same(got, tuple(r[:, c0 : c0 + nlc] for r in whole))
+        before = ed.clone()
+        before[0, 0] -= 700  # 22 words before the slice on shards past the first
+        _same(decode3.walk(sl, before, aff, dD, inc, pfx, wbits, **skw),
+              decode3.walk_plain(sl, before, aff, dD, inc, pfx, wbits, **skw))
+
+
+@pytest.mark.parametrize("B,H,W", [(2, 9, 20), (1, 12, 512), (2, 6, 1100), (1, 2, 5000)])
+def test_reconstruct_rows_carry_matches_plain(dev, B, H, W):
+    """Kernel with a random carry against its plain version: the staged path
+    (20, 512, 1100 wide) and the device-memory scratch path (5000)."""
+    form, delta, refoff = (t.to(dev) for t in _recon_inputs(B, H, W, seed=W + 3))
+    prev4 = torch.from_numpy(np.random.default_rng(W).integers(0, 256, (B, 3, 4 * W))
+                             .astype(np.int32)).to(dev)
+    before = cuda_ops.LAUNCHES["reconstruct_rows"]
+    got = recon.reconstruct_rows(form, delta, refoff, width=W, prev4=prev4)
+    assert cuda_ops.LAUNCHES["reconstruct_rows"] == before + 1
+    _same(got, decode_dev.reconstruct_rows(form, delta, refoff, H * W, W, prev4=prev4))
+
+
+@pytest.mark.parametrize("W,rows", [(512, (16, 16, 32)), (5000, (1, 2))])
+def test_reconstruct_rows_blocks_chained_on_the_card(dev, W, rows):
+    H = sum(rows)
+    form, delta, refoff = (t.to(dev) for t in _recon_inputs(1, H, W, seed=W))
+    whole = recon.reconstruct_rows(form, delta, refoff, width=W)
+    carry = torch.zeros(1, 3, 4 * W, dtype=torch.int32, device=dev)
+    outs, r0 = [], 0
+    for h in rows:
+        cut = slice(r0 * W, (r0 + h) * W)
+        out, carry = recon.reconstruct_rows(form[:, cut].contiguous(), delta[:, :, cut].contiguous(),
+                                            refoff[:, cut].contiguous(), width=W, prev4=carry)
+        outs.append(out)
+        r0 += h
+    assert torch.equal(torch.cat(outs, dim=2), whole)
+
+
+@pytest.mark.parametrize("n,backend", [(2, "gloo"), (1, "nccl")])
+def test_dryrun_multichip_on_the_card(dev, n, backend):
+    """The sharded round trip over spawned ranks on the card: gloo ranks
+    share it, NCCL runs at world size 1 on a single card."""
+    res = launch.dryrun_multichip(n, backend, "cuda", timeout=300)
+    assert all(all(v > 0 for v in r["launches"].values()) for r in res)
 
 
 # ---------------------------------------------------------------------------
