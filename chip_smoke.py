@@ -42,8 +42,8 @@ Phases, one printed line or block each; any failure exits nonzero:
      image through api.encode and api.decode with the "cuda" backend);
  10. the sharded codec (nicetpu_torch.dist): (a) the walk's shard offsets and
      the reconstruction's carry at full size, exact: the final-round walk
-     over the 4096x4096 raster's words as 4 shard-local walks (chunk0,
-     bit_base) against the unsharded walk, its reconstruction as 4 row
+     over the 4096x4096 raster's words as 4 shard-local walks, each re-based
+     to its slice's first bit, against the unsharded walk, its reconstruction as 4 row
      blocks chained through prev4 against the unsharded kernel, chained
      blocks at 5,000 wide (the scratch path), and both kernels with their
      new arguments against their plain versions at small sizes; (b) the
@@ -618,32 +618,41 @@ def shard_slices(data: bytes, nlc: int, chunk_bits: int, dev):
 
 
 def sharded_walk_check(dev, data: bytes, cfg, what: str, plain: bool) -> tuple:
-    """The final round over a blob's words as SHARDS shard-local walks
-    against the unsharded walk for the same entries (and, where plain, each
-    shard against walk_plain).  Returns the unsharded final round and its
-    tables for the reconstruction check."""
+    """The final round over a blob's words as SHARDS shard-local walks,
+    each re-based to its slice's first bit (`sharded_decode.shard_walk`),
+    against the unsharded walk for the same entries with the positions
+    shifted (and, where plain, each shard against walk_plain).  Returns the
+    unsharded final round and its tables for the reconstruction check."""
     (_, wbits, af, pr, ib, pfx, sym_tbl), _ = decode3.prepare_batch_args([data], device=dev)
     aff, dD, inc = decode3.derive_walk_tables(af, pr, ib)
-    nlc, steps = sharded_decode.shard_geometry(int(wbits[0]), SHARDS, cfg)
+    total = int(wbits[0])
+    nlc, steps = sharded_decode.shard_geometry(total, SHARDS, cfg)
     slices, full = shard_slices(data, nlc, cfg.chunk_bits, dev)
     kw = dict(chunk_bits=cfg.chunk_bits, steps=steps)
     e = (torch.arange(SHARDS * nlc, dtype=torch.int32, device=dev) * cfg.chunk_bits)[None]
     ex = decode3.walk(full, e, aff, dD, inc, pfx, wbits, records=False, **kw)[4]
     e = torch.cat([torch.zeros_like(ex[:, :1]), ex[:, :-1]], dim=1).contiguous()
     whole = decode3.walk(full, e, aff, dD, inc, pfx, wbits, **kw)
+    span = nlc * cfg.chunk_bits
     for d, sl in enumerate(slices):
-        c0 = d * nlc
-        ed = e[:, c0 : c0 + nlc].contiguous()
-        skw = dict(kw, chunk0=c0, bit_base=c0 * cfg.chunk_bits)
-        got = decode3.walk(sl, ed, aff, dD, inc, pfx, wbits, **skw)
-        same = all(torch.equal(g, w[:, c0 : c0 + nlc]) for g, w in zip(got, whole))
-        check(same, f"shard {d}'s walk differs from the unsharded walk ({what})")
+        c0, base = d * nlc, d * span
+        ed = e[:, c0 : c0 + nlc].to(torch.int64)
+        recs, exits = sharded_decode.shard_walk(sl, ed, (aff, dD, inc, pfx), total, base=base,
+                                                span=span, **kw)
+        pos_w = whole[0][:, c0 : c0 + nlc]
+        want = (torch.where(pos_w >= 0, pos_w - base, -1), *(r[:, c0 : c0 + nlc] for r in whole[1:4]),
+                whole[4][:, c0 : c0 + nlc].to(torch.int64))
+        check(all(torch.equal(g, w) for g, w in zip((*recs, exits), want)),
+              f"shard {d}'s re-based walk differs from the unsharded walk ({what})")
         if plain:
-            want = decode3.walk_plain(sl, ed, aff, dD, inc, pfx, wbits, **skw)
-            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+            rel = (ed - base).to(torch.int32).contiguous()
+            wb_rel = torch.tensor([min(total - base, span)], dtype=torch.int32, device=dev)
+            got = decode3.walk(sl, rel, aff, dD, inc, pfx, wb_rel, **kw)
+            ref = decode3.walk_plain(sl, rel, aff, dD, inc, pfx, wb_rel, **kw)
+            check(all(torch.equal(g, w) for g, w in zip(got, ref)),
                   f"shard {d}'s walk differs from walk_plain ({what})")
     print(f"[sharded-kernel] walk, {what}: {SHARDS} shard-local final rounds ({nlc} chunks x {steps} "
-          f"steps each, chunk0/bit_base) equal the unsharded walk's records and exits"
+          f"steps each, positions relative to each slice) equal the unsharded walk's records and exits"
           f"{' and walk_plain' if plain else ''}")
     return whole, wbits, sym_tbl, nlc * SHARDS * steps
 

@@ -60,12 +60,13 @@ constexpr int kSlots = 4;
 // past the end as in walk_ref; a window outside the staged range (an entry
 // before its chunk's start, when the previous chunk ran out of steps) is read
 // from device memory.  This replaces the TPU's per-chunk word blocks and
-// two-level one-hot fetch.  For a shard's slice of the words (decode across
-// ranks), chunk c is global chunk chunk0 + c and the words start at bit
-// bit_base: positions stay global, bounds are (chunk0 + c + 1) * chunk_bits
-// and words are read at (p - bit_base) >> 5, clamped into the slice (an
-// entry before bit_base comes only from a previous shard's chunk that failed
-// to cross, so its records do not matter: the gates reject the raster).  A chunk freezes at its bound or at wbits and
+// two-level one-hot fetch.  Chunk c ends at bit (c + 1) * chunk_bits; a word
+// index below 0 is clamped to the first word.  A shard of the decode across
+// ranks passes its slice of the words with every position relative to the
+// slice's first bit, so that positions stay in int32 for payloads of 2^31
+// bits or more; an entry below 0 comes only from a previous shard's chunk
+// that failed to cross, so its records do not matter: the gates reject the
+// raster.  A chunk freezes at its bound or at wbits and
 // writes pos = -1 and zeros for every later step.  A thread keeps kTile steps of records in registers and stores
 // them as whole 32-byte sectors: neighbouring threads' records lie steps * 4
 // bytes apart, so one record a store would cost a sector each.  With records
@@ -113,8 +114,8 @@ struct Words {
   int Wn;
 };
 
-// The window at bit q of the words (q counted from their first bit; below 0
-// only when an entry lies before a shard's slice, which the gates reject).
+// The window at bit q of the words (below 0 only when an entry lies before a
+// shard's slice, which the gates reject).
 __device__ __forceinline__ uint32_t window(const Words& w, int q) {
   const int i0 = min(max(q >> 5, 0), w.Wn - 1);
   const int i1 = min(max((q >> 5) + 1, 0), w.Wn - 1);
@@ -180,7 +181,7 @@ __global__ void __launch_bounds__(kWalkThreads)
                 const int* __restrict__ inc, const int* __restrict__ pfx,
                 const int* __restrict__ wbits, int* __restrict__ pos, int* __restrict__ sym,
                 uint32_t* __restrict__ i12, uint32_t* __restrict__ i34, int* __restrict__ exits,
-                int nch, int chunk_bits, int steps, int chunk0, int bit_base) {
+                int nch, int chunk_bits, int steps) {
   extern __shared__ __align__(16) uint8_t smem[];
   WalkTables& t = *reinterpret_cast<WalkTables*>(smem);
   uint32_t* s_words = reinterpret_cast<uint32_t*>(smem + sizeof(WalkTables));
@@ -189,10 +190,9 @@ __global__ void __launch_bounds__(kWalkThreads)
   w.g = words + (long long)b * Wn;
   w.Wn = Wn;
   w.s = s_words;
-  // the block's first chunk starts at bit (chunk0 + blockIdx.x * blockDim.x) *
-  // chunk_bits; the words start at bit bit_base
-  const long long lo_bit = (long long)(chunk0 + blockIdx.x * blockDim.x) * chunk_bits - bit_base;
-  w.lo = (int)min(max(lo_bit >> 5, 0LL), (long long)Wn);
+  // the block's first chunk starts at bit blockIdx.x * blockDim.x * chunk_bits
+  const long long lo_bit = (long long)blockIdx.x * blockDim.x * chunk_bits;
+  w.lo = (int)min(lo_bit >> 5, (long long)Wn);
   const long long span = (long long)blockDim.x * (chunk_bits >> 5) + 8;
   w.n = (int)max(0LL, min(min(span, (long long)kStageWords), (long long)Wn - w.lo));
   // the words arrive while the tables are built
@@ -250,7 +250,7 @@ __global__ void __launch_bounds__(kWalkThreads)
 
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= nch) return;
-  const int limit = min((chunk0 + c + 1) * chunk_bits, wbits[b]);
+  const int limit = min((c + 1) * chunk_bits, wbits[b]);
   const long long chunk = (long long)b * nch + c;
   // records go out kTile steps at a time, two 16-byte stores per array
   // (whole 32-byte sectors); steps is a multiple of kTile
@@ -266,7 +266,7 @@ __global__ void __launch_bounds__(kWalkThreads)
       rb[u] = 0;
       if (p < limit) {
         int L0, idx0;
-        canon(t, kPrefixStream, window(w, p - bit_base), &L0, &idx0);
+        canon(t, kPrefixStream, window(w, p), &L0, &idx0);
         const int m = (idx0 >= 0 && idx0 < kPrefixSymbols) ? t.pfx[idx0] : 0;
         int q = p + L0;
         int idx[kSlots] = {0, 0, 0, 0};
@@ -275,7 +275,7 @@ __global__ void __launch_bounds__(kWalkThreads)
             const int s = t.slot[m][k];
             if (s < 0) continue;
             int Lk;
-            canon(t, s, window(w, q - bit_base), &Lk, &idx[k]);
+            canon(t, s, window(w, q), &Lk, &idx[k]);
             q += Lk;
           }
         }
@@ -819,8 +819,8 @@ extern "C" {
 
 int nt_walk(const void* words, int Wn, const void* entries, const void* aff, const void* dD,
             const void* inc, const void* pfx, const void* wbits, void* pos, void* sym, void* i12,
-            void* i34, void* exits, int B, int nch, int chunk_bits, int steps, int chunk0,
-            int bit_base, int device, void* stream) {
+            void* i34, void* exits, int B, int nch, int chunk_bits, int steps, int device,
+            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const long long stage = (long long)kWalkThreads * (chunk_bits / 32) + 8;
@@ -835,8 +835,7 @@ int nt_walk(const void* words, int Wn, const void* entries, const void* aff, con
       static_cast<const int*>(aff), static_cast<const int*>(dD), static_cast<const int*>(inc),
       static_cast<const int*>(pfx), static_cast<const int*>(wbits),
       static_cast<int*>(pos), static_cast<int*>(sym), static_cast<uint32_t*>(i12),
-      static_cast<uint32_t*>(i34), static_cast<int*>(exits), nch, chunk_bits, steps, chunk0,
-      bit_base);
+      static_cast<uint32_t*>(i34), static_cast<int*>(exits), nch, chunk_bits, steps);
   return (int)cudaGetLastError();
 }
 

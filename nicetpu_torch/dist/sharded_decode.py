@@ -5,10 +5,12 @@ Counterpart of `nicetpu/dist/sharded_decode.py`, in two shardings:
 * **Single raster** (`decode_sharded`): one bitstream decoded across the
   ranks.  The speculative chunk walk is sharded by chunk ranges: each rank
   holds only its slice of the payload words plus the walk's lookahead and
-  walks its chunks with `chunk0`/`bit_base` (the walk kernel's shard
-  offsets); between rounds each rank's last exit moves forward to the next
-  rank (`Comm.ppermute`), and the gates check the shard boundary the same
-  way.  Slot assembly uses local cumsums and all-gathered per-shard totals
+  walks its chunks with every position relative to the slice's first bit
+  (`shard_walk`), so that the kernel's int32 positions hold a shard of any
+  payload, 2**31 bits or more included; between rounds each rank's last
+  exit moves forward to the next rank (`Comm.ppermute`, in int64 global
+  positions), and the gates check the shard boundary the same way
+  (`walk_gates`).  Slot assembly uses local cumsums and all-gathered per-shard totals
   for the global offsets (digit count, coverage) and a running maximum that
   carries across shards for the digit -> pixel attachment.  The records of
   real pixels are all-gathered and each rank keeps its own row block; the
@@ -24,11 +26,13 @@ Counterpart of `nicetpu/dist/sharded_decode.py`, in two shardings:
   arrays are gathered in order.  No collectives run inside the decode.
 
 Nothing falls back quietly: a raster whose gates fail, or whose geometry
-cannot be split (H % n, fewer than 4 rows a rank, W < MIN_WIDTH), is decoded
+cannot be split (H % n, fewer than 4 rows a rank, W < MIN_WIDTH, a shard of
+more than `decode3.MAX_DEVICE_BITS` bits), is decoded
 by `hostref.decode_native` and counted in stats["fallbacks"].  The default
 walk configuration is the ladder's robust rung (`LADDER[-1]`, 4096-bit
-chunks), not the JAX module's 2048-bit `CHUNK_BITS` alias.  Coverage sums
-run in int64.
+chunks), not the JAX module's 2048-bit `CHUNK_BITS` alias.  Positions,
+digit counts and coverage sums run in int64 (the JAX module's int32 cannot
+hold a payload of 2**31 bits or more); the records stay int32.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from nicetpu_torch.kernels import cuda_ops, decode3, recon
 from nicetpu_torch.utils.profiling import MarkedStageTimer
 
 SHARD_ALIGN = 8  # chunks a rank rounds up to: the JAX walk's block on its jnp path
+RECORD_BLOCK = 1 << 23  # real slots a pass of slot_records takes
 
 
 def shard_geometry(wbits: int, n: int, cfg: decode3.WalkCfg) -> tuple[int, int]:
@@ -70,29 +75,71 @@ def shard_words(payload: bytes, rank: int, nlc: int, chunk_bits: int) -> np.ndar
     return out.view(">u4").astype(np.uint32)
 
 
-def _walk_shard(words, wbits, tables, comm: Comm, *, nlc: int, cfg, steps: int, clock):
+def shard_walk(words, entries, tables, wbits: int, *, base: int, span: int, chunk_bits: int,
+               steps: int, records: bool = True):
+    """One walk round over a shard's slice of the words, its positions
+    relative to the slice's first bit `base`: the walk kernel's int32
+    positions stay below `span` plus one pixel group, however long the
+    payload.
+
+    entries (1, nlc) int64 global bit positions (at least base - rounds *
+    chunk_bits: an entry moves back by at most one chunk a round); wbits the
+    payload's global bit count; span = nlc * chunk_bits, the slice's bound.
+    The kernel gets the total relative to base, clamped to [-2**30, span]:
+    a chunk freezes at min(its bound, wbits), and no entry lies below
+    -2**30.  Returns (records, exits): the four (1, nlc, steps) int32 record
+    arrays, pos relative to base (None each without records), and the exits
+    (1, nlc) int64 global."""
+    aff, dD, inc, pfx = tables
+    rel_total = min(max(wbits - base, -(2**30)), span)
+    wb = torch.tensor([rel_total], dtype=torch.int32, device=words.device)
+    e = (entries - base).to(torch.int32).contiguous()
+    *recs, ex = decode3.walk(words, e, aff, dD, inc, pfx, wb, chunk_bits=chunk_bits, steps=steps,
+                             records=records)
+    return recs, ex.to(torch.int64) + base
+
+
+def walk_gates(e, ex2, prev_exit, wbits: int, *, base: int, chunk_bits: int, first: bool):
+    """The walk's gates on one shard, in int64 global positions, as a (2,)
+    bool tensor [consistency, crossing]: every final exit still inside the
+    payload equals the next chunk's entry and the previous shard's last exit
+    equals this shard's first entry (not on the first shard, whose first
+    entry is the bit-0 anchor); every walked chunk crossed its bound.  e,
+    ex2 (nlc,) int64; prev_exit () int64."""
+    starts = base + torch.arange(e.shape[0], dtype=torch.int64, device=e.device) * chunk_bits
+    ok_in = ((ex2[:-1] == e[1:]) | (ex2[:-1] >= wbits)).all()
+    first_ok = (prev_exit == e[0]) | (prev_exit >= wbits) | first
+    crossed = ex2 >= torch.clamp(starts + chunk_bits, max=wbits)
+    return torch.stack([ok_in & first_ok, (crossed | (e >= wbits)).all()])
+
+
+def _walk_shard(words, wbits: int, tables, comm: Comm, *, nlc: int, cfg, steps: int, clock):
     """The speculative rounds over this rank's chunks, entries moving forward
     across the shard boundary between rounds.  Returns the final round's
-    records, its entries e and exits, and the previous rank's final exit."""
-    aff, dD, inc, pfx = tables
-    dev = words.device
-    chunk0 = comm.rank * nlc
-    kw = dict(chunk_bits=cfg.chunk_bits, steps=steps, chunk0=chunk0,
-              bit_base=chunk0 * cfg.chunk_bits)
+    records (pos relative to the shard's first bit), its entries e and exits
+    (int64 global), the previous rank's final exit and the shard's first
+    bit."""
+    base = comm.rank * nlc * cfg.chunk_bits
+    kw = dict(base=base, span=nlc * cfg.chunk_bits, chunk_bits=cfg.chunk_bits, steps=steps)
     # round 1 from the chunk starts; rank 0's first entry is the anchor, bit 0
-    e = ((chunk0 + torch.arange(nlc, dtype=torch.int32, device=dev)) * cfg.chunk_bits)[None]
+    # (ppermute gives rank 0 zeros)
+    e = base + torch.arange(nlc, dtype=torch.int64, device=words.device)[None] * cfg.chunk_bits
     for _ in range(cfg.rounds - 1):
-        ex = decode3.walk(words, e, aff, dD, inc, pfx, wbits, records=False, **kw)[4]
-        e = torch.cat([comm.ppermute(ex[:, -1:]), ex[:, :-1]], dim=1).contiguous()
-    pos, sym, i12, i34, ex2 = decode3.walk(words, e, aff, dD, inc, pfx, wbits, **kw)
+        ex = shard_walk(words, e, tables, wbits, records=False, **kw)[1]
+        e = torch.cat([comm.ppermute(ex[:, -1:]), ex[:, :-1]], dim=1)
+    recs, ex2 = shard_walk(words, e, tables, wbits, **kw)
     prev_exit = comm.ppermute(ex2[:, -1:])[0, 0]
     clock.mark("walk_rounds")
-    return (pos, sym, i12, i34), e[0], ex2[0], prev_exit
+    return recs, e[0], ex2[0], prev_exit, base
 
 
 def _decode_block(data: bytes, comm: Comm, device: torch.device, cfg, stats):
     """This rank's (3, n_local) uint8 row block, or None on every rank where
-    the gates failed."""
+    the gates failed.  Global quantities (positions, digit and coverage
+    counts) are int64; each slot-space temporary is dropped once the next
+    step has consumed it, and only the real pixels' slots reach the value
+    join and the records, so that a 16384x16384 raster's shards fit four
+    ranks on one card."""
     W, H, _ = headers.parse_file_header(data)
     n, rank = comm.size, comm.rank
     N = H * W
@@ -103,76 +150,102 @@ def _decode_block(data: bytes, comm: Comm, device: torch.device, cfg, stats):
     lens = torch.from_numpy(flat_lengths.astype(np.int64)[None]).to(device)
     af, pr, ib, pfx, sym_tbl, _, _ = decode3.prepare_tables_v3(lens)
     aff, dD, inc = decode3.derive_walk_tables(af, pr, ib)
-    payload = data[C.FILE_HEADER_BYTES + C.STREAM_HEADERS_BYTES : len(data) - 4]
-    wbits = len(payload) * 8
+    wbits = decode3.payload_bits(data)
     nlc, steps = shard_geometry(wbits, n, cfg)
+    payload = memoryview(data)[C.FILE_HEADER_BYTES + C.STREAM_HEADERS_BYTES : len(data) - 4]
     words = torch.from_numpy(shard_words(payload, rank, nlc, cfg.chunk_bits).view(np.int32))
     words = words[None].to(device)
-    wb = torch.tensor([wbits], dtype=torch.int32, device=device)
     clock.mark("tables")
 
-    recs, e, ex2, prev_exit = _walk_shard(
-        words, wb, (aff, dD, inc, pfx.contiguous()), comm, nlc=nlc, cfg=cfg, steps=steps, clock=clock
+    recs, e, ex2, prev_exit, base = _walk_shard(
+        words, wbits, (aff, dD, inc, pfx.contiguous()), comm, nlc=nlc, cfg=cfg, steps=steps, clock=clock
     )
-    # gates: the single-device logic, plus the shard boundary
-    starts = (rank * nlc + torch.arange(nlc, device=device)) * cfg.chunk_bits
-    ok_in = ((ex2[:-1] == e[1:]) | (ex2[:-1] >= wbits)).all()
-    first_ok = (prev_exit == e[0]) | (prev_exit >= wbits) | (rank == 0)
-    crossed = ex2 >= torch.clamp(starts + cfg.chunk_bits, max=wbits)
-    ok_walk = ok_in & first_ok & (crossed | (e >= wbits)).all()
+    del words
+    ok_walk = walk_gates(e, ex2, prev_exit, wbits, base=base, chunk_bits=cfg.chunk_bits,
+                         first=rank == 0)
 
     # slot-space assembly with cross-shard offsets (int64)
     pos, sym, i12, i34 = (r.reshape(-1) for r in recs)
-    valid = (pos >= 0) & (pos < wbits)
+    del recs
+    valid = (pos >= 0) & (pos < min(max(wbits - base, -1), nlc * cfg.chunk_bits))
+    del pos
     is_pfx = valid & (sym < C.PREFIX_RUN_BASE)
     is_dig = valid & (sym >= C.PREFIX_RUN_BASE)
-    cd_loc = torch.cumsum(is_dig.to(torch.int64), dim=0)
-    m_loc = torch.where(is_pfx, cd_loc, -1).max()
-    # one all-gather: [walk ok, digits, last prefix's digit count]
-    g1 = comm.all_gather(torch.stack([ok_walk.to(torch.int64), cd_loc[-1], m_loc]))
-    ok = bool(g1[:, 0].all())
-    offs_cd = torch.cumsum(g1[:, 1], dim=0) - g1[:, 1]
-    allm = torch.where(g1[:, 2] >= 0, g1[:, 2] + offs_cd, -1)
-    prevm = allm[:rank].max() if rank > 0 else torch.tensor(-1, device=device)
-    cd = cd_loc + offs_cd[rank]
-    cd_base = torch.maximum(torch.cummax(torch.where(is_pfx, cd, -1), dim=0).values, prevm)
-    kk = cd - cd_base - 1
-    dig_ok = is_dig & (cd_base >= 0) & (kk >= 0) & (kk < C.MAX_RUN_DIGITS)
-    kcl = kk.clamp(0, C.MAX_RUN_DIGITS - 1)
+    del valid
+    cd = torch.cumsum(is_dig, dim=0, dtype=torch.int64)
+    m_loc = torch.where(is_pfx, cd, -1).max()
+    # one all-gather: [consistency, crossing, digits, last prefix's digit count]
+    g1 = comm.all_gather(torch.cat([ok_walk.to(torch.int64), torch.stack([cd[-1], m_loc])]))
+    offs_cd = torch.cumsum(g1[:, 2], dim=0) - g1[:, 2]
+    allm = torch.where(g1[:, 3] >= 0, g1[:, 3] + offs_cd, -1)
+    prevm = int(allm[:rank].max()) if rank > 0 else -1
+    cd += offs_cd[rank]
+    cd_base = torch.cummax(torch.where(is_pfx, cd, -1), dim=0).values.clamp_(min=prevm)
+    dig_ok = is_dig & (cd_base >= 0)
+    kk = cd.sub_(cd_base).sub_(1)  # digits since the last prefix, minus one
+    del cd, cd_base, is_dig
+    dig_ok &= (kk >= 0) & (kk < C.MAX_RUN_DIGITS)
+    first_digit = kk == 0
+    shift = kk.clamp_(0, C.MAX_RUN_DIGITS - 1)
     dv = (sym - C.PREFIX_RUN_BASE).to(torch.int64)
-    dv = torch.where(kcl == C.MAX_RUN_DIGITS - 1, dv.clamp(max=1), dv)
-    cov = is_pfx.to(torch.int64) + torch.where(dig_ok, (dv << (3 * kcl)) + (kk == 0), 0)
-    cov = cov.clamp(max=N)
-    inc_loc = torch.cumsum(cov, dim=0)
-    g2 = comm.all_gather(inc_loc[-1:])[:, 0]
-    start = inc_loc - cov + g2[:rank].sum()  # the coverage of the ranks before
-    real = is_pfx & (start < N)
-    ok = ok and int(g2.sum()) >= N
+    dv.masked_fill_((shift == C.MAX_RUN_DIGITS - 1) & (dv > 1), 1)
+    cov = dv.bitwise_left_shift_(shift.mul_(3)).add_(first_digit)
+    del kk, shift, first_digit
+    cov.masked_fill_(~dig_ok, 0).add_(is_pfx).clamp_(max=N)
+    del dig_ok
+    start = torch.cumsum(cov, dim=0)
+    g2 = comm.all_gather(start[-1:])[:, 0]
+    start.sub_(cov).add_(g2[:rank].sum())  # the coverage of the ranks before
+    del cov
+    keep = torch.nonzero(is_pfx & (start < N)).reshape(-1)  # the real pixels' slots
+    del is_pfx
+    sym, i12, i34, start = sym[keep], i12[keep], i34[keep], start[keep]
+    del keep
 
-    # payload symbols and packed placement records
+    # payload symbols and packed placement records of the real slots
     bins = decode3._payload_bins(sym[None], i12[None], i34[None])
-    syms = cuda_ops.value_join(bins, sym_tbl.contiguous())[:, 0]
-    rec, dst = decode3.slot_records(is_pfx, sym, *syms, start, real, N, W)
-    ok_ref = ~(real & (sym == C.PREFIX_BACK_REF) & (syms[0] >= C.NUM_BACK_REF)).any()
-    keep = torch.nonzero(real).reshape(-1)
-    g3 = comm.all_gather(torch.stack([ok_ref.to(torch.int64), torch.tensor(keep.numel(), device=device)]))
+    del i12, i34
+    if sym.numel():
+        syms = cuda_ops.value_join(bins, sym_tbl.contiguous())[:, 0]
+    else:  # a shard of runs only: no real slot
+        syms = bins[:, 0]
+    del bins
+    rec = torch.empty_like(sym)
+    dst = torch.empty_like(start)
+    for a in range(0, sym.numel(), RECORD_BLOCK):  # bounds slot_records' temporaries
+        cut = slice(a, a + RECORD_BLOCK)
+        real = torch.ones_like(sym[cut], dtype=torch.bool)
+        rec[cut], dst[cut] = decode3.slot_records(real, sym[cut], *syms[:, cut], start[cut], real, N, W)
+    ok_ref = ~((sym == C.PREFIX_BACK_REF) & (syms[0] >= C.NUM_BACK_REF)).any()
+    del sym, syms, start
+    g3 = comm.all_gather(torch.stack([ok_ref.to(torch.int64), torch.tensor(rec.numel(), device=device)]))
     clock.mark("assembly")
-    if not (ok and bool(g3[:, 0].all())):
+    gates = {"consistency": bool(g1[:, 0].all()), "crossing": bool(g1[:, 1].all()),
+             "coverage": int(g2.sum()) >= N, "backref": bool(g3[:, 0].all())}
+    if stats is not None:
+        stats["gates"] = gates
+    if not all(gates.values()):
         return None
 
     # the records of real pixels, all-gathered; this rank keeps its rows
     k_max = max(1, int(g3[:, 1].max()))
     mine = torch.full((2, k_max), N, dtype=torch.int32, device=device)
-    mine[0, : keep.numel()] = rec[keep]
-    mine[1, : keep.numel()] = dst[keep].to(torch.int32)
+    mine[0, : rec.numel()] = rec
+    mine[1, : rec.numel()] = dst.to(torch.int32)
+    del rec, dst
     allrec = comm.all_gather(mine)
+    del mine
     clock.mark("records_all_gather")
-    rec_g, dst_g = allrec[:, 0].reshape(-1), allrec[:, 1].reshape(-1).to(torch.int64)
-    base = rank * n_local
-    ours = (dst_g >= base) & (dst_g < base + n_local)
-    form, delta, refoff = decode3.place_and_unpack(
-        rec_g[None], torch.where(ours, dst_g - base, n_local)[None], n_local, W
-    )
+    # each rank's records lie in pixel order (padding N last): this rank's
+    # rows are one run of each
+    lo = rank * n_local
+    bounds = torch.tensor([[lo, lo + n_local]], dtype=torch.int32, device=device).expand(n, 2)
+    cuts = torch.searchsorted(allrec[:, 1].contiguous(), bounds.contiguous()).tolist()
+    rec_o = torch.cat([allrec[r, 0, a:b] for r, (a, b) in enumerate(cuts)])
+    dst_o = torch.cat([allrec[r, 1, a:b] for r, (a, b) in enumerate(cuts)]) - lo
+    del allrec
+    form, delta, refoff = decode3.place_and_unpack(rec_o[None], dst_o[None], n_local, W)
+    del rec_o, dst_o
 
     # the carry pipeline: the four rows above from rank d - 1, one kernel
     # run, the last four rows on to rank d + 1
@@ -195,7 +268,9 @@ def decode_across(data: bytes, comm: Comm, device: torch.device, *, everywhere: 
     if stats is not None:
         stats.setdefault("fallbacks", 0)
     cfg = cfg or decode3.LADDER[-1]
-    unshardable = H % comm.size != 0 or H // comm.size < 4 or W < C.MIN_WIDTH
+    nlc, _ = shard_geometry(decode3.payload_bits(data), comm.size, cfg)
+    unshardable = (H % comm.size != 0 or H // comm.size < 4 or W < C.MIN_WIDTH
+                   or nlc * cfg.chunk_bits > decode3.MAX_DEVICE_BITS)  # a shard the walk cannot hold
     block = None if unshardable else _decode_block(data, comm, device, cfg, stats)
     if block is None:
         if stats is not None:
@@ -219,7 +294,8 @@ def decode_sharded(data: bytes, *, device="cuda", group=None, cfg: decode3.WalkC
     device: "cuda" (the rank's current CUDA device; raises without CUDA) or
     "cpu" (the kernels' plain versions).  cfg: the walk configuration
     (default the robust rung `decode3.LADDER[-1]`).  stats: optional dict;
-    receives "fallbacks" (1 when the host decoder served the raster) and
+    receives "fallbacks" (1 when the host decoder served the raster),
+    "gates" (the four gates over all ranks, where the walk ran) and
     "stages" (host-clock seconds per stage of this rank)."""
     return decode_across(data, Comm(group), _resolve_device(device), everywhere=True, cfg=cfg,
                          stats=stats)

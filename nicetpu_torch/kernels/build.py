@@ -93,7 +93,7 @@ def load() -> ctypes.CDLL:
             "nt_table_join": [vp, vp, vp, vp, vp, i32, i64, i32, vp],
             "nt_fold_records": [vp, vp, vp, vp, i32, i32, i32, i32, vp],
             "nt_walk": [vp, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                        i32, i32, i32, vp],
+                        i32, vp],
             "nt_value_join": [vp, vp, vp, i32, i32, i64, i32, vp],
             "nt_reconstruct_rows": [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp],
         }

@@ -72,6 +72,14 @@ class WalkCfg(NamedTuple):
 LADDER = (WalkCfg(2048, 32, 8, 2), WalkCfg(4096, 8, 3, 3))
 SBLK = 32  # step budgets round up to a multiple of this, as in the JAX walk
 
+# Payloads of this many bits or more are decoded on the host
+# (`decode_batch_v3`) and never verified on the device (`roundtrip_verify_fused`).
+# The walk keeps bit positions in int32, and the bound of a payload's last
+# chunk, one chunk past its end, must stay below 2**31: the margin of 2**16
+# covers chunks up to 2**15 bits.  The sharded decode keeps its positions
+# relative to each shard instead (`dist/sharded_decode.py`).
+MAX_DEVICE_BITS = 2**31 - 2**16
+
 _MSB = -0x80000000  # int32 sign bit
 _I32_MAX = 0x7FFFFFFF
 _PAD_BIN = 1023  # a hole in the payload bins (>= 858)
@@ -228,32 +236,28 @@ def _decode_group(p, win_at, tabs, pfx64):
 
 
 def walk_plain(words, entries, aff, dD, inc, pfx, wbits, *, chunk_bits: int, steps: int,
-               records: bool = True, chunk0: int = 0, bit_base: int = 0):
+               records: bool = True):
     """`walk_ref` batched in torch: the plain version of the walk kernel.
 
-    words (B, Wn) int32 bit patterns; entries (B, nch) int32 absolute bit
-    positions; aff/dD/inc (B, 10, 32); pfx (B, 1, 16); wbits (B,).  Returns
-    (pos, sym, i12, i34), each (B, nch, steps) int32 in serial order (pos =
-    -1 where a chunk is frozen), and exits (B, nch); the four record arrays
-    are None when records is False.  Windows past the last word read the
-    last word, as in `walk_ref`.
-
-    chunk0/bit_base (a shard's slice, as in `walk_ref`): the chunks are
-    [chunk0, chunk0 + nch) and `words` starts at absolute bit bit_base;
-    positions stay global.  A window before bit_base (an entry from a
-    previous shard's chunk that failed to cross, which the gates reject)
-    reads the slice's first word, where JAX's negative index wraps."""
+    words (B, Wn) int32 bit patterns; entries (B, nch) int32 bit positions
+    in the words; aff/dD/inc (B, 10, 32); pfx (B, 1, 16); wbits (B,).
+    Returns (pos, sym, i12, i34), each (B, nch, steps) int32 in serial order
+    (pos = -1 where a chunk is frozen), and exits (B, nch); the four record
+    arrays are None when records is False.  Chunk c ends at bit (c + 1) *
+    chunk_bits.  Windows past the last word read the last word, as in
+    `walk_ref`; a window before bit 0 (a shard's entry from the previous
+    shard's chunk that failed to cross, which the gates reject; see
+    `dist/sharded_decode.py`) reads the first word."""
     B, Wn = words.shape
     nch = entries.shape[1]
     dev = words.device
     wu = from_int32_bits(words)
-    bound = ((chunk0 + torch.arange(nch, device=dev) + 1) * chunk_bits)[None, :]
+    bound = ((torch.arange(nch, device=dev) + 1) * chunk_bits)[None, :]
     wb = wbits.to(torch.int64)[:, None]
     pfx64 = pfx.reshape(B, 16).to(torch.int64)
     tabs = _stream_tables(aff, dD, inc)
 
     def win_at(q):
-        q = q - bit_base
         w = q >> 5
         sh = q & 31
         w0 = wu.gather(1, w.clamp(0, Wn - 1))
@@ -284,12 +288,13 @@ def walk_plain(words, entries, aff, dD, inc, pfx, wbits, *, chunk_bits: int, ste
 
 
 def walk(words, entries, aff, dD, inc, pfx, wbits, *, chunk_bits: int, steps: int,
-         records: bool = True, chunk0: int = 0, bit_base: int = 0):
-    """The speculative chunk walk (see `walk_plain` for shapes, results and
-    the shard offsets chunk0/bit_base): launches `nt_walk` for CUDA tensors,
-    runs `walk_plain` for CPU ones.  records=False skips the record stores
-    (the non-final rounds need only the exits) and returns None for the four
-    record arrays."""
+         records: bool = True):
+    """The speculative chunk walk (see `walk_plain` for shapes and results):
+    launches `nt_walk` for CUDA tensors, runs `walk_plain` for CPU ones.
+    records=False skips the record stores (the non-final rounds need only
+    the exits) and returns None for the four record arrays.  Positions are
+    int32: the callers keep them below 2**31 (`MAX_DEVICE_BITS`, and the
+    shard-relative positions of the sharded decode)."""
     for t, name, nd in ((words, "words", 2), (entries, "entries", 2), (aff, "aff", 3),
                         (dD, "dD", 3), (inc, "inc", 3), (pfx, "pfx", 3), (wbits, "wbits", 1)):
         cuda_ops.check(t, name, nd)
@@ -303,12 +308,10 @@ def walk(words, entries, aff, dD, inc, pfx, wbits, *, chunk_bits: int, steps: in
     if chunk_bits % 32 or chunk_bits <= 0 or steps % WALK_TILE or steps <= 0:
         raise ValueError(f"bad walk geometry chunk_bits={chunk_bits} steps={steps} (steps must "
                          f"be a positive multiple of {WALK_TILE})")
-    if chunk0 < 0 or bit_base < 0:
-        raise ValueError(f"chunk0 {chunk0} and bit_base {bit_base} must be >= 0")
     if words.device.type == "cpu":
         return walk_plain(words, entries, aff, dD, inc, pfx, wbits, chunk_bits=chunk_bits,
-                          steps=steps, records=records, chunk0=chunk0, bit_base=bit_base)
-    if B > 65535 or (chunk0 + nch + 1) * chunk_bits >= 2**31 or bit_base >= 2**31:
+                          steps=steps, records=records)
+    if B > 65535 or (nch + 1) * chunk_bits >= 2**31:
         raise ValueError(f"walk of {B} x {nch} chunks of {chunk_bits} bits is out of range")
     exits = torch.empty(B, nch, dtype=torch.int32, device=words.device)
     recs = [None] * 4
@@ -319,8 +322,7 @@ def walk(words, entries, aff, dD, inc, pfx, wbits, *, chunk_bits: int, steps: in
         "walk", "nt_walk", cuda_ops.ptr(words), ctypes.c_int(Wn), cuda_ops.ptr(entries),
         cuda_ops.ptr(aff), cuda_ops.ptr(dD), cuda_ops.ptr(inc), cuda_ops.ptr(pfx),
         cuda_ops.ptr(wbits), *rp, cuda_ops.ptr(exits), ctypes.c_int(B), ctypes.c_int(nch),
-        ctypes.c_int(chunk_bits), ctypes.c_int(steps), ctypes.c_int(chunk0),
-        ctypes.c_int(bit_base), device=words.device,
+        ctypes.c_int(chunk_bits), ctypes.c_int(steps), device=words.device,
     )
     return (*recs, exits)
 
@@ -568,8 +570,11 @@ def run_ladder(call, n: int, *, ladder=LADDER, skip=None, stats=None):
 
 def _wcap_one(max_payload_bytes: int, cfg: WalkCfg) -> int:
     """Word-array length one rung needs: its chunks plus the lookahead
-    (no padding of the chunk count to the TPU's block of rows * 128)."""
-    nch = max(1, -(-max_payload_bytes * 8 // cfg.chunk_bits))
+    (no padding of the chunk count to the TPU's block of rows * 128).  The
+    chunks cover at most MAX_DEVICE_BITS: a longer payload is never decoded
+    on the device."""
+    bits = min(max_payload_bytes * 8, MAX_DEVICE_BITS)
+    nch = max(1, -(-bits // cfg.chunk_bits))
     return nch * (cfg.chunk_bits // 32) + _wrows(cfg.chunk_bits)
 
 
@@ -677,7 +682,7 @@ def _roundtrip_verify_core(flat, *, width: int, ndigits_cap: int, w_cap: int, cf
     )
     eq = _equal_planar(out, flat)
     mark_stage(marks, "equality")
-    okf = ok & tables_ok & ~ovf
+    okf = ok & tables_ok & ~ovf & (totals < MAX_DEVICE_BITS)
     small2 = torch.cat(
         [lengths, totals.to(torch.int32)[:, None]]
         + [x.to(torch.int32)[:, None] for x in (ovf, okf, eq)],
@@ -692,6 +697,9 @@ def roundtrip_verify_fused(flat_dev, *, width: int, w_cap: int | None = None, st
     encode + tables + decode + verify on the fast rung, one fetch of the
     (B, 862) small2; images it cannot verify (payload over the optimistic
     cap excepted) retry through `verify_words_device` on the later rungs.
+    An image whose payload has MAX_DEVICE_BITS or more is neither verified
+    on the device nor retried: the walk covers only the first
+    MAX_DEVICE_BITS.
 
     Returns (words_dev (B, w_cap) int32 bit patterns, small (B, 860) int32
     numpy — the `encode_fused` layout — and verified (B,) bool).  stats
@@ -710,7 +718,7 @@ def roundtrip_verify_fused(flat_dev, *, width: int, w_cap: int | None = None, st
     _raise_if_consistent_but_wrong(okf, eq)
     verified = okf & eq
     ovf = small[:, 859].astype(bool)
-    retry = ~verified & ~ovf
+    retry = ~verified & ~ovf & (small[:, 858] < MAX_DEVICE_BITS)
     if stats is not None:
         stats["retries"] = int(retry.sum())
     if retry.any():
@@ -748,12 +756,20 @@ def _parse_batch(datas: list[bytes]):
     return W, H, np.stack(lens).astype(np.int64), payloads
 
 
+def payload_bits(data: bytes) -> int:
+    """The payload bits of a `.nice` stream, from its length alone."""
+    return 8 * (len(data) - C.FILE_HEADER_BYTES - C.STREAM_HEADERS_BYTES - 4)
+
+
 def prepare_batch_args(datas: list[bytes], *, device, ladder=LADDER):
     """Device arrays for `_decode_core_v3` on a same-shape batch: the host
     parses and validates the headers and packs the payload words; the
     lengths are uploaded and the tables built on the device
     (`prepare_tables_v3`, which equals the JAX numpy batch builder).  The
-    word array is sized for every rung of `ladder`.  Returns (args, (H, W))."""
+    word array is sized for every rung of `ladder`.  Returns (args, (H, W)).
+    A payload of MAX_DEVICE_BITS or more raises: the host decodes it."""
+    if any(payload_bits(d) >= MAX_DEVICE_BITS for d in datas):
+        raise ValueError(f"a payload of {MAX_DEVICE_BITS} bits or more is decoded on the host")
     W, H, lens, payloads = _parse_batch(datas)
     Wn = _words_cap(max(len(p) for p in payloads), ladder)
     words = np.zeros((len(datas), Wn), dtype=np.uint32)
@@ -776,29 +792,36 @@ def decode_batch_v3(datas: list[bytes], *, device, chunk_bits: int | None = None
     """Batched device decode of same-shape `.nice` streams (the JAX
     `decode_batch_jax_v3`): each ladder rung in order; an image no rung
     verifies is decoded by the host codec (`hostref.decode_native`) and
-    counted in stats["fallbacks"].  An explicit chunk_bits sets every rung's
-    chunk size (the JAX function drops it for `WalkCfg` rungs)."""
+    counted in stats["fallbacks"].  A stream whose payload has
+    MAX_DEVICE_BITS or more goes to the host before anything is packed,
+    counted the same way (the JAX function's int32 bit count cannot hold
+    it).  An explicit chunk_bits sets every rung's chunk size (the JAX
+    function drops it for `WalkCfg` rungs).  stats["ok"] and stats["gates"]
+    cover the device-decoded streams, in order."""
     if not datas:
         return []
+    from nicetpu_torch.hostref import oracle
+
     ladder = LADDER
     if chunk_bits is not None:
         ladder = tuple(r._replace(chunk_bits=chunk_bits) for r in ladder)
-    args, (H, W) = prepare_batch_args(datas, device=device, ladder=ladder)
+    on_dev = [i for i, d in enumerate(datas) if payload_bits(d) < MAX_DEVICE_BITS]
+    sub: dict = {"retries": 0}
+    decoded = {}
+    if on_dev:
+        args, (H, W) = prepare_batch_args([datas[i] for i in on_dev], device=device, ladder=ladder)
 
-    def call(cfg):
-        out, ok, gates = _decode_core_v3(
-            *args, n_pixels=H * W, width=W, chunk_bits=cfg.chunk_bits,
-            steps=_steps(cfg.chunk_bits, cfg.steps_div), rounds=cfg.rounds,
-        )
-        return ok.cpu().numpy(), (out.cpu().numpy(),), gates.cpu().numpy()
+        def call(cfg):
+            out, ok, gates = _decode_core_v3(
+                *args, n_pixels=H * W, width=W, chunk_bits=cfg.chunk_bits,
+                steps=_steps(cfg.chunk_bits, cfg.steps_div), rounds=cfg.rounds,
+            )
+            return ok.cpu().numpy(), (out.cpu().numpy(),), gates.cpu().numpy()
 
-    ok_np, (out_np,) = run_ladder(call, len(datas), ladder=ladder, stats=stats)
-    result = []
-    for i, d in enumerate(datas):
-        if ok_np[i]:
-            result.append(out_np[i].reshape(3, H, W).transpose(1, 2, 0))
-        else:
-            from nicetpu_torch.hostref import oracle
-
-            result.append(oracle.decode_native(d))
-    return result
+        ok_np, (out_np,) = run_ladder(call, len(on_dev), ladder=ladder, stats=sub)
+        decoded = {i: out_np[j].reshape(3, H, W).transpose(1, 2, 0)
+                   for j, i in enumerate(on_dev) if ok_np[j]}
+    if stats is not None:
+        stats.update(sub)
+        stats["fallbacks"] = len(datas) - len(decoded)
+    return [decoded[i] if i in decoded else oracle.decode_native(d) for i, d in enumerate(datas)]

@@ -11,6 +11,7 @@ from nicetpu_torch.dist.multihost import decode_multihost, encode_multihost
 from nicetpu_torch.dist.sharded import encode_sharded
 from nicetpu_torch.dist.sharded_decode import decode_batch_sharded, decode_sharded
 from nicetpu_torch.hostref import oracle
+from nicetpu_torch.kernels import decode3
 
 
 def sharded_cases(comm, images, blobs, cfg, batch, tall, tight_cfg):
@@ -28,6 +29,14 @@ def sharded_cases(comm, images, blobs, cfg, batch, tall, tight_cfg):
     res["tall"] = (decode_sharded(tall, device="cpu", stats=st), st)
     st = {}
     res["tight"] = (decode_sharded(blobs[0], device="cpu", cfg=tight_cfg, stats=st), st)
+    # a shard longer than the walk can hold goes to the host, counted
+    limit = decode3.MAX_DEVICE_BITS
+    decode3.MAX_DEVICE_BITS = 256
+    try:
+        st = {}
+        res["over_limit"] = (decode_sharded(blobs[0], device="cpu", cfg=cfg, stats=st), st)
+    finally:
+        decode3.MAX_DEVICE_BITS = limit
 
     # an overflow flag on rank 1 only sends the whole raster to the host
     place = sharded._fold_place_grouped_batched

@@ -341,15 +341,19 @@ def test_roundtrip_and_decode_on_the_card(dev):
 
 @pytest.mark.parametrize("chunk_bits,n", [(512, 4), (4096, 3)])
 def test_walk_shard_offsets_match_plain_and_the_unsharded_walk(dev, chunk_bits, n):
-    """Each shard's walk over its slice of the words, with chunk0/bit_base,
-    equals its plain version and the unsharded walk's chunks for the same
-    entries; entries before a slice (clamped reads) equal the plain version."""
+    """Each shard's walk over its slice of the words, re-based to the
+    slice's first bit (`shard_walk`), equals its plain version and the
+    unsharded walk's chunks for the same entries, positions shifted; the
+    same slice re-based past 2**31 gives the same records; entries before a
+    slice (clamped reads) equal the plain version."""
     img = _smooth(96, 128, 3)
     data = oracle.encode_native(img)
     (words, wbits, af, pr, ib, pfx, _), _ = decode3.prepare_batch_args([data], device=dev)
     aff, dD, inc = decode3.derive_walk_tables(af, pr, ib)
+    tables = (aff, dD, inc, pfx)
+    total = int(wbits[0])
     cfg = decode3.WalkCfg(chunk_bits, 8, 3, 3)
-    nlc, steps = sharded_decode.shard_geometry(int(wbits[0]), n, cfg)
+    nlc, steps = sharded_decode.shard_geometry(total, n, cfg)
     payload = data[C.FILE_HEADER_BYTES + C.STREAM_HEADERS_BYTES : len(data) - 4]
     full = torch.cat([torch.from_numpy(sharded_decode.shard_words(payload, d, nlc, chunk_bits)
                                        .view(np.int32)[: nlc * chunk_bits // 32]) for d in range(n)])
@@ -359,19 +363,29 @@ def test_walk_shard_offsets_match_plain_and_the_unsharded_walk(dev, chunk_bits, 
     ex = decode3.walk(full, e, aff, dD, inc, pfx, wbits, records=False, **kw)[4]
     e = torch.cat([torch.zeros_like(ex[:, :1]), ex[:, :-1]], dim=1).contiguous()
     whole = decode3.walk(full, e, aff, dD, inc, pfx, wbits, **kw)
+    far = (2**31 // chunk_bits + 1) * chunk_bits
     for d in range(n):
-        c0 = d * nlc
+        c0, base = d * nlc, d * nlc * chunk_bits
         sl = torch.from_numpy(sharded_decode.shard_words(payload, d, nlc, chunk_bits).view(np.int32))
         sl = sl[None].to(dev)
-        ed = e[:, c0 : c0 + nlc].contiguous()
-        skw = dict(kw, chunk0=c0, bit_base=c0 * chunk_bits)
-        got = decode3.walk(sl, ed, aff, dD, inc, pfx, wbits, **skw)
-        _same(got, decode3.walk_plain(sl, ed, aff, dD, inc, pfx, wbits, **skw))
-        _same(got, tuple(r[:, c0 : c0 + nlc] for r in whole))
-        before = ed.clone()
+        ed = e[:, c0 : c0 + nlc].to(torch.int64)
+        skw = dict(kw, span=nlc * chunk_bits)
+        recs, exits = sharded_decode.shard_walk(sl, ed, tables, total, base=base, **skw)
+        rel = (ed - base).to(torch.int32).contiguous()
+        wb_rel = torch.tensor([min(total - base, nlc * chunk_bits)], dtype=torch.int32, device=dev)
+        _same((*recs, (exits - base).to(torch.int32)),
+              decode3.walk_plain(sl, rel, aff, dD, inc, pfx, wb_rel, **kw))
+        pos_w = whole[0][:, c0 : c0 + nlc]
+        _same((*recs, exits), (torch.where(pos_w >= 0, pos_w - base, -1),
+                               *(r[:, c0 : c0 + nlc] for r in whole[1:4]),
+                               whole[4][:, c0 : c0 + nlc].to(torch.int64)))
+        recs_far, exits_far = sharded_decode.shard_walk(sl, ed + far, tables, total + far,
+                                                        base=base + far, **skw)
+        _same((*recs_far, exits_far), (*recs, exits + far))
+        before = rel.clone()
         before[0, 0] -= 700  # 22 words before the slice on shards past the first
-        _same(decode3.walk(sl, before, aff, dD, inc, pfx, wbits, **skw),
-              decode3.walk_plain(sl, before, aff, dD, inc, pfx, wbits, **skw))
+        _same(decode3.walk(sl, before, aff, dD, inc, pfx, wb_rel, **kw),
+              decode3.walk_plain(sl, before, aff, dD, inc, pfx, wb_rel, **kw))
 
 
 @pytest.mark.parametrize("B,H,W", [(2, 9, 20), (1, 12, 512), (2, 6, 1100), (1, 2, 5000)])

@@ -117,6 +117,15 @@ def test_failed_gates_are_a_counted_fallback(port):
         assert st["fallbacks"] == 1
 
 
+def test_a_shard_past_the_walks_limit_is_a_counted_fallback(port):
+    """A shard of more than decode3.MAX_DEVICE_BITS bits (the limit lowered
+    on every rank) is decoded by the host, exact."""
+    for rank in port:
+        out, st = rank["over_limit"]
+        np.testing.assert_array_equal(out, DECODED[0])
+        assert st["fallbacks"] == 1 and "walk_rounds" not in st.get("stages", {})
+
+
 def test_an_overflow_on_one_rank_sends_the_raster_to_the_host(port):
     want = oracle.encode_native(DECODED[0])
     for rank in port:

@@ -1,7 +1,8 @@
-"""The walk's shard offsets and the reconstruction's four-row carry, on the
-CPU: the plain versions held against JAX's `walk_ref(chunk0=, bit_base=)`
-and `decode_dev.reconstruct_rows(prev4=)`, and the port's shard geometry
-and word slices against the JAX sharded decode's."""
+"""The shard-relative walk and the reconstruction's four-row carry, on the
+CPU: the re-based shard walk held against JAX's `walk_ref(chunk0=,
+bit_base=)` with the positions shifted, the carry against
+`decode_dev.reconstruct_rows(prev4=)`, and the port's shard geometry and
+word slices against the JAX sharded decode's."""
 
 from functools import partial
 
@@ -49,11 +50,19 @@ def test_shard_geometry_and_slices_match_jax(chunk_bits):
         np.testing.assert_array_equal(tsd.shard_words(payload, d, nlc, chunk_bits), want[d])
 
 
+def _shifted(want_pos, base):
+    """JAX's global record positions relative to a shard's first bit (-1,
+    a frozen step, stays -1)."""
+    w = np.asarray(want_pos)
+    return np.where(w == -1, -1, w - base)
+
+
 @pytest.mark.parametrize("chunk_bits", [512, 1024])
 def test_shard_local_walks_match_walk_ref(chunk_bits):
-    """Each shard's walk over its slice, with chunk0/bit_base, equals JAX's
-    walk_ref with the same arguments, for two rounds whose entries cross the
-    shard boundaries; together the shards give the unsharded walk."""
+    """Each shard's walk over its slice, re-based to the slice's first bit
+    (`shard_walk`), equals JAX's walk_ref with chunk0/bit_base with the
+    positions shifted, for two rounds whose entries cross the shard
+    boundaries; together the shards give the unsharded walk."""
     data = oracle.encode_native(_image(64, 96, seed=2))
     lengths, words, wbits = _payload_words(data, 0)
     cfg = td3.WalkCfg(chunk_bits, 8, 3, 3)
@@ -61,6 +70,7 @@ def test_shard_local_walks_match_walk_ref(chunk_bits):
     slices = _jax_slices(words, N_DEV, nlc, chunk_bits)
     jargs, targs = _walk_args(lengths, slices[0], wbits)
     _, aff, dD, inc, pfx, wb = jargs
+    tables = targs[1:5]
     jwalk = jax.jit(partial(jd3.walk_ref, chunk_bits=chunk_bits, steps=steps, maxl=jd3.FUSED_MAXL))
     full_words = _t(np.concatenate([words, np.zeros(nlc * N_DEV * chunk_bits // 32 + 80, np.uint32)])
                     .view(np.int32)[None])
@@ -69,14 +79,18 @@ def test_shard_local_walks_match_walk_ref(chunk_bits):
         exits = []
         for d in range(N_DEV):
             c0 = d * nlc
+            base = c0 * chunk_bits
             ed = e[c0 : c0 + nlc]
             want = jwalk(jnp.asarray(slices[d].view(np.int32)), jnp.asarray(ed), aff, dD, inc, pfx, wb,
-                         chunk0=jnp.int32(c0), bit_base=jnp.int32(c0 * chunk_bits))
-            got = td3.walk_plain(_t(slices[d].view(np.int32)[None]), _t(ed[None]), *targs[1:],
-                                 chunk_bits=chunk_bits, steps=steps, chunk0=c0,
-                                 bit_base=c0 * chunk_bits)
-            for g, w in zip(got, want):
+                         chunk0=jnp.int32(c0), bit_base=jnp.int32(base))
+            (pos, *recs), ex = tsd.shard_walk(_t(slices[d].view(np.int32)[None]),
+                                              _t(ed[None].astype(np.int64)), tables, wbits, base=base,
+                                              span=nlc * chunk_bits, chunk_bits=chunk_bits, steps=steps)
+            _eq(pos[0], _shifted(want[0], base))
+            for g, w in zip(recs, want[1:4]):
                 _eq(g[0], w)
+            assert ex.dtype == torch.int64
+            _eq(ex[0], want[4])
             exits.append(np.asarray(want[4]))
         whole = td3.walk_plain(full_words, _t(e[None]), *targs[1:], chunk_bits=chunk_bits, steps=steps)
         _eq(whole[4][0], np.concatenate(exits))
@@ -85,24 +99,31 @@ def test_shard_local_walks_match_walk_ref(chunk_bits):
 
 
 def test_walk_entry_before_the_slice_stays_in_bounds():
-    """An entry before bit_base (a previous shard's chunk that failed to
-    cross) reads the slice's first word: the walk runs and its first record
-    sits at that entry; the gates, not the records, decide such a raster."""
+    """An entry before a shard's slice (a previous shard's chunk that failed
+    to cross) is a negative relative position: the walk reads the slice's
+    first word, runs, and its first record sits at that entry; the gates,
+    not the records, decide such a raster.  The wrapper on the CPU is the
+    plain version."""
     data = oracle.encode_native(_image(48, 64, seed=3))
     lengths, words, wbits = _payload_words(data, 80)
     _, targs = _walk_args(lengths, words, wbits)
     chunk_bits = 512
     c0 = 4
-    part = words[c0 * chunk_bits // 32 :]
-    e = (np.arange(3, dtype=np.int32) + c0) * chunk_bits
+    base = c0 * chunk_bits
+    part = _t(words[c0 * chunk_bits // 32 :].view(np.int32)[None])
+    e = (np.arange(3, dtype=np.int64) + c0) * chunk_bits
     e[0] -= 100
-    got = td3.walk_plain(_t(part.view(np.int32)[None]), _t(e[None]), *targs[1:], chunk_bits=chunk_bits,
-                         steps=64, chunk0=c0, bit_base=c0 * chunk_bits)
-    assert int(got[0][0, 0, 0]) == e[0]
-    assert (got[4][0].numpy() >= e).all()
-    with pytest.raises(ValueError):
-        td3.walk(_t(part.view(np.int32)[None]), _t(e[None]), *targs[1:], chunk_bits=chunk_bits,
-                 steps=64, chunk0=-1)
+    (pos, *_), ex = tsd.shard_walk(part, _t(e[None]), targs[1:5], wbits, base=base,
+                                   span=3 * chunk_bits, chunk_bits=chunk_bits, steps=64)
+    assert int(pos[0, 0, 0]) == -100
+    assert (ex[0].numpy() >= e).all()
+    rel = _t((e - base).astype(np.int32)[None])
+    wb = _t(np.array([wbits - base], np.int32))
+    got = td3.walk(part, rel, *targs[1:5], wb, chunk_bits=chunk_bits, steps=64)
+    want = td3.walk_plain(part, rel, *targs[1:5], wb, chunk_bits=chunk_bits, steps=64)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[0][0, 0, 0]) == -100
 
 
 def _carry(B, W, seed):
