@@ -54,7 +54,21 @@ Phases, one printed line or block each; any failure exits nonzero:
      kernels launched on every rank, seconds, MB/s and per-rank stage
      times; (c) decode_batch_sharded of 8 of the 512x512 blobs over the
      same 4 ranks, exact; (d) dryrun_multichip over one NCCL rank.  The
-     spawned ranks run under a time limit of their own.
+     spawned ranks run under a time limit of their own;
+ 11. the bench modules on the card, each line printed as the bench prints
+     it: nicetpu_torch.bench (the headline, 2 repeats), nicetpu_torch.bench_all
+     configs 1-4 (1-2 repeats) and nicetpu_torch.bench_trace (the round
+     trip's device trace and idle share); fails on `degraded`, on any
+     fallback and on any unverified output;
+ 12. payloads of 2**31 bits or more: bench_all's config 5, the
+     14336x14336 make_img raster (over 2**31 payload bits) through
+     encode_sharded and decode_sharded on the robust rung as 4 gloo ranks on
+     the one card, under a time limit of its own: every rank's bytes equal
+     the native encoder's, the raster exact, 0 fallbacks, the walk, the
+     value join and the reconstruction launched on every rank, per-rank
+     peak device memory printed; then nicetpu_torch.decode_batch of the
+     same bytes on the card, which sends the stream to the host codec
+     (fallbacks 1), equal to the raster.
 Phase 2 also holds the fold against its plain version off the main path's
 shape.  The line before the last is the kernels' JSON record (launches from
 phase 5); the last line is
@@ -65,7 +79,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -74,7 +87,8 @@ import numpy as np
 import torch
 
 import nicetpu_torch
-from nicetpu_torch import cli, pipeline
+from nicetpu_torch import bench, bench_all, bench_trace, cli, pipeline
+from nicetpu_torch.bench import card_line, make_image
 from nicetpu_torch.config import RuntimeConfig
 from nicetpu_torch.convert import from_int32_bits
 from nicetpu_torch.dist import launch, sharded_decode
@@ -115,18 +129,6 @@ RECON_RANDOM_ROWS = 64  # rows per image of the random-form comparison
 NPAYLOAD = (1, 3, 4, 1, 3)  # payload codes of modes 0..4
 
 
-def make_image(h: int, w: int, seed: int = 0) -> np.ndarray:
-    """The bench's test image (a copy of `bench.make_image`): smooth
-    gradients plus +-3 noise, seeded."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w]
-    base = (128 + 60 * np.sin(xx / 37.0) + 50 * np.cos(yy / 23.0)).astype(np.int32)
-    img = np.stack(
-        [base, base + np.sin(xx / 11.0) * 20, base - np.cos(yy / 7.0) * 15], axis=-1
-    )
-    return np.clip(img + rng.integers(-3, 4, img.shape), 0, 255).astype(np.uint8)
-
-
 class SmokeFailure(Exception):
     pass
 
@@ -134,17 +136,6 @@ class SmokeFailure(Exception):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
-
-
-def card_line() -> str:
-    try:
-        res = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60,
-        )
-    except (OSError, subprocess.TimeoutExpired) as e:
-        return f"nvidia-smi unavailable: {e}"
-    return res.stdout.strip() or res.stderr.strip()
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -785,6 +776,62 @@ def phase_sharded(dev, big, big_ref, imgs, blobs) -> None:
           f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
 
+BENCH_ALL_REPS = {1: 2, 2: 2, 3: 1, 4: 1}  # phase 11's repeats of bench_all's configs
+LARGE_TIMEOUT = 600.0  # seconds phase 12's spawned ranks may take in all
+
+
+def bench_line_ok(line: dict) -> None:
+    counts = [line] if "counts" not in line else list(line["counts"].values())
+    check(all(c.get("fallbacks", 0) == 0 and c.get("overflow_fallbacks", 0) == 0 for c in counts),
+          f"a bench section fell back: {line}")
+    check(line.get("verified", True) and line.get("verified_on_device", True), f"unverified: {line}")
+    check(not line.get("degraded", False), f"degraded bench line: {line}")
+
+
+def phase_bench(dev) -> None:
+    """11: the three bench modules on the card."""
+    t0 = time.perf_counter()
+    card = card_line()
+    line = bench.run(dev.type, reps=2, card=card)
+    print(json.dumps(line), flush=True)
+    bench_line_ok(line)
+    check(line["value"] is not None and line["gpu_share"] > 0, f"the device did no hybrid work: {line}")
+    for n, reps in BENCH_ALL_REPS.items():
+        for ln in bench_all.CONFIGS[n](dev, card=card, reps=reps):
+            print(json.dumps(ln), flush=True)
+            bench_line_ok(ln)
+    tr = bench_trace.run(dev.type, card=card)
+    print(json.dumps(tr), flush=True)
+    check(tr["device_ops"] > 0 and 0 <= tr["device_idle_share"] < 1, f"the trace saw no device work: {tr}")
+    print(f"[bench] bench, bench_all 1-4 and bench_trace on the card: exact, 0 fallbacks, not degraded; "
+          f"phase 11 took {time.perf_counter() - t0:.1f} s")
+
+
+def phase_large(dev) -> None:
+    """12: a payload past 2**31 bits, sharded on the device and routed to
+    the host by the single-device decode."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    line, img, ref = bench_all.config5_run(dev, card=card_line(), timeout=LARGE_TIMEOUT)
+    print(json.dumps(line), flush=True)
+    check(line["payload_bits"] > 2**31, f"config 5's payload has {line['payload_bits']} bits")
+    bench_line_ok(line)
+    for r in line["ranks"]:
+        print(f"[large] rank {r['rank']}: encode {r['encode_s']:.4f} s, decode {r['decode_s']:.4f} s, "
+              f"peak device GiB encode {r['encode_peak_device_gib']:.2f} decode "
+              f"{r['decode_peak_device_gib']:.2f}, peak RSS {r['peak_rss_gib']:.2f} GiB")
+    t1 = time.perf_counter()
+    stats: dict = {}
+    out = nicetpu_torch.decode_batch([ref], device=dev.type, stats=stats)[0]
+    host_s = time.perf_counter() - t1
+    check(stats["fallbacks"] == 1, f"the single-device decode of {line['payload_bits']} bits: {stats}")
+    check(np.array_equal(out, img), "the host route's raster differs")
+    print(f"[large] {line['payload_bits']} payload bits: sharded on the device over 4 ranks, exact, "
+          f"0 fallbacks (encode {line['encode_mbs']:.2f} MB/s, decode {line['decode_mbs']:.2f} MB/s); "
+          f"decode_batch on the card sent it to the host (fallbacks 1) in {host_s:.1f} s, exact; "
+          f"phase 12 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     print(card_line())
     if not torch.cuda.is_available():
@@ -817,6 +864,8 @@ def main() -> int:
     phase_scheduler(dev, imgs, refs)
     phase_cli(imgs[0], refs[0])
     phase_sharded(dev, big, big_ref, imgs, refs)
+    phase_bench(dev)
+    phase_large(dev)
 
     record = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

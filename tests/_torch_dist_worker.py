@@ -6,6 +6,7 @@ import time
 
 import torch
 
+from nicetpu_torch import bench_all
 from nicetpu_torch.dist import launch, sharded
 from nicetpu_torch.dist.multihost import decode_multihost, encode_multihost
 from nicetpu_torch.dist.sharded import encode_sharded
@@ -14,7 +15,7 @@ from nicetpu_torch.hostref import oracle
 from nicetpu_torch.kernels import decode3
 
 
-def sharded_cases(comm, images, blobs, cfg, batch, tall, tight_cfg):
+def sharded_cases(comm, images, blobs, cfg, batch, tall, tight_cfg, config5_side):
     """Every single-raster and batch case of the test file on one rank."""
     res = {"encode": [], "decode": []}
     for img in images:
@@ -37,6 +38,8 @@ def sharded_cases(comm, images, blobs, cfg, batch, tall, tight_cfg):
         res["over_limit"] = (decode_sharded(blobs[0], device="cpu", cfg=cfg, stats=st), st)
     finally:
         decode3.MAX_DEVICE_BITS = limit
+    # the bench's config 5 rank function on a small raster
+    res["config5"] = bench_all.config5_rank(comm, config5_side, "cpu", warm_side=config5_side // 2)
 
     # an overflow flag on rank 1 only sends the whole raster to the host
     place = sharded._fold_place_grouped_batched

@@ -1,7 +1,7 @@
 """The port's own copies of framework-neutral code, held against their
 originals: the format constants name by name, the header layouts, the
 code-length validation, the RGB normalisation, the native codec, the smoke
-run's test image, the stage timer, the mode statistics, the PNG bridges and
+run's and the benches' test images, the stage timer, the mode statistics, the PNG bridges and
 the sharded codec's halo size and payload stitch."""
 
 import inspect
@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 import bench
+import bench_all
 import chip_smoke
 from nicetpu import api as japi
 from nicetpu import corpus as jcorpus
@@ -23,6 +24,8 @@ from nicetpu.hostref import oracle as joracle
 from nicetpu.kernels import tokenize as jtokenize
 from nicetpu.utils import profiling as jprofiling
 from nicetpu_torch import api as tapi
+from nicetpu_torch import bench as tbench
+from nicetpu_torch import bench_all as tbench_all
 from nicetpu_torch import corpus as tcorpus
 from nicetpu_torch.format import constants as TC
 from nicetpu_torch.format import headers as theaders
@@ -109,8 +112,19 @@ def test_hostref_copy_builds_outside_the_source_tree():
 
 
 def test_make_image_copy_matches_bench():
+    assert chip_smoke.make_image is tbench.make_image
     for h, w, seed in ((16, 24, 0), (512, 512, 7)):
         np.testing.assert_array_equal(chip_smoke.make_image(h, w, seed), bench.make_image(h, w, seed))
+
+
+@pytest.mark.parametrize("h,w,seed,rgba", [(16, 24, 0, False), (300, 37, 5, False), (513, 20, 3, True),
+                                           (64, 64, 5, True)])
+def test_make_img_copy_matches_bench_all(h, w, seed, rgba):
+    """The port's `bench_all.make_img`, built in blocks of rows, equals the
+    original, RGBA included (rows past one block, and a ragged last block)."""
+    got = tbench_all.make_img(h, w, seed, rgba=rgba)
+    np.testing.assert_array_equal(got, bench_all.make_img(h, w, seed, rgba=rgba))
+    assert got.shape == (h, w, 4 if rgba else 3) and got.dtype == np.uint8
 
 
 def test_stage_timer_copy_matches_original(monkeypatch):

@@ -14,9 +14,10 @@ from nicetpu.dist.sharded import encode_sharded as jax_encode_sharded
 from nicetpu.dist.sharded import make_mesh
 from nicetpu.hostref import oracle
 from nicetpu.kernels import decode3 as jd3
+from nicetpu_torch import bench_all
 from nicetpu_torch.dist import launch
 from nicetpu_torch.dist.multihost import initialize_distributed
-from nicetpu_torch.kernels.decode3 import WalkCfg
+from nicetpu_torch.kernels.decode3 import WalkCfg, payload_bits
 from nicetpu_torch.utils import profiling
 
 import _torch_dist_worker as worker
@@ -51,6 +52,7 @@ TALL = _mkimg(30, 64, 5)  # 30 rows: no split into 4 blocks
 # the JAX decode_sharded defaults: CHUNK_BITS, STEPS_DIV, 3 rounds
 JAX_CFG = WalkCfg(jd3.CHUNK_BITS, jd3._rows_for(jd3.CHUNK_BITS), jd3.STEPS_DIV, 3)
 TIGHT_CFG = WalkCfg(4096, 8, 512, 3)  # 8 steps a 4096-bit chunk: no chunk crosses
+CONFIG5_SIDE = 64  # the bench's config 5 on a small raster
 DECODED = list(CASES.values()) + [NOISY]
 
 
@@ -60,7 +62,7 @@ def port():
     return launch.run(
         worker.sharded_cases, N_DEV, backend="gloo", device="cpu", timeout=TIMEOUT,
         args=(list(CASES.values()), blobs, JAX_CFG, [oracle.encode_native(im) for im in BATCH],
-              oracle.encode_native(TALL), TIGHT_CFG),
+              oracle.encode_native(TALL), TIGHT_CFG, CONFIG5_SIDE),
     )
 
 
@@ -82,6 +84,7 @@ def test_decode_equals_the_image(port, i):
         out, st = rank["decode"][i]
         np.testing.assert_array_equal(out, DECODED[i])
         assert st["fallbacks"] == 0
+        assert st["gates"] == dict.fromkeys(("consistency", "crossing", "coverage", "backref"), True)
         assert {"walk_rounds", "records_all_gather", "carry_wait", "recon", "stitch"} <= set(st["stages"])
 
 
@@ -114,7 +117,7 @@ def test_failed_gates_are_a_counted_fallback(port):
     for rank in port:
         out, st = rank["tight"]
         np.testing.assert_array_equal(out, DECODED[0])
-        assert st["fallbacks"] == 1
+        assert st["fallbacks"] == 1 and st["gates"]["crossing"] is False
 
 
 def test_a_shard_past_the_walks_limit_is_a_counted_fallback(port):
@@ -124,6 +127,22 @@ def test_a_shard_past_the_walks_limit_is_a_counted_fallback(port):
         out, st = rank["over_limit"]
         np.testing.assert_array_equal(out, DECODED[0])
         assert st["fallbacks"] == 1 and "walk_rounds" not in st.get("stages", {})
+
+
+def test_bench_config5_rank_function(port):
+    """Each rank of the bench's config 5: bytes equal hostref's (by digest),
+    the raster exact, no fallback, and the fields that the config's line
+    reports (the kernels' launch counts are checked on the card)."""
+    ref = oracle.encode_native(bench_all.make_img(CONFIG5_SIDE, CONFIG5_SIDE, bench_all.CONFIG5_SEED))
+    res = [rank["config5"] for rank in port]
+    bench_all.config5_check(res, ref, on_card=False)
+    assert [r["rank"] for r in res] == list(range(N_DEV))
+    for r in res:
+        assert r["payload_bits"] == payload_bits(ref)
+        assert r["encode_s"] > 0 and r["decode_s"] > 0 and r["peak_rss_gib"] > 0
+        assert r["encode_peak_device_gib"] is None and r["decode_peak_device_gib"] is None
+        assert {"walk_rounds", "assembly", "records_all_gather", "recon"} <= set(r["decode_stats"]["stages"])
+        assert {"tokenize", "huffman_build", "stitch"} <= set(r["encode_stats"]["stages"])
 
 
 def test_an_overflow_on_one_rank_sends_the_raster_to_the_host(port):
