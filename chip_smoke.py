@@ -15,7 +15,10 @@ Phases, one printed line or block each; any failure exits nonzero:
      Encode kernels take seeded bins at the main path's shapes; the decode
      kernels take the words, tables and records of a real 512x512x8 encode
      at the fast rung (the reconstruction's plain version, one step per
-     pixel, is compared on the first 32 rows of each image);
+     pixel, is compared on the first 32 rows of each image), and then a
+     real photo's stream at the robust rung: the top-left 512x512 of
+     soccer0 from the committed corpus, mostly run digits (every walk
+     round, the value join, and the reconstruction on its first 16 rows);
   3. encode 64 512x512 RGB8 images in 8 batches of 8 through
      nicetpu_torch.encode_batch(device=dev.type): every blob equals the
      native encoder's, none falls back, every encode kernel runs in every
@@ -57,7 +60,8 @@ Phases, one printed line or block each; any failure exits nonzero:
      spawned ranks run under a time limit of their own;
  11. the bench modules on the card, each line printed as the bench prints
      it: nicetpu_torch.bench (the headline, 2 repeats), nicetpu_torch.bench_all
-     configs 1-4 (1-2 repeats) and nicetpu_torch.bench_trace (the round
+     config 1 and config 3's 4096x4096 lines (1-2 repeats; the real-photo
+     lines run in phase 13) and nicetpu_torch.bench_trace (the round
      trip's device trace and idle share); fails on `degraded`, on any
      fallback and on any unverified output;
  12. payloads of 2**31 bits or more: bench_all's config 5, the
@@ -68,7 +72,23 @@ Phases, one printed line or block each; any failure exits nonzero:
      value join and the reconstruction launched on every rank, per-rank
      peak device memory printed; then nicetpu_torch.decode_batch of the
      same bytes on the card, which sends the stream to the host codec
-     (fallbacks 1), equal to the raster.
+     (fallbacks 1), equal to the raster;
+ 13. the real-photo corpus (nicetpu_torch/data/realcorpus/, 8 images) at full
+     size: each image through roundtrip_batch on the card, its bytes equal
+     to the committed file, every kernel launched where the fused encode
+     did not overflow; per image the ratio, verified, retries, fallbacks,
+     overflow fallbacks and the gates of every rung that fails on its bytes
+     (rung_probe.single_device); each image's round-trip stage times and
+     soccer0's decode stage times on each rung; decode_batch of the 8 committed files,
+     exact; then nicetpu_torch.bench_real and bench_all's real-photo lines
+     (config 2, config 3's 2048x2048 soccer0 and config 4), where a counted
+     fallback is reported, not a failure;
+ 14. one device's memory: make_img(8192, 16384, 5) (1.57 G payload bits,
+     below MAX_DEVICE_BITS) through decode_batch on the card, exact and
+     with 0 fallbacks, its peak device memory beside the reckoning that
+     sized its device batch, then each rung's gates and peak on its bytes
+     (rung_probe.single_device); and the round trip of make_img(8192,
+     8192, 5), verified on the device, with its peak.
 Phase 2 also holds the fold against its plain version off the main path's
 shape.  The line before the last is the kernels' JSON record (launches from
 phase 5); the last line is
@@ -87,7 +107,7 @@ import numpy as np
 import torch
 
 import nicetpu_torch
-from nicetpu_torch import bench, bench_all, bench_trace, cli, pipeline
+from nicetpu_torch import bench, bench_all, bench_real, bench_trace, cli, pipeline, realcorpus, rung_probe
 from nicetpu_torch.bench import card_line, make_image
 from nicetpu_torch.config import RuntimeConfig
 from nicetpu_torch.convert import from_int32_bits
@@ -361,6 +381,56 @@ def phase_decode_kernels(dev) -> dict:
     print(f"[kernel] reconstruct_rows at the main path's shape {tuple(full.shape)}: "
           f"{out['reconstruct_rows']['ms']:.4f} ms, equals the encoded images")
     return out
+
+
+REAL_CROP = 512  # side of phase 2's soccer0 crop (the plain walk takes it in seconds)
+REAL_CHECK_ROWS = 16  # rows of that crop for the reconstruction's plain comparison
+
+
+def phase_decode_kernels_real(dev) -> None:
+    """The three decode kernels against their plain versions on a real
+    photo's stream at the robust rung: the top-left 512x512 of soccer0,
+    mostly run digits, from the committed corpus."""
+    img = np.ascontiguousarray(dict(realcorpus.load_corpus())["soccer0"][:REAL_CROP, :REAL_CROP])
+    data = oracle.encode_native(img)
+    cfg = decode3.LADDER[-1]
+    (wi, wbits, af, pr, ib, pfx, sym_tbl), (H, W) = decode3.prepare_batch_args([data], device=dev)
+    aff, dD, inc = decode3.derive_walk_tables(af, pr, ib)
+    nch = (wi.shape[1] - decode3._wrows(cfg.chunk_bits)) // (cfg.chunk_bits // 32)
+    kw = dict(chunk_bits=cfg.chunk_bits, steps=decode3._steps(cfg.chunk_bits, cfg.steps_div))
+    e = (torch.arange(nch, dtype=torch.int32, device=dev) * cfg.chunk_bits)[None].contiguous()
+    pfx = pfx.contiguous()
+    for r in range(cfg.rounds):
+        final = r == cfg.rounds - 1
+        got = decode3.walk(wi, e, aff, dD, inc, pfx, wbits, records=final, **kw)
+        want = decode3.walk_plain(wi, e, aff, dD, inc, pfx, wbits, records=final, **kw)
+        check(all(torch.equal(g, x) for g, x in zip(got, want) if g is not None),
+              f"walk round {r + 1} disagrees with its plain version on the real stream")
+        if not final:
+            e = torch.cat([torch.zeros_like(got[4][:, :1]), got[4][:, :-1]], dim=1).contiguous()
+    pos, sym, i12, i34, _ = got
+    live = pos >= 0
+    digits = int((live & (sym >= C.PREFIX_RUN_BASE)).sum())
+    S = pos.numel()
+    bins = decode3._payload_bins(sym.view(1, S), i12.view(1, S), i34.view(1, S))
+    syms = cuda_ops.value_join(bins, sym_tbl)
+    check(torch.equal(syms, cuda_ops.value_join_plain(bins, sym_tbl)),
+          "value_join disagrees with its plain version on the real stream")
+    rec, dst, gates = decode3.assemble_v3(pos.view(1, S), sym.view(1, S), *syms, H * W, W, wbits)
+    form, delta, refoff = decode3.place_and_unpack(rec, dst, H * W, W)
+    n_chk = REAL_CHECK_ROWS * W
+    cut = [t[..., :n_chk].contiguous() for t in (form, delta, refoff)]
+    check(torch.equal(recon.reconstruct_rows(*cut, width=W), decode_dev.reconstruct_rows(*cut, n_chk, W)),
+          "reconstruct_rows disagrees with its plain version on the real stream")
+    full = recon.reconstruct_rows(form, delta, refoff, width=W)
+    check(all(bool(g.all()) for g in gates) and
+          torch.equal(full, torch.from_numpy(img.reshape(1, -1, 3)).to(dev).transpose(1, 2).to(torch.int32)),
+          "the real stream's robust-rung decode differs from the image")
+    print(f"[kernel] real stream (soccer0 {REAL_CROP}x{REAL_CROP}, ratio {img.nbytes / len(data):.2f}, "
+          f"{decode3.payload_bits(data)} payload bits) at the robust rung {tuple(cfg)}: {cfg.rounds} walk "
+          f"rounds ({nch} chunks x {kw['steps']} steps; {int(live.sum())} groups, {digits} of them run "
+          f"digits) equal walk_plain; value_join equals its plain version; reconstruct_rows equals its "
+          f"plain version on the first {REAL_CHECK_ROWS} rows and the image in full")
 
 
 def stage_ms(marks) -> dict:
@@ -776,7 +846,9 @@ def phase_sharded(dev, big, big_ref, imgs, blobs) -> None:
           f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
 
-BENCH_ALL_REPS = {1: 2, 2: 2, 3: 1, 4: 1}  # phase 11's repeats of bench_all's configs
+# phase 11's synthetic configs of bench_all and their repeats (configs 2, 4
+# and 3's real photo run in phase 13)
+BENCH_ALL_SYNTHETIC = ((bench_all.config1, 2), (bench_all.config3_raster, 1))
 LARGE_TIMEOUT = 600.0  # seconds phase 12's spawned ranks may take in all
 
 
@@ -796,14 +868,15 @@ def phase_bench(dev) -> None:
     print(json.dumps(line), flush=True)
     bench_line_ok(line)
     check(line["value"] is not None and line["gpu_share"] > 0, f"the device did no hybrid work: {line}")
-    for n, reps in BENCH_ALL_REPS.items():
-        for ln in bench_all.CONFIGS[n](dev, card=card, reps=reps):
+    for config, reps in BENCH_ALL_SYNTHETIC:
+        for ln in config(dev, card=card, reps=reps):
             print(json.dumps(ln), flush=True)
             bench_line_ok(ln)
     tr = bench_trace.run(dev.type, card=card)
     print(json.dumps(tr), flush=True)
     check(tr["device_ops"] > 0 and 0 <= tr["device_idle_share"] < 1, f"the trace saw no device work: {tr}")
-    print(f"[bench] bench, bench_all 1-4 and bench_trace on the card: exact, 0 fallbacks, not degraded; "
+    print(f"[bench] bench, bench_all 1 and 3 (4096x4096) and bench_trace on the card: exact, 0 fallbacks, "
+          f"not degraded; "
           f"phase 11 took {time.perf_counter() - t0:.1f} s")
 
 
@@ -832,6 +905,121 @@ def phase_large(dev) -> None:
           f"phase 12 took {time.perf_counter() - t0:.1f} s")
 
 
+def phase_real(dev) -> None:
+    """13: the real-photo corpus at full size on the card."""
+    t0 = time.perf_counter()
+    corpus = realcorpus.load_corpus()
+    refs = [realcorpus.read_bytes(name) for name, _ in corpus]
+    nicetpu_torch.roundtrip_batch([corpus[0][1]], device=dev.type)  # warm-up
+    totals: dict = {}
+    for (name, img), ref in zip(corpus, refs):
+        stats: dict = {}
+        cuda_ops.reset_launches()
+        datas, verified = nicetpu_torch.roundtrip_batch([img], device=dev.type, stats=stats)
+        launches = dict(cuda_ops.LAUNCHES)
+        check(datas[0] == ref, f"{name}: the round trip's bytes differ from the committed file")
+        check(bool(verified[0]) or stats["fallbacks"] + stats["overflow_fallbacks"] == 1,
+              f"{name}: neither verified on the device nor counted: {stats}")
+        if not stats["overflow_fallbacks"]:
+            check(all(launches[k] >= 1 for k in REPLACES), f"{name} skipped a kernel: {launches}")
+        failed = [{"rung": r["rung"], "gates": r["gates"]} for r in rung_probe.single_device(dev, img, ref)
+                  if not all(r["gates"].values())]
+        for k in ("retries", "fallbacks", "overflow_fallbacks"):
+            totals[k] = totals.get(k, 0) + stats[k]
+        print(f"[real] {name} {img.shape[0]}x{img.shape[1]}: ratio {img.nbytes / len(ref):.3f}, verified "
+              f"on the device {bool(verified[0])}, retries {stats['retries']}, fallbacks "
+              f"{stats['fallbacks']}, overflow_fallbacks {stats['overflow_fallbacks']}; rungs that "
+              f"failed (decode from the bytes): {json.dumps(failed)}; launches={launches}", flush=True)
+    # where the time goes on real content: each image's round trip with
+    # stage marks, and soccer0's decode from bytes rung by rung
+    for name, img in corpus:
+        marks: list = []
+        mark_stage(marks, "begin")
+        flat = pipeline.upload_batch([img], dev)
+        mark_stage(marks, "upload")
+        pipeline.roundtrip_batch_resident(flat, [img], marks=marks)
+        torch.cuda.synchronize()
+        per = {k: round(v, 3) for k, v in stage_ms(marks).items()}
+        print(f"[real] {name}: round-trip stage ms (CUDA events) {json.dumps(per)}", flush=True)
+    soccer = refs[realcorpus.NAMES.index("soccer0")]
+    args, (H, W) = decode3.prepare_batch_args([soccer], device=dev)
+    for rung, cfg in enumerate(decode3.LADDER):
+        marks = []
+        mark_stage(marks, "begin")
+        _, ok, _ = decode3._decode_core_v3(*args, n_pixels=H * W, width=W, chunk_bits=cfg.chunk_bits,
+                                           steps=decode3._steps(cfg.chunk_bits, cfg.steps_div),
+                                           rounds=cfg.rounds, marks=marks)
+        torch.cuda.synchronize()
+        per = {k: round(v, 3) for k, v in stage_ms(marks).items()}
+        print(f"[real] soccer0 decode from bytes, rung {rung} {tuple(cfg)}: ok {bool(ok[0])}, stage ms "
+              f"(CUDA events) {json.dumps(per)}", flush=True)
+    stats = {}
+    out = nicetpu_torch.decode_batch(refs, device=dev.type, stats=stats)
+    check(all(np.array_equal(o, img) for o, (_, img) in zip(out, corpus)), "a corpus decode differs")
+    print(f"[real] the 8 committed files through decode_batch on the card: exact; stats={stats}; round "
+          f"trips: {totals}", flush=True)
+    card = card_line()
+    for ln in bench_real.run(dev.type, card=card, reps=2)[:-1]:
+        check(ln.get("bits_match", True), f"bench_real: {ln['image']}'s totals differ")
+    for config, kw in ((bench_all.config2, {"reps": 2}), (bench_all.config3_real, {"reps": 2}),
+                       (bench_all.config4, {"reps": 1})):
+        for ln in config(dev, card=card, **kw):
+            print(json.dumps(ln), flush=True)
+            check(ln["verified"], f"unverified: {ln}")
+    print(f"[real] phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+SINGLE_LARGE = (8192, 16384)  # phase 14's raster: 1.57 G payload bits, below MAX_DEVICE_BITS
+FUSED_LARGE = (8192, 8192)
+
+
+def phase_single_large(dev) -> None:
+    """14: one device decodes a stream of 1.57 G payload bits from bytes,
+    and round-trips an 8192x8192 raster, within the card's memory."""
+    t0 = time.perf_counter()
+    img = bench_all.make_img(*SINGLE_LARGE, bench_all.CONFIG5_SEED)
+    ref = oracle.encode_native(img)
+    bits = decode3.payload_bits(ref)
+    check(bits < decode3.MAX_DEVICE_BITS, f"{bits} payload bits are past MAX_DEVICE_BITS")
+    torch.cuda.empty_cache()
+    reckoned = decode3.decode_bytes(bits // 8, img.shape[0] * img.shape[1]) / 2**30
+    budget = decode3.device_budget(dev) / 2**30
+    bench_all.peak_reset(dev)
+    stats: dict = {}
+    cuda_ops.reset_launches()
+    t1 = time.perf_counter()
+    out = nicetpu_torch.decode_batch([ref], device=dev.type, stats=stats)[0]
+    dec_s = time.perf_counter() - t1
+    peak = bench_all.peak_gib(dev)
+    launches = dict(cuda_ops.LAUNCHES)
+    print(f"[single-large] make_img({SINGLE_LARGE[0]}, {SINGLE_LARGE[1]}, 5), {bits} payload bits, through "
+          f"decode_batch on the card: {dec_s:.2f} s, peak device memory {peak:.2f} GiB (reckoned "
+          f"{reckoned:.2f} GiB, budget {budget:.2f} GiB); stats={stats}; launches={launches}", flush=True)
+    check(np.array_equal(out, img), "the 1.57 G-bit raster's decode differs")
+    check(stats["fallbacks"] == 0 and launches["reconstruct_rows"] >= 1,
+          f"the 1.57 G-bit stream was not decoded on the device: {stats}")
+    del out
+    torch.cuda.empty_cache()
+    for r in rung_probe.single_device(dev, img, ref):
+        print(f"[single-large] rung {r['rung']} {r['cfg']}: gates {r['gates']}, equal {r['equal']}, "
+              f"{r['seconds']:.2f} s, peak device memory {r['peak_device_gib']:.2f} GiB", flush=True)
+    del img, ref
+    torch.cuda.empty_cache()
+    img = bench_all.make_img(*FUSED_LARGE, bench_all.CONFIG5_SEED)
+    ref = oracle.encode_native(img)
+    bench_all.peak_reset(dev)
+    stats = {}
+    t1 = time.perf_counter()
+    datas, verified = nicetpu_torch.roundtrip_batch([img], device=dev.type, stats=stats)
+    rt_s = time.perf_counter() - t1
+    peak = bench_all.peak_gib(dev)
+    print(f"[single-large] make_img({FUSED_LARGE[0]}, {FUSED_LARGE[1]}, 5) through roundtrip_batch on the "
+          f"card: {rt_s:.2f} s, verified on the device {bool(verified[0])}, peak device memory "
+          f"{peak:.2f} GiB; stats={stats}; phase 14 took {time.perf_counter() - t0:.1f} s", flush=True)
+    check(datas[0] == ref and bool(verified[0]), f"the 8192x8192 round trip: {stats}")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     print(card_line())
     if not torch.cuda.is_available():
@@ -848,6 +1036,7 @@ def main() -> int:
 
     kernels = phase_encode_kernels(dev)
     kernels.update(phase_decode_kernels(dev))
+    phase_decode_kernels_real(dev)
 
     imgs = [make_image(512, 512, s) for s in range(64)]
     t0 = time.perf_counter()
@@ -866,6 +1055,8 @@ def main() -> int:
     phase_sharded(dev, big, big_ref, imgs, refs)
     phase_bench(dev)
     phase_large(dev)
+    phase_real(dev)
+    phase_single_large(dev)
 
     record = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

@@ -4,13 +4,17 @@ measurement (counterpart of `bench_all.py`).
     python3 -m nicetpu_torch.bench_all [--config N] [--side S] [--reps R] [--device cuda|cpu]
 
   1. a 512x512 RGB8 image: `api.encode`, then `api.decode`, on the card;
-  2. 24 images of 768x512 (the Kodak-24 size; synthetic `make_img`, since
-     no photographs are in the repository): `api.encode_batch`,
+  2. 24 real-photo patches of 768x512 (the Kodak-24 size, `real_patches`
+     of the corpus in `nicetpu_torch/data/realcorpus/`): `api.encode_batch`,
      `api.decode_batch`, the device-compute encode of the resident batches
      and the device-compute decode through the retry ladder;
   3. a 4096x4096 RGBA encode (alpha dropped, as the reference encoder
-     does), and the 4096x4096 round trip, each with its peak device memory;
-  4. 100 synthetic images of mixed sizes (sides 128..767), encoded and
+     does), and the 4096x4096 round trip, each with its peak device memory
+     (synthetic `make_img`, `config3_raster`); then the 2048x2048 real photo
+     (`soccer0`, `config3_real`): `decode3.decode_batch_v3` of its bytes
+     and the device-compute decode through the retry ladder on resident
+     arguments, each with its fallbacks, retries and gates;
+  4. 100 real-photo patches of mixed sizes (sides 128..767), encoded and
      decoded with the `native` backend and on the card;
   5. one `make_img(14336, 14336, 5)` raster (a payload of about 2.4 G
      bits, past 2**31) through `encode_sharded` and `decode_sharded` on its
@@ -24,16 +28,19 @@ measurement (counterpart of `bench_all.py`).
 
 Every line is `{"config", "value", "unit", "note", ...}` with `value` the
 MB/s (10**6 raw bytes a second) at the median of `reps` repeats,
-`fastest`/`slowest` beside it, `verified`, the fallback counts and, where
-the config asks for it, `peak_device_gib` (`torch.cuda.max_memory_allocated`,
-reset before the section).  Any unverified output raises and the process
-exits non-zero; the counted host fallbacks are reported, never hidden.
+`fastest`/`slowest` beside it, `verified`, the fallback counts, `degraded`
+(true where any was counted) and, where the config asks for it,
+`peak_device_gib` (`torch.cuda.max_memory_allocated`, reset before the
+section).  Any inexact output raises and the process exits non-zero; the
+counted host fallbacks, which real photos may cause, are reported, never
+hidden.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import hashlib
 import json
 import os
@@ -54,6 +61,7 @@ CONFIG5_WARM_SIDE = 512  # each rank warms on a raster this size first
 CONFIG5_TIMEOUT = 900.0  # seconds the spawned ranks may take in all
 KODAK = (24, 512, 768)  # images, height, width
 MIXED = (100, 128, 768)  # images, smallest side, one past the largest
+REAL_SIDE = 2048  # config 3's real photo: soccer0, whole
 MAKE_IMG_ROWS = 256  # rows of `make_img` built at a time
 
 
@@ -78,6 +86,39 @@ def make_img(h: int, w: int, seed: int = 0, rgba: bool = False) -> np.ndarray:
     return out
 
 
+@functools.cache
+def _corpus_images() -> tuple:
+    from nicetpu_torch.realcorpus import load_corpus
+
+    return tuple(im for _, im in load_corpus())
+
+
+def real_patches(n: int, h: int, w: int) -> list[np.ndarray]:
+    """n real-photo (h, w, 3) patches tiled out of the realcorpus images (a
+    copy of `bench_all.real_patches`; the corpus is read once)."""
+    corpus = list(_corpus_images())
+    out: list[np.ndarray] = []
+    while len(out) < n:
+        added = 0
+        for im in corpus:
+            if len(out) >= n:
+                break
+            H, W = im.shape[:2]
+            while H < h or W < w:
+                # upsample small camera shots by pixel-doubling until the
+                # patch fits (still photo statistics, unlike sinusoids)
+                im = np.repeat(np.repeat(im, 2, axis=0), 2, axis=1)
+                H, W = im.shape[:2]
+            k = len(out)
+            y0 = (k * 173) % max(1, H - h + 1)
+            x0 = (k * 257) % max(1, W - w + 1)
+            out.append(im[y0 : y0 + h, x0 : x0 + w].copy())  # the cached corpus stays unshared
+            added += 1
+        if not added:  # empty corpus: fail loudly instead of spinning
+            raise RuntimeError("real_patches: corpus produced no usable image")
+    return out
+
+
 def peak_reset(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -93,7 +134,8 @@ def line(config: str, mb: float, secs: list[float], note: str, *, reps: int, car
     r = rates("value", mb, secs)
     return {"config": config, "value": r["value"], "unit": "MB/s", "note": note,
             "fastest": r["value_fastest"], "slowest": r["value_slowest"], "verified": True,
-            "fallbacks": fallbacks, **extra, "reps": reps, "card": card}
+            "fallbacks": fallbacks, **extra,
+            "degraded": bool(fallbacks or extra.get("overflow_fallbacks")), "reps": reps, "card": card}
 
 
 def _sum(stats: list[dict], key: str) -> int:
@@ -128,37 +170,61 @@ def config1(dev, *, side: int = 512, reps: int = REPS, card: str) -> list[dict]:
 def _ladder_checksums(dev, blobs):
     """The device-compute decode of one batch through the retry ladder: the
     prepared arguments, then per rung the decode core with a per-image
-    checksum; returns a call giving (ok (B,), sums (B,), retries)."""
+    checksum; returns a call giving (ok (B,), sums (B,), retries, the gates
+    of the last rung run)."""
     from nicetpu_torch.kernels import decode3
 
     args, (H, W) = decode3.prepare_batch_args(blobs, device=dev)
 
     def call(cfg):
-        out, ok, _ = decode3._decode_core_v3(
+        out, ok, gates = decode3._decode_core_v3(
             *args, n_pixels=H * W, width=W, chunk_bits=cfg.chunk_bits,
             steps=decode3._steps(cfg.chunk_bits, cfg.steps_div), rounds=cfg.rounds)
-        return ok.cpu().numpy(), (out.sum(dim=(1, 2), dtype=torch.int64).cpu().numpy(),), None
+        return (ok.cpu().numpy(), (out.sum(dim=(1, 2), dtype=torch.int64).cpu().numpy(),),
+                gates.cpu().numpy())
 
     def run():
         st: dict = {}
         ok, (sums,) = decode3.run_ladder(call, len(blobs), stats=st)
-        return ok, sums, st["retries"]
+        return ok, sums, st["retries"], st["gates"]
 
     return run
 
 
+def _ladder_line(config: str, dev, blob_batches, imgs, reps: int, card: str) -> dict:
+    """The device-compute decode of same-shape batches through the retry
+    ladder, timed over all of them; the checksums of the images the device
+    verified equal theirs."""
+    runs = [_ladder_checksums(dev, b) for b in blob_batches]
+    want = [int(im.astype(np.int64).sum()) for im in imgs]
+    outs, secs = timed(lambda: [run() for run in runs], reps, dev)
+    fallbacks = retries = 0
+    for rep in outs:
+        got = np.concatenate([sums for _, sums, _, _ in rep])
+        ok = np.concatenate([o for o, _, _, _ in rep])
+        require(all(int(g) == v for g, v, k in zip(got, want, ok) if k),
+                f"config {config[0]}: a device checksum differs from its image's")
+        fallbacks += int((~ok).sum())
+        retries += sum(rt for _, _, rt, _ in rep)
+    gates = [row for _, _, _, g in outs[-1] for row in g]
+    return line(config, sum(im.nbytes for im in imgs) / 1e6, secs,
+                "checksums equal the images' where the device verified them", reps=reps, card=card,
+                fallbacks=fallbacks, retries=retries,
+                gates=[[bool(x) for x in row] for row in gates])
+
+
 def config2(dev, *, n: int = KODAK[0], h: int = KODAK[1], w: int = KODAK[2], reps: int = REPS,
             card: str) -> list[dict]:
-    """The Kodak-24 size: batch encode, batch decode, and their device
-    compute alone."""
+    """The Kodak-24 size on real-photo patches: batch encode, batch decode,
+    and their device compute alone."""
     from nicetpu_torch import api, pipeline
     from nicetpu_torch.bench import device_only
     from nicetpu_torch.hostref import oracle
 
-    imgs = [make_img(h, w, s) for s in range(n)]
+    imgs = real_patches(n, h, w)
     refs = oracle.encode_batch_native(imgs)
     mb = sum(im.nbytes for im in imgs) / 1e6
-    label = f"{n} x {w}x{h} RGB8 (synthetic make_img, Kodak-24 size)"
+    label = f"{n} x {w}x{h} RGB8 (real photo patches, Kodak-24 size)"
     api.decode_batch(api.encode_batch(imgs[:8], device=dev), device=dev)  # warm-up
     est, dst = [], []
 
@@ -177,7 +243,8 @@ def config2(dev, *, n: int = KODAK[0], h: int = KODAK[1], w: int = KODAK[2], rep
             "config 2: decode_batch differs")
     lines = [
         line(f"2: {label}, api.encode_batch", mb, secs_e, "bytes equal hostref.encode_native",
-             reps=reps, card=card, overflow_fallbacks=_sum(est, "overflow_fallbacks")),
+             reps=reps, card=card, overflow_fallbacks=_sum(est, "overflow_fallbacks"),
+             ratio=mb * 1e6 / sum(len(r) for r in refs)),
         line(f"2: {label}, api.decode_batch", mb, secs_d, "arrays exact", reps=reps, card=card,
              fallbacks=_sum(dst, "fallbacks"), retries=_sum(dst, "retries")),
     ]
@@ -189,24 +256,12 @@ def config2(dev, *, n: int = KODAK[0], h: int = KODAK[1], w: int = KODAK[2], rep
     lines.append(line(f"2: {label}, device-compute encode (resident batches, small arrays fetched)",
                       mb, secs, "code lengths and payload sizes equal hostref's", reps=reps,
                       card=card, overflow_fallbacks=counts["device_only"]["overflow_fallbacks"]))
-    runs = [_ladder_checksums(dev, refs[i : i + 8]) for i in range(0, n, 8)]
-    want = [int(im.astype(np.int64).sum()) for im in imgs]
-    outs, secs = timed(lambda: [run() for run in runs], reps, dev)
-    fallbacks = retries = 0
-    for rep in outs:
-        got = np.concatenate([sums for _, sums, _ in rep])
-        ok = np.concatenate([o for o, _, _ in rep])
-        require(all(int(g) == v for g, v, k in zip(got, want, ok) if k),
-                "config 2: a device checksum differs from its image's")
-        fallbacks += int((~ok).sum())
-        retries += sum(rt for _, _, rt in rep)
-    lines.append(line(f"2: {label}, device-compute decode (retry ladder, checksums fetched)", mb,
-                      secs, "checksums equal the images'", reps=reps, card=card,
-                      fallbacks=fallbacks, retries=retries))
+    lines.append(_ladder_line(f"2: {label}, device-compute decode (retry ladder, checksums fetched)",
+                              dev, [refs[i : i + 8] for i in range(0, n, 8)], imgs, reps, card))
     return lines
 
 
-def config3(dev, *, side: int = 4096, reps: int = 2, card: str) -> list[dict]:
+def config3_raster(dev, *, side: int = 4096, reps: int = 2, card: str) -> list[dict]:
     """A 4096x4096 RGBA encode (alpha dropped) and the RGB round trip."""
     from nicetpu_torch import api
     from nicetpu_torch.hostref import oracle
@@ -251,18 +306,56 @@ def config3(dev, *, side: int = 4096, reps: int = 2, card: str) -> list[dict]:
     ]
 
 
+def config3_real(dev, *, side: int = REAL_SIDE, reps: int = 2, card: str) -> list[dict]:
+    """The 2048x2048 real photo (soccer0, centre-cropped to side): its
+    bytes through `decode3.decode_batch_v3`, then the decode core through
+    the retry ladder on resident arguments."""
+    from nicetpu_torch.hostref import oracle
+    from nicetpu_torch.kernels import decode3
+    from nicetpu_torch.realcorpus import load_corpus
+
+    img = dict(load_corpus(max_dim=side))["soccer0"]
+    blob = oracle.encode_native(img)
+    label = f"{img.shape[0]}x{img.shape[1]} real photo (soccer0)"
+    decode3.decode_batch_v3([blob], device=dev)  # warm-up
+    dst = []
+
+    def dec():
+        dst.append({})
+        return decode3.decode_batch_v3([blob], device=dev, stats=dst[-1])[0]
+
+    peak_reset(dev)
+    outs, secs = timed(dec, reps, dev)
+    peak = peak_gib(dev)
+    require(all(np.array_equal(o, img) for o in outs), "config 3: the real photo's decode differs")
+    return [
+        line(f"3: {label}, decode3.decode_batch_v3 ({dev.type})", img.nbytes / 1e6, secs,
+             "array exact", reps=reps, card=card, fallbacks=_sum(dst, "fallbacks"),
+             retries=_sum(dst, "retries"), gates=dst[-1].get("gates"), peak_device_gib=peak,
+             ratio=img.nbytes / len(blob)),
+        _ladder_line(f"3: {label}, device-compute decode (retry ladder, checksum fetched)", dev,
+                     [[blob]], [img], reps, card),
+    ]
+
+
+def config3(dev, *, side: int = 4096, real_side: int = REAL_SIDE, reps: int = 2,
+            card: str) -> list[dict]:
+    return (config3_raster(dev, side=side, reps=reps, card=card)
+            + config3_real(dev, side=real_side, reps=reps, card=card))
+
+
 def config4(dev, *, n: int = MIXED[0], lo: int = MIXED[1], hi: int = MIXED[2], reps: int = 1,
             card: str) -> list[dict]:
-    """100 synthetic images of mixed sizes, round trip on the host codec and
-    on the card."""
+    """100 real-photo patches of mixed sizes, round trip on the host codec
+    and on the card."""
     from nicetpu_torch import api
     from nicetpu_torch.config import RuntimeConfig
 
     rng = np.random.default_rng(9)
     sizes = [(int(rng.integers(lo, hi)), int(rng.integers(lo, hi))) for _ in range(n)]
-    stream = [make_img(h, w, i) for i, (h, w) in enumerate(sizes)]
+    stream = [real_patches(1, h, w)[0] for h, w in sizes]
     mb = sum(im.nbytes for im in stream) / 1e6
-    label = f"{n} synthetic images of mixed sizes ({lo}..{hi - 1} a side), round trip"
+    label = f"{n} real photo patches of mixed sizes ({lo}..{hi - 1} a side), round trip"
     native = RuntimeConfig(backend="native")
 
     def rt_native():

@@ -50,7 +50,6 @@ from nicetpu_torch.kernels import cuda_ops, decode3, recon
 from nicetpu_torch.utils.profiling import MarkedStageTimer
 
 SHARD_ALIGN = 8  # chunks a rank rounds up to: the JAX walk's block on its jnp path
-RECORD_BLOCK = 1 << 23  # real slots a pass of slot_records takes
 
 
 def shard_geometry(wbits: int, n: int, cfg: decode3.WalkCfg) -> tuple[int, int]:
@@ -212,8 +211,8 @@ def _decode_block(data: bytes, comm: Comm, device: torch.device, cfg, stats):
     del bins
     rec = torch.empty_like(sym)
     dst = torch.empty_like(start)
-    for a in range(0, sym.numel(), RECORD_BLOCK):  # bounds slot_records' temporaries
-        cut = slice(a, a + RECORD_BLOCK)
+    for a in range(0, sym.numel(), decode3.RECORD_BLOCK):  # bounds slot_records' temporaries
+        cut = slice(a, a + decode3.RECORD_BLOCK)
         real = torch.ones_like(sym[cut], dtype=torch.bool)
         rec[cut], dst[cut] = decode3.slot_records(real, sym[cut], *syms[:, cut], start[cut], real, N, W)
     ok_ref = ~((sym == C.PREFIX_BACK_REF) & (syms[0] >= C.NUM_BACK_REF)).any()

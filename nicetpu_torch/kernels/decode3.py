@@ -18,6 +18,11 @@ same `WalkCfg`:
    (B, chunks, steps), so run values and pixel starts come from plain
    `torch.cumsum` / `torch.cummax` along one axis.  The TPU's (R, 128)
    record tiling, `make_word_blocks` and the in-layout scans are not ported.
+   The decode core frees each slot temporary once it is used, sums in
+   place and keeps only each image's real pixels' slots after the coverage
+   sums (`_slot_starts`, `_compact`), so that one card decodes every stream
+   it accepts; `decode_batch_v3` sizes its device batches from that
+   reckoning (`decode_bytes`) against the card's free memory.
 3. **Value join** (`cuda_ops.value_join`): canonical index -> symbol.
 4. **Placement** (one scatter of packed records) and the **row
    reconstruction** (`recon.reconstruct_rows`).
@@ -332,6 +337,7 @@ def walk(words, entries, aff, dD, inc, pfx, wbits, *, chunk_bits: int, steps: in
 # ---------------------------------------------------------------------------
 
 REC_DEFAULT = F_ADD1  # form=ADD1, ref 0, deltas 0: the run-covered transfer
+RECORD_BLOCK = 1 << 23  # slots a pass of slot_records takes (bounds its temporaries)
 
 
 def _payload_bins(sym, i12, i34):
@@ -363,32 +369,72 @@ def assemble_v3(pos, sym, p1, p2, p3, p4, n_pixels: int, width: int, wbits):
     """Slot records in serial order (B, S) -> (rec, dst, (ok_cov, ok_ref)).
 
     The decoder state machine of ref code.rs:573-684 in slot space: run
-    values via digit ordinals, pixel starts via one coverage cumsum, transfer
-    forms per mode.  ok_cov: the decoded coverage tiles [0, N); ok_ref:
-    every BACK_REF index is < NUM_BACK_REF.  Coverage sums run in int64 (the
-    JAX int32 sums could wrap on adversarial digit chains)."""
-    N, W = n_pixels, width
+    values via digit ordinals, pixel starts via one coverage cumsum
+    (`_slot_starts`), transfer forms per mode.  ok_cov: the decoded
+    coverage tiles [0, N); ok_ref: every BACK_REF index is < NUM_BACK_REF.
+    Coverage sums run in int64 (the JAX int32 sums could wrap on
+    adversarial digit chains).  The decode core runs the same steps on the
+    compacted real slots."""
     valid = (pos >= 0) & (pos < wbits[:, None])
-    is_pfx = valid & (sym < C.PREFIX_RUN_BASE)
-    is_dig = valid & (sym >= C.PREFIX_RUN_BASE)
-
-    cd = torch.cumsum(is_dig.to(torch.int32), dim=1, dtype=torch.int32)
-    cd_base = torch.cummax(torch.where(is_pfx, cd, -1), dim=1).values
-    kk = cd - cd_base - 1
-    dig_ok = is_dig & (cd_base >= 0) & (kk >= 0) & (kk < C.MAX_RUN_DIGITS)
-    kcl = kk.clamp(0, C.MAX_RUN_DIGITS - 1).to(torch.int64)
-    dv = (sym - C.PREFIX_RUN_BASE).to(torch.int64)
-    dv = torch.where(kcl == C.MAX_RUN_DIGITS - 1, dv.clamp(max=1), dv)
-    cov = is_pfx.to(torch.int64) + torch.where(dig_ok, (dv << (3 * kcl)) + (kk == 0), 0)
-    cov = cov.clamp(max=N)  # legit coverage is <= N per slot
-    incl = torch.cumsum(cov, dim=1)
-    start = incl - cov
-    real = is_pfx & (start < N)
-    ok_cov = incl[:, -1] >= N
+    start, real, ok_cov = _slot_starts(valid, sym, n_pixels)
     ok_ref = ~(real & (sym == C.PREFIX_BACK_REF) & (p1 >= C.NUM_BACK_REF)).any(dim=1)
-
-    rec, dst = slot_records(is_pfx, sym, p1, p2, p3, p4, start, real, N, W)
+    is_pfx = valid & (sym < C.PREFIX_RUN_BASE)
+    rec, dst = slot_records(is_pfx, sym, p1, p2, p3, p4, start, real, n_pixels, width)
     return rec, dst, (ok_cov, ok_ref)
+
+
+def _slot_starts(valid, sym, n_pixels: int):
+    """`assemble_v3`'s run values and pixel starts, for the decode core:
+    (B, S) valid slots and symbols -> (start (B, S) int64, real (B, S) bool,
+    ok_cov (B,)).  Each temporary is freed once the next step has used it
+    and the sums run in place: at most about 34 bytes a slot are live with
+    the walk's sym/i12/i34 (the running maximum of the digit counts)."""
+    N = n_pixels
+    is_pfx = valid & (sym < C.PREFIX_RUN_BASE)
+    dig_ok = valid & (sym >= C.PREFIX_RUN_BASE)
+    # kk: run digits since the last prefix, minus one (a slot's digit count
+    # fits int32 while an image has fewer than 2**31 slots)
+    kk = torch.cumsum(dig_ok, dim=1, dtype=torch.int32 if sym.shape[1] < 2**31 else torch.int64)
+    cd_base = torch.cummax(torch.where(is_pfx, kk, -1), dim=1).values
+    dig_ok &= cd_base >= 0
+    kk.sub_(cd_base).sub_(1)
+    del cd_base
+    dig_ok &= (kk >= 0) & (kk < C.MAX_RUN_DIGITS)
+    first = kk == 0
+    shift = kk.clamp_(0, C.MAX_RUN_DIGITS - 1)
+    dv = (sym - C.PREFIX_RUN_BASE).to(torch.int64)
+    dv.masked_fill_((shift == C.MAX_RUN_DIGITS - 1) & (dv > 1), 1)
+    cov = dv.bitwise_left_shift_(shift.mul_(3)).add_(first)
+    del kk, shift, first
+    cov.masked_fill_(~dig_ok, 0).add_(is_pfx).clamp_(max=N)  # legit coverage is <= N per slot
+    del dig_ok
+    start = torch.cumsum(cov, dim=1)
+    ok_cov = start[:, -1] >= N
+    start.sub_(cov)
+    del cov
+    return start, is_pfx.logical_and_(start < N), ok_cov
+
+
+def _compact(real, arrays, fills):
+    """Each image's real slots, in order, from column 0 of a (B, K) array,
+    K the largest count of any image: (*arrays compacted, live (B, K)
+    bool); a column past an image's count holds its array's fill value."""
+    B, S = real.shape
+    dev = real.device
+    counts = real.sum(dim=1)
+    K = max(1, int(counts.max()))
+    src = torch.nonzero(real.view(-1)).view(-1)
+    to = torch.arange(src.numel(), device=dev)
+    if B > 1:  # slot j of image b goes to b * K + (j's rank in its image)
+        row = torch.div(src, S, rounding_mode="floor")
+        to += row * K - (torch.cumsum(counts, 0) - counts)[row]
+        del row
+    out = []
+    for a, fill in zip(arrays, fills):
+        o = torch.full((B, K), fill, dtype=a.dtype, device=dev)
+        o.view(-1)[to] = a.reshape(-1)[src]
+        out.append(o)
+    return (*out, torch.arange(K, device=dev)[None] < counts[:, None])
 
 
 def slot_records(is_pfx, sym, p1, p2, p3, p4, start, real, n_pixels: int, width: int):
@@ -444,17 +490,29 @@ def place_and_unpack(rec, dst, n_pixels: int, width: int):
     slots have unique destinations in [0, N); every other slot lands in the
     spare column N, and a destination outside [0, N] would be dropped (the
     mask stands for JAX's mode="drop")."""
+    return _unpack(_place(rec, dst, n_pixels), n_pixels, width)
+
+
+def _place(rec, dst, n_pixels: int):
+    """The scatter of `place_and_unpack`: (B, N + 1) packed records, the
+    run-covered default where no real slot lands."""
     N = n_pixels
-    B = rec.shape[0]
     keep = (dst >= 0) & (dst <= N)
-    base = torch.full((B, N + 1), REC_DEFAULT, dtype=torch.int32, device=rec.device)
+    base = torch.full((rec.shape[0], N + 1), REC_DEFAULT, dtype=torch.int32, device=rec.device)
     base.scatter_(1, torch.where(keep, dst, N).to(torch.int64), rec)
+    return base
+
+
+def _unpack(base, n_pixels: int, width: int):
+    """The unpacking of `place_and_unpack`, one plane at a time."""
+    N = n_pixels
     recN = base[:, :N]
     form = recN & 7
-    refi = (recN >> 3) & 15
-    delta = torch.stack([(recN >> 7) & 255, (recN >> 15) & 255, (recN >> 23) & 255], dim=1)
-    refoff = _sel(refi, (0,) + tuple(_const_offsets(width)))
-    return form.contiguous(), delta.contiguous(), refoff
+    delta = torch.empty((base.shape[0], 3, N), dtype=torch.int32, device=base.device)
+    for c, sh in enumerate((7, 15, 23)):
+        delta[:, c] = (recN >> sh) & 255
+    refoff = _sel((recN >> 3) & 15, (0,) + tuple(_const_offsets(width)))
+    return form, delta, refoff
 
 
 # ---------------------------------------------------------------------------
@@ -471,7 +529,13 @@ def _decode_core_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: in
     (B, 10, 32); pfx (B, 1, 16); sym_tbl (B, 858).  Returns (out (B, 3, N)
     uint8 channel-planar, ok (B,), gates (B, 4) bool) with gates =
     [consistency, crossing, coverage, backref-index].  marks: optional list
-    receiving (stage, CUDA event) pairs."""
+    receiving (stage, CUDA event) pairs.
+
+    Past the walk, at most about 34 bytes a slot of the final round are
+    live (`_slot_starts`); the value join, the records (in blocks of
+    RECORD_BLOCK slots) and the placement see only the real pixels' slots
+    (`_compact`), and every array is freed once the next step has used
+    it."""
     B, Wn = words.shape
     dev = words.device
     wpc = chunk_bits // 32
@@ -507,17 +571,37 @@ def _decode_core_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: in
     crossed = ex2 >= torch.minimum(bounds, wb)
     ok_cross = (crossed | ~walked).all(dim=1)
 
+    del e, ex2
     S = nch * steps
-    bins = _payload_bins(sym.view(B, S), i12.view(B, S), i34.view(B, S))
+    N = n_pixels
+    pos, sym, i12, i34 = (r.view(B, S) for r in (pos, sym, i12, i34))
+    valid = (pos >= 0) & (pos < wbits[:, None])
+    del pos
+    start, real, ok_cov = _slot_starts(valid, sym, N)
+    del valid
+    # only the real pixels' slots go on, per image, with a hole's symbol
+    # and the spare column N past each image's count
+    sym, i12, i34, start, live = _compact(real, (sym, i12, i34, start), (C.PREFIX_RUN_BASE, 0, 0, N))
+    del real
+    mark_stage(marks, "assemble")
+    bins = _payload_bins(sym, i12, i34)
+    del i12, i34
     syms = cuda_ops.value_join(bins, sym_tbl.contiguous())
+    del bins
     mark_stage(marks, "value_join")
-
-    rec, dst, (ok_cov, ok_ref) = assemble_v3(
-        pos.view(B, S), sym.view(B, S), syms[0], syms[1], syms[2], syms[3],
-        n_pixels, width, wbits,
-    )
-    form, delta, refoff = place_and_unpack(rec, dst, n_pixels, width)
-    mark_stage(marks, "assemble+place")
+    ok_ref = ~(live & (sym == C.PREFIX_BACK_REF) & (syms[0] >= C.NUM_BACK_REF)).any(dim=1)
+    rec = torch.empty_like(sym)
+    dst = torch.empty_like(start)
+    cols = max(1, RECORD_BLOCK // B)
+    for a in range(0, sym.shape[1], cols):  # bounds slot_records' temporaries
+        c = (slice(None), slice(a, a + cols))
+        rec[c], dst[c] = slot_records(live[c], sym[c], *(p[c] for p in syms), start[c], live[c], N, width)
+    del sym, syms, start, live
+    base = _place(rec, dst, N)
+    del rec, dst
+    form, delta, refoff = _unpack(base, N, width)
+    del base
+    mark_stage(marks, "records+place")
     out = recon.reconstruct_rows(form, delta, refoff, width=width)
     mark_stage(marks, "recon")
     gates = torch.stack([ok_consist, ok_cross, ok_cov, ok_ref], dim=1)
@@ -726,6 +810,7 @@ def roundtrip_verify_fused(flat_dev, *, width: int, w_cap: int | None = None, st
             words, small[:, 858], small[:, :858], flat_dev, skip=~retry, n_pixels=N,
             width=width, ladder=LADDER[1:],
         )
+        mark_stage(marks, "robust_retry")
     if stats is not None:
         stats["fallbacks"] = int((~verified).sum())
         stats["ok"] = [bool(x) for x in verified]
@@ -787,17 +872,90 @@ def prepare_batch_args(datas: list[bytes], *, device, ladder=LADDER):
     return args, (H, W)
 
 
+# Peak device bytes of `_decode_core_v3`, which `decode_batch_v3` reckons
+# before it decodes.  Its two phases follow each other: the slot phase
+# (the digit attachment of `_slot_starts` beside the walk's records: 35.4
+# bytes a slot of the robust rung at 527 M slots on an H100) and the pixel
+# phase (value join, records and placement of the compacted slots, at most
+# one a pixel: 77 bytes a pixel at the fast rung over 134 M pixels); each
+# constant keeps a margin over its measurement.
+SLOT_BYTES = 40
+PIXEL_BYTES = 84
+BUDGET_SHARE = 0.9  # of the card's free memory that a decode may reckon on
+
+
+def decode_bytes(payload_bytes: int, n_pixels: int, ladder=LADDER) -> int:
+    """Reckoned peak device bytes of one image's decode through `ladder`
+    in a batch whose longest payload has payload_bytes bytes: its word
+    array plus the larger of the slot phase (the rung with the most slots,
+    nch x steps) and the pixel phase."""
+    Wn = _words_cap(payload_bytes, ladder)
+    slots = max((Wn - _wrows(r.chunk_bits)) // (r.chunk_bits // 32) * _steps(r.chunk_bits, r.steps_div)
+                for r in ladder)
+    return 4 * Wn + max(SLOT_BYTES * slots, PIXEL_BYTES * n_pixels)
+
+
+def device_budget(device) -> int | None:
+    """Bytes a decode may take on `device`: BUDGET_SHARE of the card's free
+    memory and of the allocator's cached free blocks; None on the CPU."""
+    if device.type != "cuda":
+        return None
+    free = torch.cuda.mem_get_info(device)[0]
+    cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return int(BUDGET_SHARE * (free + cached))
+
+
+def device_groups(datas: list[bytes], *, device, ladder=LADDER):
+    """Split same-shape streams into device batches that fit `device_budget`,
+    in order, each as large as the reckoning (`decode_bytes`) allows.
+    Returns (groups, to_host): lists of stream indices, and {index: reason}
+    for the streams the host decodes: a payload of MAX_DEVICE_BITS or more,
+    or one that does not fit the budget alone."""
+    shapes = {headers.parse_file_header(d)[:2] for d in datas}
+    if len(shapes) != 1:
+        raise ValueError("batch decode requires same-shape streams")
+    W, H = shapes.pop()
+    budget = device_budget(device)
+    to_host: dict = {}
+    groups: list = []
+    cur: list = []
+    longest = 0  # payload bytes of the longest stream in cur
+    for i, d in enumerate(datas):
+        nbytes = payload_bits(d) // 8
+        if 8 * nbytes >= MAX_DEVICE_BITS:
+            to_host[i] = f"a payload of {8 * nbytes} bits, past MAX_DEVICE_BITS ({MAX_DEVICE_BITS})"
+            continue
+        if budget is not None:
+            alone = decode_bytes(nbytes, H * W, ladder)
+            if alone > budget:
+                to_host[i] = (f"its decode needs {alone / 2**30:.2f} GiB of device memory "
+                              f"(reckoned), {budget / 2**30:.2f} GiB are free")
+                continue
+            if cur and (len(cur) + 1) * decode_bytes(max(longest, nbytes), H * W, ladder) > budget:
+                groups.append(cur)
+                cur, longest = [], 0
+        cur.append(i)
+        longest = max(longest, nbytes)
+    if cur:
+        groups.append(cur)
+    return groups, to_host
+
+
 def decode_batch_v3(datas: list[bytes], *, device, chunk_bits: int | None = None,
                     stats=None) -> list[np.ndarray]:
     """Batched device decode of same-shape `.nice` streams (the JAX
     `decode_batch_jax_v3`): each ladder rung in order; an image no rung
     verifies is decoded by the host codec (`hostref.decode_native`) and
-    counted in stats["fallbacks"].  A stream whose payload has
-    MAX_DEVICE_BITS or more goes to the host before anything is packed,
-    counted the same way (the JAX function's int32 bit count cannot hold
-    it).  An explicit chunk_bits sets every rung's chunk size (the JAX
-    function drops it for `WalkCfg` rungs).  stats["ok"] and stats["gates"]
-    cover the device-decoded streams, in order."""
+    counted in stats["fallbacks"].  The streams run in device batches that
+    fit the card's free memory (`device_groups`, reckoned before anything is
+    decoded); a rung runs over every batch before the next rung, so that the
+    results and stats equal one batch's.  A stream whose payload has
+    MAX_DEVICE_BITS or more (the JAX function's int32 bit count cannot hold
+    it), or whose decode does not fit alone, goes to the host before
+    anything is packed, counted the same way, and stats["to_host"] lists it
+    with the reason.  An explicit chunk_bits sets every rung's chunk size
+    (the JAX function drops it for `WalkCfg` rungs).  stats["ok"] and
+    stats["gates"] cover the device-decoded streams, in order."""
     if not datas:
         return []
     from nicetpu_torch.hostref import oracle
@@ -805,18 +963,26 @@ def decode_batch_v3(datas: list[bytes], *, device, chunk_bits: int | None = None
     ladder = LADDER
     if chunk_bits is not None:
         ladder = tuple(r._replace(chunk_bits=chunk_bits) for r in ladder)
-    on_dev = [i for i, d in enumerate(datas) if payload_bits(d) < MAX_DEVICE_BITS]
+    groups, to_host = device_groups(datas, device=device, ladder=ladder)
+    on_dev = [i for g in groups for i in g]
     sub: dict = {"retries": 0}
     decoded = {}
     if on_dev:
-        args, (H, W) = prepare_batch_args([datas[i] for i in on_dev], device=device, ladder=ladder)
+        batches = [prepare_batch_args([datas[i] for i in g], device=device, ladder=ladder)[0]
+                   for g in groups]
+        W, H, _ = headers.parse_file_header(datas[0])
 
         def call(cfg):
-            out, ok, gates = _decode_core_v3(
-                *args, n_pixels=H * W, width=W, chunk_bits=cfg.chunk_bits,
-                steps=_steps(cfg.chunk_bits, cfg.steps_div), rounds=cfg.rounds,
-            )
-            return ok.cpu().numpy(), (out.cpu().numpy(),), gates.cpu().numpy()
+            res = []
+            for args in batches:
+                out, ok, gates = _decode_core_v3(
+                    *args, n_pixels=H * W, width=W, chunk_bits=cfg.chunk_bits,
+                    steps=_steps(cfg.chunk_bits, cfg.steps_div), rounds=cfg.rounds,
+                )
+                res.append((ok.cpu().numpy(), out.cpu().numpy(), gates.cpu().numpy()))
+                del out
+            ok, out, gates = (np.concatenate(r) for r in zip(*res))
+            return ok, (out,), gates
 
         ok_np, (out_np,) = run_ladder(call, len(on_dev), ladder=ladder, stats=sub)
         decoded = {i: out_np[j].reshape(3, H, W).transpose(1, 2, 0)
@@ -824,4 +990,6 @@ def decode_batch_v3(datas: list[bytes], *, device, chunk_bits: int | None = None
     if stats is not None:
         stats.update(sub)
         stats["fallbacks"] = len(datas) - len(decoded)
+        if to_host:
+            stats["to_host"] = [{"stream": i, "why": why} for i, why in sorted(to_host.items())]
     return [decoded[i] if i in decoded else oracle.decode_native(d) for i, d in enumerate(datas)]

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from nicetpu_torch import bench, bench_all, bench_trace, pipeline
+from nicetpu_torch import bench, bench_all, bench_real, bench_trace, pipeline
 
 BENCH_KEYS = {
     "metric", "value", "value_fastest", "value_slowest", "unit", "gpu_share", "gpu_batches",
@@ -88,10 +88,10 @@ def test_a_wrong_blob_fails_the_bench(monkeypatch):
 CONFIG_ARGS = {
     1: dict(side=32, reps=1),
     2: dict(n=2, h=16, w=24, reps=1),
-    3: dict(side=32, reps=1),
+    3: dict(side=32, real_side=32, reps=1),
     4: dict(n=2, lo=8, hi=24, reps=1),
 }
-CONFIG_LINES = {1: 1, 2: 4, 3: 2, 4: 2}
+CONFIG_LINES = {1: 1, 2: 4, 3: 4, 4: 2}
 
 
 @pytest.mark.parametrize("config", sorted(CONFIG_ARGS))
@@ -101,14 +101,67 @@ def test_bench_all_config_on_the_cpu(config):
     for ln in lines:
         assert ln["config"].startswith(f"{config}: ")
         assert {"config", "value", "unit", "note", "fastest", "slowest", "verified", "fallbacks",
-                "reps", "card"} <= set(ln)
+                "degraded", "reps", "card"} <= set(ln)
         assert ln["verified"] is True and ln["fallbacks"] == 0 and ln.get("overflow_fallbacks", 0) == 0
+        assert ln["degraded"] is False
         assert ln["value"] > 0 and ln["unit"] == "MB/s" and ln["reps"] == 1
-    if config == 2:
-        assert all("synthetic" in ln["config"] for ln in lines)
+    if config in (2, 4):
+        assert all("real photo patches" in ln["config"] for ln in lines)
     if config == 3:
-        assert all("peak_device_gib" in ln for ln in lines)
+        assert all("peak_device_gib" in ln for ln in lines[:3])
         assert lines[1]["verified_on_device"] is True
+        assert all("32x32 real photo (soccer0)" in ln["config"] for ln in lines[2:])
+        assert all(ln["gates"] == [[True] * 4] for ln in lines[2:])
+
+
+REAL_KEYS = {"image", "shape", "ratio", "native_rt_mbs", "native_rt_mbs_fastest",
+             "native_rt_mbs_slowest", "device_enc_mbs", "device_enc_mbs_fastest",
+             "device_enc_mbs_slowest", "device_fastpath", "reps", "card"}
+
+
+def test_bench_real_on_the_cpu(capsys):
+    """bench_real.main over the corpus centre-cropped to 16 x 16: a line an
+    image with its fields, in the corpus's order, and the summary."""
+    from nicetpu_torch import realcorpus
+
+    assert bench_real.main(["--device", "cpu", "--max-dim", "16", "--reps", "1"]) == 0
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [ln["image"] for ln in lines[:-1]] == list(realcorpus.NAMES)
+    for ln in lines[:-1]:
+        assert set(ln) - {"bits_match"} == REAL_KEYS and ln["shape"] == "16x16"
+        assert ln["device_fastpath"] is True and ln["bits_match"] is True
+        assert ln["ratio"] > 0 and ln["native_rt_mbs"] > 0 and ln["device_enc_mbs"] > 0
+    summary = lines[-1]
+    assert set(summary) == {"summary", "images", "overall_ratio", "device_fastpath_rate", "card"}
+    assert summary["images"] == 8 and summary["device_fastpath_rate"] == 1.0
+    raw = 8 * 16 * 16 * 3
+    nice = sum(raw / 8 / ln["ratio"] for ln in lines[:-1])
+    assert summary["overall_ratio"] == pytest.approx(raw / nice)
+
+
+def test_bench_real_flags_an_overflow_and_refuses_a_bits_mismatch(monkeypatch, capsys):
+    """An overflowing encode leaves the fast path (no bits_match); a total
+    that differs from the native stream's exits non-zero."""
+    from nicetpu_torch.kernels import encode2
+
+    real = encode2.encode_fused
+    calls = []
+
+    def fake(*args, **kw):
+        words, small = real(*args, **kw)
+        calls.append(1)
+        if len(calls) <= 2:  # the first image's warm-up and timed call overflow
+            small[:, 859] = 1
+        else:  # the others' totals are a byte off the native streams'
+            small[:, 858] += 8
+        return words, small
+
+    monkeypatch.setattr(encode2, "encode_fused", fake)
+    assert bench_real.main(["--device", "cpu", "--max-dim", "16", "--reps", "1"]) == 1
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert lines[0]["device_fastpath"] is False and "bits_match" not in lines[0]
+    assert lines[1]["device_fastpath"] is True and lines[1]["bits_match"] is False
+    assert lines[-1]["device_fastpath_rate"] == 7 / 8
 
 
 def _rank(rank, **change):
@@ -152,7 +205,7 @@ def test_trace_top_ops_sum_by_name():
     assert len(bench_trace.top_ops(rows)[-1]["name"]) == bench_trace.NAME_CHARS
 
 
-@pytest.mark.parametrize("module", [bench, bench_all, bench_trace])
+@pytest.mark.parametrize("module", [bench, bench_all, bench_real, bench_trace])
 def test_the_benches_exit_1_without_cuda(module, capsys):
     if torch.cuda.is_available():
         pytest.skip("CUDA is available here")

@@ -1,7 +1,7 @@
 """The port's own copies of framework-neutral code, held against their
 originals: the format constants name by name, the header layouts, the
 code-length validation, the RGB normalisation, the native codec, the smoke
-run's and the benches' test images, the stage timer, the mode statistics, the PNG bridges and
+run's and the benches' test images and real-photo patches, the stage timer, the mode statistics, the PNG bridges and
 the sharded codec's halo size and payload stitch."""
 
 import inspect
@@ -125,6 +125,18 @@ def test_make_img_copy_matches_bench_all(h, w, seed, rgba):
     got = tbench_all.make_img(h, w, seed, rgba=rgba)
     np.testing.assert_array_equal(got, bench_all.make_img(h, w, seed, rgba=rgba))
     assert got.shape == (h, w, 4 if rgba else 3) and got.dtype == np.uint8
+
+
+@pytest.mark.parametrize("n,h,w", [(3, 16, 24), (10, 40, 8), (2, 300, 500), (9, 600, 700)])
+def test_real_patches_copy_matches_bench_all(n, h, w):
+    """The port's `real_patches`, cut from its committed corpus, equals the
+    JAX bench's, cut from the images the packages ship (the camera shots
+    pixel-doubled where a patch is larger)."""
+    got, want = tbench_all.real_patches(n, h, w), bench_all.real_patches(n, h, w)
+    assert len(got) == len(want) == n
+    for g, x in zip(got, want):
+        assert g.shape == (h, w, 3) and g.flags.c_contiguous
+        np.testing.assert_array_equal(g, x)
 
 
 def test_stage_timer_copy_matches_original(monkeypatch):

@@ -15,7 +15,7 @@ import torch
 from nicetpu.hostref import oracle as joracle
 from nicetpu.kernels import decode3 as jd3
 import nicetpu_torch
-from nicetpu_torch import convert
+from nicetpu_torch import convert, realcorpus
 from nicetpu_torch.kernels import decode3 as td3
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -71,6 +71,23 @@ def test_roundtrip_verify_fused_matches_jax():
     np.testing.assert_array_equal(tver, jver)
     assert tver.tolist() == [True, True, False]
     assert tstats == jstats == {"retries": 0, "fallbacks": 1, "ok": [True, True, False]}
+
+
+def test_real_crops_round_trip_alike():
+    """Real-photo crops at the batch's shape, rows 64..79 of each image:
+    soccer0 (mostly run digits) and marble miss on the fast rung and verify
+    on the robust one; camera_hsv overflows the word cap and is never
+    verified.  Words, small, verified and stats equal JAX's."""
+    corpus = dict(realcorpus.load_corpus())
+    flat = np.stack([corpus[n][64 : 64 + H, :W].reshape(H * W, 3) for n in ("soccer0", "marble", "camera_hsv")])
+    jstats, tstats = {}, {}
+    jw, jsmall, jver = jd3.roundtrip_verify_fused(jnp.asarray(flat), width=W, w_cap=W_CAP, stats=jstats)
+    tw, tsmall, tver = td3.roundtrip_verify_fused(torch.from_numpy(flat), width=W, w_cap=W_CAP, stats=tstats)
+    np.testing.assert_array_equal(convert.words_to_numpy(tw), np.asarray(jw))
+    np.testing.assert_array_equal(tsmall, np.asarray(jsmall))
+    np.testing.assert_array_equal(tver, jver)
+    assert tver.tolist() == [True, True, False] and tsmall[:, 859].tolist() == [0, 0, 1]
+    assert tstats == jstats == {"retries": 2, "fallbacks": 1, "ok": [True, True, False]}
 
 
 def test_roundtrip_batch_entry_point_on_the_cpu():
