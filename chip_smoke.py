@@ -20,9 +20,10 @@ Phases, one printed line or block each; any failure exits nonzero:
      soccer0 from the committed corpus, mostly run digits (every walk
      round, the value join, and the reconstruction on its first 16 rows);
   3. encode 64 512x512 RGB8 images in 8 batches of 8 through
-     nicetpu_torch.encode_batch(device=dev.type): every blob equals the
-     native encoder's, none falls back, every encode kernel runs in every
-     batch; MB/s and per-stage milliseconds;
+     nicetpu_torch.encode_batch(device=dev.type), the two-step encode: every
+     blob equals the native encoder's, none falls back, every encode kernel
+     runs in every batch; MB/s; then the fused encode's per-stage
+     milliseconds (pipeline.encode_batch_fused);
   4. the same for one 4096x4096 RGB8 image;
   5. the main path: the same 64 images through
      nicetpu_torch.roundtrip_batch(device=dev.type) in 8 batches of 8: every
@@ -88,10 +89,23 @@ Phases, one printed line or block each; any failure exits nonzero:
      with 0 fallbacks, its peak device memory beside the reckoning that
      sized its device batch, then each rung's gates and peak on its bytes
      (rung_probe.single_device); and the round trip of make_img(8192,
-     8192, 5), verified on the device, with its peak.
+     8192, 5), verified on the device, with its peak;
+ 15. the two-step encode (encode2.encode_batch, host-built Huffman tables):
+     nicetpu_torch.bench_huffman_dev at B = 1, 4 and 8 (fused against
+     two-step, equal bits, bytes equal to the native encoder's); the 64
+     512x512 images through nicetpu_torch.encode_batch, every blob equal to
+     the native encoder's, its per-stage milliseconds beside phase 3's fused
+     ones and its launch counts; the 8 real photos at full size through
+     encode_batch, each equal to its committed file with 0 overflow
+     fallbacks (soccer0 tokenized again with 11 run digits, camera_hsv on
+     the card); make_img(8192, 16384, 5) through nicetpu_torch.encode,
+     equal to the native encoder's, with its seconds and peak device
+     memory; and the histogram and fold kernels against their plain versions
+     at the 11-digit layout (16 slots a pixel, 128 a group).
 Phase 2 also holds the fold against its plain version off the main path's
 shape.  The line before the last is the kernels' JSON record (launches from
-phase 5); the last line is
+phase 5, the two-step path's launches from phase 15, and the histogram's and
+the fold's figures at 16 slots a pixel); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -107,14 +121,16 @@ import numpy as np
 import torch
 
 import nicetpu_torch
-from nicetpu_torch import bench, bench_all, bench_real, bench_trace, cli, pipeline, realcorpus, rung_probe
+from nicetpu_torch import (bench, bench_all, bench_huffman_dev, bench_real, bench_trace, cli, pipeline,
+                           realcorpus, rung_probe)
 from nicetpu_torch.bench import card_line, make_image
 from nicetpu_torch.config import RuntimeConfig
-from nicetpu_torch.convert import from_int32_bits
+from nicetpu_torch.convert import from_int32_bits, tables_from_numpy
 from nicetpu_torch.dist import launch, sharded_decode
 from nicetpu_torch.format import constants as C
 from nicetpu_torch.hostref import oracle
-from nicetpu_torch.kernels import build, cuda_ops, decode3, decode_dev, recon
+from nicetpu_torch.format.huffman import build_tables_host
+from nicetpu_torch.kernels import build, cuda_ops, decode3, decode_dev, encode2, recon
 from nicetpu_torch.kernels.encode2 import encode_fused_core, mark_stage
 
 SOURCES = {
@@ -448,8 +464,9 @@ def launch_counts_rise(per_batch, names) -> None:
               f"{name} was not launched in every batch: {counts}")
 
 
-def phase_encode(dev, imgs, refs) -> None:
-    """64 x 512^2 images in 8 batches of 8 through encode_batch."""
+def phase_encode(dev, imgs, refs) -> dict:
+    """64 x 512^2 images in 8 batches of 8 through encode_batch; returns the
+    fused encode's per-stage ms per batch."""
     nicetpu_torch.encode_batch(imgs[:8], device=dev.type)  # warm-up, not counted
     torch.cuda.synchronize()
     stats: dict = {}
@@ -480,8 +497,9 @@ def phase_encode(dev, imgs, refs) -> None:
         for k, v in stage_ms(marks).items():
             totals[k] = totals.get(k, 0.0) + v
     per = {k: round(v / 8, 4) for k, v in totals.items()}
-    print(f"[encode] 64/64 blobs equal hostref.encode_native; per-stage ms per batch of 8 "
+    print(f"[encode] 64/64 blobs equal hostref.encode_native; fused encode per-stage ms per batch of 8 "
           f"(CUDA events, mean of 8): {json.dumps(per)}")
+    return per
 
 
 def phase_encode_big(dev, img, ref) -> None:
@@ -1020,6 +1038,128 @@ def phase_single_large(dev) -> None:
     torch.cuda.empty_cache()
 
 
+S11 = 5 + C.MAX_RUN_DIGITS  # token slots a pixel at the 11-digit layout
+ENCODE_KERNELS = ("histogram", "table_join", "fold_records")
+
+
+def phase_twostep_kernels(dev, imgs) -> dict:
+    """The histogram and the fold at the 11-digit layout: bins of the 8
+    512x512 images tokenized with 11 run digits (16 slots a pixel), their
+    host tables, and the fold over 128 slots a group."""
+    flat = pipeline.upload_batch(imgs, dev)
+    # what the batch-wide re-tokenize costs: the tokenizer and histogram at 11 digits beside 3
+    tok_ms = {cap: cuda_ms(lambda: encode2.tokenize_compact(flat, width=W512, ndigits_cap=cap), 5)
+              for cap in (3, C.MAX_RUN_DIGITS)}
+    print(f"[twostep-kernel] tokenize_compact of {B} x {W512}x{W512}: {tok_ms[3]:.4f} ms at 3 run digits, "
+          f"{tok_ms[C.MAX_RUN_DIGITS]:.4f} ms at 11 (CUDA events, 5 calls)")
+    bins, _ = encode2._tokenize_core(flat, width=W512, ndigits_cap=C.MAX_RUN_DIGITS)
+    check(tuple(bins.shape) == (B, N * S11), f"11-digit bins have shape {tuple(bins.shape)}")
+    offs = torch.where(bins < 858, bins + 858 * torch.arange(B, device=dev)[:, None], B * 858)
+    offs = offs.flatten().to(torch.int64)
+    out = {"histogram": compare(
+        "histogram at 16 slots a pixel", lambda: cuda_ops.histogram(bins),
+        lambda: cuda_ops.histogram_plain(bins), lambda: torch.bincount(offs, minlength=B * 858 + 1),
+        plain_reps=10)}
+    out["histogram"].update(bound(nbytes(bins) + B * 858 * 4, bins.numel()))
+    counts = cuda_ops.histogram(bins).cpu().numpy()
+    tables = [build_tables_host(c) for c in counts]
+    len_d, codes_d = tables_from_numpy(np.stack([t[0] for t in tables]), np.stack([t[1] for t in tables]), dev)
+    aob, code = cuda_ops.table_join(bins, len_d, codes_d)
+    aob2, code2 = aob.view(B, MG, 8 * S11), code.view(B, MG, 8 * S11)
+    out["fold_records"] = compare(
+        "fold_records at 16 slots a pixel", lambda: cuda_ops.fold_records(aob2, code2),
+        lambda: cuda_ops.fold_records_plain(aob2, code2))
+    rec_k = cuda_ops.fold_records(aob2, code2)
+    out["fold_records"].update(bound(nbytes(aob2, code2, *rec_k), FOLD_OPS_PER_SLOT * aob2.numel()))
+    live = int((bins < 858).sum())
+    for name, r in out.items():
+        print(f"[twostep-kernel] {name} at S = {S11} ({8 * S11} slots a group; {live} of {bins.numel()} "
+              f"slots hold a token): {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}")
+    return out
+
+
+def phase_twostep(dev, imgs, refs, fused_stage_ms: dict) -> tuple[dict, dict]:
+    """15: the two-step encode of api.encode and api.encode_batch.  Returns
+    (the encode kernels' launches over the 64 images, the histogram's and the
+    fold's figures at 16 slots a pixel)."""
+    t0 = time.perf_counter()
+    lines = bench_huffman_dev.run(dev.type, card=card_line())
+    check([ln["B"] for ln in lines] == [1, 4, 8], f"bench_huffman_dev ran {[ln['B'] for ln in lines]}")
+    check(all(ln["fused_bits"] == ln["twostep_bits"] for ln in lines), "bench_huffman_dev: bits differ")
+
+    nicetpu_torch.encode_batch(imgs[:8], device=dev.type)  # warm-up, not counted
+    torch.cuda.synchronize()
+    stats: dict = {}
+    blobs: list = []
+    cuda_ops.reset_launches()
+    t1 = time.perf_counter()
+    for i in range(0, 64, 8):
+        blobs += nicetpu_torch.encode_batch(imgs[i : i + 8], device=dev.type, stats=stats)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    launches = dict(cuda_ops.LAUNCHES)
+    mb = sum(im.nbytes for im in imgs) / 1e6
+    print(f"[twostep] 64 x 512x512 RGB8 through encode_batch: {seconds:.4f} s, {mb / seconds:.2f} MB/s; "
+          f"stats={stats}; launches={launches}", flush=True)
+    check(blobs == refs, "a two-step blob differs from the native encoder's")
+    check(stats["overflow_fallbacks"] == 0 and stats["retokenized"] == 0 and stats["slot_mode"] == 0,
+          f"the 512x512 images left the fast two-step branch: {stats}")
+    check(all(launches[k] == 8 for k in ENCODE_KERNELS), f"an encode kernel missed a batch: {launches}")
+    totals: dict = {}
+    for i in range(0, 64, 8):
+        marks: list = []
+        out = encode2.encode_batch(np.stack(imgs[i : i + 8]), device=dev, marks=marks)
+        check(out == refs[i : i + 8], "instrumented two-step encode differs")
+        torch.cuda.synchronize()
+        for k, v in stage_ms(marks).items():
+            totals[k] = totals.get(k, 0.0) + v
+    per = {k: round(v / 8, 4) for k, v in totals.items()}
+    print(f"[twostep] 64/64 blobs equal hostref.encode_native; per-stage ms per batch of 8 (CUDA events, "
+          f"mean of 8): two-step {json.dumps(per)}; fused (phase 3) {json.dumps(fused_stage_ms)}", flush=True)
+
+    corpus = realcorpus.load_corpus()
+    for name, img in corpus:
+        ref = realcorpus.read_bytes(name)
+        st: dict = {}
+        cuda_ops.reset_launches()
+        t1 = time.perf_counter()
+        blob = nicetpu_torch.encode_batch([img], device=dev.type, stats=st)[0]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        lc = dict(cuda_ops.LAUNCHES)
+        print(f"[twostep] {name} {img.shape[0]}x{img.shape[1]} through encode_batch: {ms:.1f} ms, stats={st}, "
+              f"launches={ {k: lc[k] for k in ENCODE_KERNELS} }", flush=True)
+        check(blob == ref, f"{name}: the two-step bytes differ from the committed file")
+        check(st["overflow_fallbacks"] == 0 and all(lc[k] >= 1 for k in ENCODE_KERNELS),
+              f"{name} was not encoded on the card: {st} {lc}")
+        check(name != "soccer0" or st["retokenized"] >= 1, f"soccer0 was not tokenized again: {st}")
+
+    img = bench_all.make_img(*SINGLE_LARGE, bench_all.CONFIG5_SEED)
+    ref = oracle.encode_native(img)
+    torch.cuda.empty_cache()
+    bench_all.peak_reset(dev)
+    cuda_ops.reset_launches()
+    t1 = time.perf_counter()
+    blob = nicetpu_torch.encode(img, device=dev.type)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t1
+    peak = bench_all.peak_gib(dev)
+    lc = dict(cuda_ops.LAUNCHES)
+    print(f"[twostep] make_img({SINGLE_LARGE[0]}, {SINGLE_LARGE[1]}, 5), {decode3.payload_bits(ref)} payload "
+          f"bits, through nicetpu_torch.encode on the card: {enc_s:.2f} s "
+          f"({img.nbytes / 1e6 / enc_s:.2f} MB/s), peak device memory {peak:.2f} GiB; launches="
+          f"{ {k: lc[k] for k in ENCODE_KERNELS} }", flush=True)
+    check(blob == ref, "the 1.57 G-bit raster's two-step bytes differ from the native encoder's")
+    check(all(lc[k] >= 1 for k in ENCODE_KERNELS), f"the raster was not encoded on the card: {lc}")
+    del img, ref, blob
+    torch.cuda.empty_cache()
+
+    kernels16 = phase_twostep_kernels(dev, imgs[:B])
+    print(f"[twostep] phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, kernels16
+
+
 def main() -> int:
     print(card_line())
     if not torch.cuda.is_available():
@@ -1045,7 +1185,7 @@ def main() -> int:
     big = make_image(4096, 4096, 99)
     big_ref = oracle.encode_native(big)
 
-    phase_encode(dev, imgs, refs)
+    fused_stage_ms = phase_encode(dev, imgs, refs)
     phase_encode_big(dev, big, big_ref)
     launches, blobs = phase_roundtrip(dev, imgs, refs)
     phase_decode(dev, imgs, blobs)
@@ -1057,10 +1197,12 @@ def main() -> int:
     phase_large(dev)
     phase_real(dev)
     phase_single_large(dev)
+    twostep_launches, kernels16 = phase_twostep(dev, imgs, refs, fused_stage_ms)
 
     record = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-         "launches": launches[name], **kernels[name]}
+         "launches": launches[name], **kernels[name], "twostep_launches": twostep_launches[name],
+         **({"at_16_slots": kernels16[name]} if name in kernels16 else {})}
         for name in REPLACES
     ]
     print(card_line())

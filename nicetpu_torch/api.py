@@ -19,9 +19,9 @@ from nicetpu_torch import pipeline
 from nicetpu_torch.config import BACKENDS, RuntimeConfig
 from nicetpu_torch.format import headers
 from nicetpu_torch.hostref import oracle
-from nicetpu_torch.kernels import decode3
+from nicetpu_torch.kernels import decode3, encode2
 
-MAX_BATCH = 8  # images per fused device pass; bounds device memory per call
+MAX_BATCH = 8  # images per device batch; bounds device memory per call
 
 
 def _resolve_device(device) -> torch.device:
@@ -95,10 +95,16 @@ def encode_batch(imgs: list[np.ndarray], *, device=None, config=None,
     """Encode a list of (H, W, 3|4) uint8 images; same-shape images share
     batches of up to MAX_BATCH.  Output order follows input order.
 
-    stats: optional dict; receives "device" and "overflow_fallbacks" (the
-    number of images the native encoder served because the device path
-    could not represent them), or {"backend": "native"} when the config's
-    backend is the host codec.
+    On a device each batch takes the two-step encode (`encode2.encode_batch`:
+    tokenizer and histogram, Huffman tables built on the host, join, fold
+    and place), which keeps every image on the device, as the JAX
+    `api.encode_batch` does.
+
+    stats: optional dict; receives "device", "overflow_fallbacks" (images
+    the native encoder served: none on this path), "retokenized" (images
+    tokenized again with all 11 run digits) and "slot_mode" (batches packed
+    slot by slot), or {"backend": "native"} when the config's backend is the
+    host codec.
     """
     dev = target_device(device, config)
     imgs = [_to_rgb(im) for im in imgs]
@@ -108,10 +114,11 @@ def encode_batch(imgs: list[np.ndarray], *, device=None, config=None,
         return oracle.encode_batch_native(imgs)
     if stats is not None:
         stats["device"] = str(dev)
-        stats.setdefault("overflow_fallbacks", 0)
+        for k in ("overflow_fallbacks", "retokenized", "slot_mode"):
+            stats.setdefault(k, 0)
     out: list[bytes | None] = [None] * len(imgs)
     for chunk in _batches([im.shape for im in imgs]):
-        datas = pipeline.encode_batch_fused([imgs[i] for i in chunk], device=dev, stats=stats)
+        datas = encode2.encode_batch(np.stack([imgs[i] for i in chunk]), device=dev, stats=stats)
         for i, d in zip(chunk, datas):
             out[i] = d
     return out

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from nicetpu_torch import bench, bench_all, bench_real, bench_trace, pipeline
+from nicetpu_torch import bench, bench_all, bench_huffman_dev, bench_real, bench_trace, pipeline
 
 BENCH_KEYS = {
     "metric", "value", "value_fastest", "value_slowest", "unit", "gpu_share", "gpu_batches",
@@ -205,12 +205,45 @@ def test_trace_top_ops_sum_by_name():
     assert len(bench_trace.top_ops(rows)[-1]["name"]) == bench_trace.NAME_CHARS
 
 
-@pytest.mark.parametrize("module", [bench, bench_all, bench_real, bench_trace])
+@pytest.mark.parametrize("module", [bench, bench_all, bench_real, bench_trace, bench_huffman_dev])
 def test_the_benches_exit_1_without_cuda(module, capsys):
     if torch.cuda.is_available():
         pytest.skip("CUDA is available here")
     assert module.main([]) == 1
     assert "cuda" in capsys.readouterr().err.lower()
+
+
+HUFFMAN_KEYS = {"B", "side", "raw_mb", "fused_bits", "twostep_bits", "device_tables_win", "reps",
+                "device", "card"} | {
+    f"{path}_{unit}{end}" for path in ("fused", "twostep") for unit in ("ms", "mb_s")
+    for end in ("", "_fastest", "_slowest")}
+
+
+def test_bench_huffman_dev_on_the_cpu(capsys):
+    """The fused and the two-step encode of one small batch: every key of
+    the line, equal bits, bytes checked against hostref inside the run."""
+    assert bench_huffman_dev.main(["--device", "cpu", "--side", "32", "--sizes", "2", "--reps", "1"]) == 0
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert len(lines) == 1 and set(lines[0]) == HUFFMAN_KEYS
+    ln = lines[0]
+    assert (ln["B"], ln["side"], ln["reps"], ln["device"]) == (2, 32, 1, "cpu")
+    assert ln["fused_bits"] == ln["twostep_bits"] > 0
+    assert ln["device_tables_win"] == (ln["fused_ms"] < ln["twostep_ms"])
+    assert ln["fused_mb_s"] == pytest.approx(ln["raw_mb"] / (ln["fused_ms"] / 1e3))
+
+
+def test_bench_huffman_dev_refuses_a_bits_mismatch(monkeypatch):
+    from nicetpu_torch.kernels import encode2
+
+    real = encode2.encode_resident
+
+    def one_bit_more(*a, **kw):
+        words, totals, lengths = real(*a, **kw)
+        return words, totals + 1, lengths
+
+    monkeypatch.setattr(encode2, "encode_resident", one_bit_more)
+    with pytest.raises(AssertionError, match="payload bits differ"):
+        bench_huffman_dev.run("cpu", sizes=(1,), side=16, reps=1, card="test")
 
 
 def test_make_img_is_built_in_blocks_of_rows(monkeypatch):

@@ -107,7 +107,7 @@ def test_config_supplies_the_backend_where_no_device_is_given(monkeypatch):
     assert stats == {"backend": "native"}
     stats = {}
     assert api.encode_batch(imgs, config=RuntimeConfig(backend="cpu"), stats=stats) == want
-    assert stats == {"device": "cpu", "overflow_fallbacks": 0}
+    assert stats == {"device": "cpu", "overflow_fallbacks": 0, "retokenized": 0, "slot_mode": 0}
     # an explicit device wins over the config; the environment is read last
     assert api.encode(imgs[0], device="cpu", config=RuntimeConfig(backend="cuda")) == want[0]
     monkeypatch.setenv("NICETPU_BACKEND", "native")

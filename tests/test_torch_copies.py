@@ -1,6 +1,6 @@
 """The port's own copies of framework-neutral code, held against their
 originals: the format constants name by name, the header layouts, the
-code-length validation, the RGB normalisation, the native codec, the smoke
+code-length validation, the Huffman table construction, the RGB normalisation, the native codec, the smoke
 run's and the benches' test images and real-photo patches, the stage timer, the mode statistics, the PNG bridges and
 the sharded codec's halo size and payload stitch."""
 
@@ -10,6 +10,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import bench
 import bench_all
@@ -32,8 +33,10 @@ from nicetpu_torch.format import headers as theaders
 from nicetpu_torch.format import huffman as thuffman
 from nicetpu_torch.dist import sharded as tsharded
 from nicetpu_torch.hostref import oracle as toracle
+from nicetpu_torch.kernels import huffman_dev as thuffman_dev
 from nicetpu_torch.kernels import tokenize as ttokenize
 from nicetpu_torch.utils import profiling as tprofiling
+from test_torch_huffman_dev import _deep as deep_histograms
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 GOLDEN = ["random8x6", "gradient16x12", "flat9x7", "mixed20x14"]
@@ -83,6 +86,71 @@ def test_validate_flat_lengths_accepts_and_rejects_alike():
         for fn in (thuffman.validate_flat_lengths, jhuffman.validate_flat_lengths):
             with pytest.raises(ValueError):
                 fn(bad)
+
+
+def _one_live():
+    counts = np.zeros(TC.TOTAL_SYMBOLS, np.int64)
+    counts[TC.STREAM_BASE[TC.SC_SMALL_DIFF] + 17] = 1000
+    return counts
+
+
+HISTOGRAMS = {
+    "zeros": lambda: np.zeros(TC.TOTAL_SYMBOLS, np.int64),
+    "one_live": _one_live,
+    "random": lambda: np.random.default_rng(3).integers(0, 5000, TC.TOTAL_SYMBOLS),
+    # the deep-code rows of tests/test_torch_huffman_dev.py; row 1 reaches the clamp
+    **{f"deep{r}": (lambda r=r: deep_histograms()[r]) for r in range(3)},
+}
+
+
+@pytest.mark.parametrize("name", sorted(HISTOGRAMS))
+def test_huffman_table_copies_match_original(name):
+    """The port's Python code-length merge equals the original stream by stream, and
+    its native `build_tables_host` equals its `build_all_tables`, the
+    original's tables and the on-device tables on the same counts."""
+    counts = HISTOGRAMS[name]()
+    for s in range(TC.NUM_STREAMS):
+        sl = counts[TC.STREAM_BASE[s] : TC.STREAM_BASE[s] + TC.ALPHABET_SIZES[s]]
+        assert thuffman.clamp_floor(sl.sum()) == jhuffman.clamp_floor(sl.sum())
+        np.testing.assert_array_equal(thuffman._huffman_lengths_once(sl), jhuffman._huffman_lengths_once(sl))
+        lens = thuffman.code_lengths(sl)
+        np.testing.assert_array_equal(lens, jhuffman.code_lengths(sl))
+        np.testing.assert_array_equal(thuffman.canonical_codes(lens), jhuffman.canonical_codes(lens))
+    tl, tc, tmax = thuffman.build_all_tables(counts)
+    jl, jc, jmax = jhuffman.build_all_tables(counts)
+    np.testing.assert_array_equal(tl, jl)
+    np.testing.assert_array_equal(tc, jc)
+    assert tmax == jmax and max(tmax) <= TC.MAX_CODE_LEN
+    hl, hc = thuffman.build_tables_host(counts)
+    assert hl.dtype == np.uint8 and hc.dtype == np.uint32
+    np.testing.assert_array_equal(hl, tl)
+    np.testing.assert_array_equal(hc, tc)
+    for want, got in zip(jhuffman.build_tables_host(counts), (hl, hc)):
+        np.testing.assert_array_equal(got, want)
+    dl, dc, ovf = thuffman_dev.build_tables_device(torch.from_numpy(counts[None].astype(np.int32)))
+    np.testing.assert_array_equal(dl[0].numpy(), hl)
+    np.testing.assert_array_equal(dc[0].numpy().view(np.uint32), hc)
+    assert not bool(ovf.any())
+
+
+def test_deep_histogram_reaches_the_clamp():
+    """Without the clamp, the deep1 row's stream would need codes over 31 bits."""
+    counts = HISTOGRAMS["deep1"]()
+    raw = max(int(jhuffman._huffman_lengths_once(
+        counts[TC.STREAM_BASE[s] : TC.STREAM_BASE[s] + TC.ALPHABET_SIZES[s]]).max())
+        for s in range(TC.NUM_STREAMS))
+    assert raw > TC.MAX_CODE_LEN
+
+
+def test_build_tables_host_has_no_fallback(monkeypatch):
+    """Where the native library cannot be had, the host table build raises
+    (the original falls back to the Python merge)."""
+    def no_lib():
+        raise OSError("libniceref.so cannot be built")
+
+    monkeypatch.setattr(toracle, "get_lib", no_lib)
+    with pytest.raises(OSError):
+        thuffman.build_tables_host(HISTOGRAMS["random"]())
 
 
 def test_to_rgb_matches():

@@ -133,23 +133,44 @@ def test_wrappers_reject_mixed_devices(dev):
         cuda_ops.table_join(bins, lengths, codes)
 
 
-def test_encode_batch_cuda_matches_native(dev):
+def _encode_batch_images():
     rng = np.random.default_rng(7)
     smooth = np.clip(
         128 + 40 * np.sin(np.arange(48)[None, :, None] / 5.0)
         + rng.integers(-3, 4, (40, 48, 3)), 0, 255,
     ).astype(np.uint8)
-    long_run = np.zeros((40, 48, 3), np.uint8)  # a 1919-pixel run: host fallback
+    long_run = np.zeros((40, 48, 3), np.uint8)  # a 1919-pixel run: more than 3 run digits
     long_run[0, 0] = 7
     noise = rng.integers(0, 256, (37, 53, 3)).astype(np.uint8)
-    imgs = [smooth, long_run, noise, smooth[::-1].copy()]
+    return [smooth, long_run, noise, smooth[::-1].copy()]
+
+
+def test_encode_batch_cuda_matches_native(dev):
+    """api.encode_batch takes the two-step encode: the long-run image keeps
+    its batch on the device, tokenized again with 11 run digits."""
+    imgs = _encode_batch_images()
     cuda_ops.reset_launches()
     stats = {}
     out = nicetpu_torch.encode_batch(imgs, device="cuda", stats=stats)
     assert out == [oracle.encode_native(im) for im in imgs]
-    assert stats == {"device": "cuda", "overflow_fallbacks": 1}
+    # the (40, 48) batch holds 3 images, all tokenized again
+    assert stats == {"device": "cuda", "overflow_fallbacks": 0, "retokenized": 3, "slot_mode": 0}
+    # two histograms for the re-tokenized batch, one for the other shape
     encode_kernels = ("histogram", "table_join", "fold_records")
-    assert all(cuda_ops.LAUNCHES[k] == 2 for k in encode_kernels)  # one batch per shape
+    assert [cuda_ops.LAUNCHES[k] for k in encode_kernels] == [3, 2, 2]
+
+
+def test_encode_batch_fused_cuda_sends_the_long_run_to_the_host(dev):
+    """The fused path of the schedulers keeps its host route: the long-run
+    image overflows and the native encoder serves it, counted."""
+    imgs = _encode_batch_images()
+    same = [imgs[0], imgs[1], imgs[3]]
+    cuda_ops.reset_launches()
+    stats = {}
+    out = pipeline.encode_batch_fused(same, device=torch.device("cuda"), stats=stats)
+    assert out == [oracle.encode_native(im) for im in same]
+    assert stats == {"overflow_fallbacks": 1}
+    assert all(cuda_ops.LAUNCHES[k] == 1 for k in ("histogram", "table_join", "fold_records"))
 
 
 # ---------------------------------------------------------------------------
