@@ -101,7 +101,18 @@ Phases, one printed line or block each; any failure exits nonzero:
      the card); make_img(8192, 16384, 5) through nicetpu_torch.encode,
      equal to the native encoder's, with its seconds and peak device
      memory; and the histogram and fold kernels against their plain versions
-     at the 11-digit layout (16 slots a pixel, 128 a group).
+     at the 11-digit layout (16 slots a pixel, 128 a group);
+ 16. the last benches and backends: nicetpu_torch.bench_profile (the fused
+     encode's dispatch, payload fetch, assembly and native batch decode at
+     B = 8, 16 and 32 of 512x512), nicetpu_torch.bench_decode_profile (the
+     decode core's stages at 512x512x8) and nicetpu_torch.bench_multihost
+     (the 1024x512 raster through encode_multihost on 1, 2 and 4 gloo ranks
+     on the one card), each line printed as the bench prints it, every
+     output exact and each bench's kernels launched; then one seeded 64x64
+     image through api.encode and api.decode with the "spec" backend (the
+     numpy codec), held against the native encoder, and an RGBA image
+     through api.encode(alpha="error"), which must raise ValueError, and
+     alpha="drop" on the card.
 Phase 2 also holds the fold against its plain version off the main path's
 shape.  The line before the last is the kernels' JSON record (launches from
 phase 5, the two-step path's launches from phase 15, and the histogram's and
@@ -121,8 +132,8 @@ import numpy as np
 import torch
 
 import nicetpu_torch
-from nicetpu_torch import (bench, bench_all, bench_huffman_dev, bench_real, bench_trace, cli, pipeline,
-                           realcorpus, rung_probe)
+from nicetpu_torch import (bench, bench_all, bench_decode_profile, bench_huffman_dev, bench_multihost,
+                           bench_profile, bench_real, bench_trace, cli, pipeline, realcorpus, rung_probe)
 from nicetpu_torch.bench import card_line, make_image
 from nicetpu_torch.config import RuntimeConfig
 from nicetpu_torch.convert import from_int32_bits, tables_from_numpy
@@ -1160,6 +1171,59 @@ def phase_twostep(dev, imgs, refs, fused_stage_ms: dict) -> tuple[dict, dict]:
     return launches, kernels16
 
 
+DECODE_KERNELS = ("walk", "value_join", "reconstruct_rows")
+SPEC_SIDE = 64  # phase 16's spec image: its decoder is a serial Python loop
+
+
+def phase_finish(dev) -> None:
+    """16: bench_profile, bench_decode_profile and bench_multihost on the
+    card; the spec backend; the RGBA policy."""
+    t0 = time.perf_counter()
+    card = card_line()
+    for name, run, kernels in (
+        ("bench_profile", lambda: bench_profile.run(dev.type, card=card), ENCODE_KERNELS),
+        ("bench_decode_profile", lambda: bench_decode_profile.run(dev.type, card=card), DECODE_KERNELS),
+    ):
+        t1 = time.perf_counter()
+        cuda_ops.reset_launches()
+        run()
+        lc = dict(cuda_ops.LAUNCHES)
+        check(all(lc[k] >= 1 for k in kernels), f"{name} skipped a kernel: {lc}")
+        print(f"[finish] {name}: exact, launches={lc}, {time.perf_counter() - t1:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    lines = bench_multihost.run(dev.type, card=card)
+    check([ln["processes"] for ln in lines] == list(bench_multihost.RANKS), f"bench_multihost: {lines}")
+    for ln in lines:
+        check(all(ln["launches"][k] >= 1 for k in ENCODE_KERNELS),
+              f"bench_multihost at {ln['processes']} ranks skipped a kernel: {ln['launches']}")
+    print(f"[finish] bench_multihost: rank 0's bytes equal the native encoder's at 1, 2 and 4 ranks, "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+
+    img = make_image(SPEC_SIDE, SPEC_SIDE, 16)
+    ref = oracle.encode_native(img)
+    spec = RuntimeConfig(backend="spec")
+    t1 = time.perf_counter()
+    stats: dict = {}
+    blob = nicetpu_torch.encode_batch([img], config=spec, stats=stats)[0]
+    check(blob == ref and stats == {"backend": "spec"}, f"the spec backend's bytes differ: {stats}")
+    stats = {}
+    out = nicetpu_torch.decode_batch([blob], config=spec, stats=stats)[0]
+    check(np.array_equal(out, img) and stats == {"backend": "spec"}, f"the spec backend's decode differs: {stats}")
+    check(nicetpu_torch.encode(img, config=spec) == ref, "api.encode with the spec backend differs")
+    spec_s = time.perf_counter() - t1
+    rgba = np.concatenate([img, np.full(img.shape[:2] + (1,), 7, np.uint8)], axis=2)
+    try:
+        nicetpu_torch.encode(rgba, device=dev.type, alpha="error")
+        check(False, "api.encode(rgba, alpha='error') did not raise")
+    except ValueError as e:
+        check("alpha" in str(e), f"api.encode(rgba, alpha='error') raised {e!r}")
+    check(nicetpu_torch.encode(rgba, device=dev.type) == ref, "api.encode(rgba) with alpha dropped differs")
+    print(f"[finish] spec backend {SPEC_SIDE}x{SPEC_SIDE}: bytes equal the native encoder's, decode exact, "
+          f"stats {{'backend': 'spec'}}, {spec_s:.2f} s; api.encode(rgba, alpha='error') raised ValueError, "
+          f"alpha='drop' on the card equals the RGB bytes; phase 16 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     print(card_line())
     if not torch.cuda.is_available():
@@ -1198,6 +1262,7 @@ def main() -> int:
     phase_real(dev)
     phase_single_large(dev)
     twostep_launches, kernels16 = phase_twostep(dev, imgs, refs, fused_stage_ms)
+    phase_finish(dev)
 
     record = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

@@ -7,8 +7,8 @@ own copies of the framework-neutral parts (`format`, `hostref`) and imports
 nothing of `nicetpu` and no JAX.
 
 Public API (on the card unless the caller asks for device="cpu" or, through
-a `RuntimeConfig`, for the "cpu" or "native" backend):
-    encode(img, *, device=None, config=None)              -> bytes
+a `RuntimeConfig`, for the "cpu", "native" or "spec" backend):
+    encode(img, *, device=None, config=None, alpha="drop") -> bytes
     encode_batch(imgs, *, device, config, stats=None)     -> list[bytes]
     decode(data, *, device=None, config=None)             -> (H, W, 3) uint8
     decode_batch(datas, *, device, config, chunk_bits=None, stats=None)

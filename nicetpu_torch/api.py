@@ -7,7 +7,10 @@ NICETPU_BACKEND > "cuda"):
     "cuda"    the CUDA kernels; raises when CUDA is absent;
     "cpu"     the kernels' plain PyTorch versions, the caller's explicit
               choice, never a fallback;
-    "native"  (a backend only) the port's host codec, `hostref`.
+    "native"  (a backend only) the port's C++ host codec, `hostref`;
+    "spec"    (a backend only) the port's numpy reference codec,
+              `spec.codec`, image by image.
+No backend answers for another: a host codec runs only when it is named.
 """
 
 from __future__ import annotations
@@ -16,10 +19,11 @@ import numpy as np
 import torch
 
 from nicetpu_torch import pipeline
-from nicetpu_torch.config import BACKENDS, RuntimeConfig
+from nicetpu_torch.config import BACKENDS, HOST_CODECS, RuntimeConfig
 from nicetpu_torch.format import headers
 from nicetpu_torch.hostref import oracle
 from nicetpu_torch.kernels import decode3, encode2
+from nicetpu_torch.spec import codec as spec_codec
 
 MAX_BATCH = 8  # images per device batch; bounds device memory per call
 
@@ -34,19 +38,33 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def backend_device(backend: str) -> torch.device | None:
-    """The device a backend runs on; None for "native", the host codec.
-    "cuda" without CUDA raises: no other backend answers in its place."""
+def backend_target(backend: str) -> torch.device | str:
+    """Where a backend runs: the torch.device of "cuda" or "cpu", or the
+    name of the host codec that serves it, "native" or "spec".  "cuda"
+    without CUDA raises: no other backend answers in its place."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}: use one of {BACKENDS}")
-    return None if backend == "native" else _resolve_device(backend)
+    return backend if backend in HOST_CODECS else _resolve_device(backend)
 
 
-def target_device(device, config) -> torch.device | None:
-    """Explicit device > config > NICETPU_BACKEND > "cuda"."""
+def target(device, config) -> torch.device | str:
+    """Explicit device > config > NICETPU_BACKEND > "cuda" (see
+    `backend_target`)."""
     if device is not None:
         return _resolve_device(device)
-    return backend_device((config or RuntimeConfig.from_env()).backend)
+    return backend_target((config or RuntimeConfig.from_env()).backend)
+
+
+def _host_encode(codec: str, imgs: list[np.ndarray]) -> list[bytes]:
+    if codec == "native":
+        return oracle.encode_batch_native(imgs)
+    return [spec_codec.encode(im) for im in imgs]
+
+
+def _host_decode(codec: str, datas: list[bytes]) -> list[np.ndarray]:
+    if codec == "native":
+        return oracle.decode_batch_native(datas)
+    return [spec_codec.decode(d) for d in datas]
 
 
 def _to_rgb(img: np.ndarray, alpha: str = "drop") -> np.ndarray:
@@ -85,9 +103,12 @@ def _batches(keys: list) -> list[list[int]]:
     return [idxs[s : s + MAX_BATCH] for idxs in groups.values() for s in range(0, len(idxs), MAX_BATCH)]
 
 
-def encode(img: np.ndarray, *, device=None, config=None) -> bytes:
-    """Encode an (H, W, 3|4) uint8 array to `.nice` bytes (alpha dropped)."""
-    return encode_batch([img], device=device, config=config)[0]
+def encode(img: np.ndarray, *, device=None, config=None, alpha: str = "drop") -> bytes:
+    """Encode an (H, W, 3|4) uint8 array to `.nice` bytes.
+
+    alpha: the RGBA policy, "drop" (the reference encoder's behaviour) or
+    "error" (RGBA input raises ValueError; see `_to_rgb`)."""
+    return encode_batch([_to_rgb(img, alpha)], device=device, config=config)[0]
 
 
 def encode_batch(imgs: list[np.ndarray], *, device=None, config=None,
@@ -103,15 +124,15 @@ def encode_batch(imgs: list[np.ndarray], *, device=None, config=None,
     stats: optional dict; receives "device", "overflow_fallbacks" (images
     the native encoder served: none on this path), "retokenized" (images
     tokenized again with all 11 run digits) and "slot_mode" (batches packed
-    slot by slot), or {"backend": "native"} when the config's backend is the
-    host codec.
+    slot by slot), or {"backend": "native" | "spec"} when the config's
+    backend is a host codec.
     """
-    dev = target_device(device, config)
+    dev = target(device, config)
     imgs = [_to_rgb(im) for im in imgs]
-    if dev is None:
+    if isinstance(dev, str):
         if stats is not None:
-            stats["backend"] = "native"
-        return oracle.encode_batch_native(imgs)
+            stats["backend"] = dev
+        return _host_encode(dev, imgs)
     if stats is not None:
         stats["device"] = str(dev)
         for k in ("overflow_fallbacks", "retokenized", "slot_mode"):
@@ -138,12 +159,12 @@ def decode_batch(datas: list[bytes], *, device=None, config=None, chunk_bits: in
 
     stats: optional dict; receives "device" and accumulates "retries" (rungs
     retried) and "fallbacks" (streams the host decoded), or {"backend":
-    "native"} when the config's backend is the host codec."""
-    dev = target_device(device, config)
-    if dev is None:
+    "native" | "spec"} when the config's backend is a host codec."""
+    dev = target(device, config)
+    if isinstance(dev, str):
         if stats is not None:
-            stats["backend"] = "native"
-        return oracle.decode_batch_native(list(datas))
+            stats["backend"] = dev
+        return _host_decode(dev, list(datas))
     if stats is not None:
         stats["device"] = str(dev)
         stats.setdefault("retries", 0)

@@ -115,6 +115,13 @@ def rates(name: str, mb: float, secs: list[float]) -> dict:
             f"{name}_slowest": mb / max(secs)}
 
 
+def stage_ms(name: str, secs: list[float]) -> dict:
+    """A stage's milliseconds at the median repeat, with the fastest and
+    the slowest (`<name>_ms`, `_ms_fastest`, `_ms_slowest`)."""
+    return {f"{name}_ms": statistics.median(secs) * 1e3, f"{name}_ms_fastest": min(secs) * 1e3,
+            f"{name}_ms_slowest": max(secs) * 1e3}
+
+
 def tally(counts: dict, section: str, stats: dict) -> None:
     into = counts.setdefault(section, dict.fromkeys(COUNTS, 0))
     for k in COUNTS:

@@ -1,7 +1,7 @@
 """CLI of the port, with the reference binary's extension dispatch (after
 `nicetpu.cli`).
 
-Usage: python -m nicetpu_torch.cli <from> <to> [--backend cuda|cpu|native]
+Usage: python -m nicetpu_torch.cli <from> <to> [--backend cuda|cpu|native|spec]
        [--verbose]
 
 `.png -> .nice` encodes; `.nice -> .png` decodes; the suffix is appended to
@@ -9,7 +9,8 @@ Usage: python -m nicetpu_torch.cli <from> <to> [--backend cuda|cpu|native]
 the StageTimer JSON summary.  Defaults (backend, OMP threads) resolve through
 RuntimeConfig / NICETPU_* environment.  The default backend is the card:
 without CUDA it is an error, and nothing is written; --backend cpu runs the
-kernels' plain PyTorch versions, --backend native the host codec.
+kernels' plain PyTorch versions, --backend native the C++ host codec and
+--backend spec the numpy reference codec.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument(
         "--backend",
         default=None,
-        choices=["cuda", "cpu", "native"],
+        choices=["cuda", "cpu", "native", "spec"],
         help="default: RuntimeConfig / NICETPU_BACKEND",
     )
     ap.add_argument(
@@ -51,7 +52,7 @@ def main(argv: list[str] | None = None) -> int:
         print("error: source must end in .png or .nice", file=sys.stderr)
         return 2
     try:
-        api.backend_device(cfg.backend)
+        api.backend_target(cfg.backend)
     except (RuntimeError, ValueError) as e:  # no card, or NICETPU_BACKEND unknown
         print(f"error: backend {cfg.backend!r}: {e}", file=sys.stderr)
         return 1

@@ -8,7 +8,10 @@ Backends:
     "cuda"    the CUDA kernels on the card (the default); raises where CUDA
               is absent: nothing answers in its place
     "cpu"     the kernels' plain PyTorch versions, by the caller's choice
-    "native"  the port's host codec (`hostref`)
+    "native"  the port's host codec (`hostref`, C++ built by g++ at first use)
+    "spec"    the port's numpy reference codec (`spec.codec`): needs no
+              compiler; a serial Python decoder, for small images
+There is no "auto": no backend answers for another.
 """
 
 from __future__ import annotations
@@ -16,12 +19,13 @@ from __future__ import annotations
 import dataclasses
 import os
 
-BACKENDS = ("cuda", "cpu", "native")
+BACKENDS = ("cuda", "cpu", "native", "spec")
+HOST_CODECS = ("native", "spec")  # the backends served by a host codec
 
 
 @dataclasses.dataclass
 class RuntimeConfig:
-    backend: str = "cuda"  # cuda | cpu | native
+    backend: str = "cuda"  # cuda | cpu | native | spec
     batch_size: int = 8  # images per fused device pass (api.MAX_BATCH)
     workers: int = 4  # pipeline thread-pool width
     omp_threads: int = 0  # 0 = OpenMP default

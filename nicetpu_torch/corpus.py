@@ -63,10 +63,10 @@ def stats_from_bitstream(data: bytes, *, device=None, config=None) -> dict:
     from nicetpu_torch.kernels import cuda_ops
     from nicetpu_torch.kernels.encode2 import _tokenize_core
 
-    dev = api.target_device(device, config)
-    img = api.decode(data, device=dev, config=config)
+    dev = api.target(device, config)
+    img = api.decode(data, device=None if isinstance(dev, str) else dev, config=config)
     H, W, _ = img.shape
-    flat = torch.from_numpy(img.reshape(1, H * W, 3)).to(dev if dev is not None else "cpu")
+    flat = torch.from_numpy(img.reshape(1, H * W, 3)).to("cpu" if isinstance(dev, str) else dev)
     bins, _ = _tokenize_core(flat, width=W, ndigits_cap=C.MAX_RUN_DIGITS)
     return mode_stats(cuda_ops.histogram(bins.contiguous())[0].cpu().numpy())
 
@@ -81,13 +81,13 @@ def encode_corpus(
     """Encode a list of image paths to `<out_dir>/<name>.nice`, streaming,
     with manifest checkpointing and per-image error isolation.
 
-    backend: "cuda", "cpu" or "native"; None resolves it from the
+    backend: "cuda", "cpu", "native" or "spec"; None resolves it from the
     NICETPU_BACKEND environment, else the card."""
     from nicetpu_torch import api
     from nicetpu_torch.config import RuntimeConfig
 
     cfg = RuntimeConfig.from_env() if backend is None else RuntimeConfig.from_env(backend=backend)
-    api.backend_device(cfg.backend)  # an absent card raises here, not once per image
+    api.backend_target(cfg.backend)  # an absent card raises here, not once per image
 
     os.makedirs(out_dir, exist_ok=True)
     manifest_path = manifest_path or os.path.join(out_dir, "manifest.jsonl")

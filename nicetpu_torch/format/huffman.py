@@ -2,8 +2,9 @@
 
 The port's copies of `nicetpu.format.huffman`: the Python code-length merge
 (`_huffman_lengths_once`, `clamp_floor`, `code_lengths`), the canonical code
-assignment (`canonical_codes`), the flat per-stream tables
-(`build_all_tables`, `build_tables_host`) and the decoders' header check
+assignment (`canonical_codes`), the spec decoder's tables (`decode_lut`,
+`canonical_decode_tables`), the flat per-stream tables (`build_all_tables`,
+`build_tables_host`) and the decoders' header check
 (`validate_flat_lengths`).
 
 Semantics follow the reference (SURVEY §2.3): a full-alphabet Huffman merge
@@ -90,6 +91,55 @@ def canonical_codes(lengths: np.ndarray) -> np.ndarray:
         codes[sym] = code
         prev_len = ln
     return codes
+
+
+def decode_lut(lengths: np.ndarray, codes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """One-shot decoder LUT: (symbol, aob) for every max_aob-bit prefix.
+
+    Mirrors ref hfe.rs:191-202: entry x = the unique code that prefixes x.
+    Returns (symbols uint16 (2^max_aob,), aobs uint8 (2^max_aob,))."""
+    lengths = np.asarray(lengths, dtype=np.int64)
+    codes = np.asarray(codes, dtype=np.uint32)
+    max_aob = int(lengths.max())
+    if max_aob > C.MAX_LUT_AOB:
+        raise OverflowError(f"max_aob {max_aob} too large for one-shot LUT")
+    size = 1 << max_aob
+    symbols = np.zeros(size, dtype=np.uint16)
+    aobs = np.zeros(size, dtype=np.uint8)
+    for sym in range(lengths.shape[0]):
+        ln = int(lengths[sym])
+        lo = int(codes[sym]) << (max_aob - ln)
+        hi = (int(codes[sym]) + 1) << (max_aob - ln)
+        symbols[lo:hi] = sym
+        aobs[lo:hi] = ln
+    return symbols, aobs
+
+
+def canonical_decode_tables(
+    lengths: np.ndarray,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Tables for LUT-free canonical decoding of arbitrarily deep codes.
+
+    Returns (sorted_symbols, index_base, aligned_first):
+      sorted_symbols: symbols in (length asc, symbol asc) order (uint16)
+      index_base[l]:  index into sorted_symbols of the first length-l symbol
+      aligned_first[l]: first length-l code left-aligned to 32 bits (uint64)
+    Decode: align the peeked max_aob bits to 32; pick the largest present
+    length l with aligned >= aligned_first[l]; then
+    symbol = sorted_symbols[index_base[l] + ((aligned - aligned_first[l]) >> (32-l))]."""
+    lengths = np.asarray(lengths, dtype=np.int64)
+    codes = canonical_codes(lengths)
+    n = lengths.shape[0]
+    order = np.lexsort((np.arange(n), lengths))
+    sorted_symbols = order.astype(np.uint16)
+    index_base = np.zeros(C.MAX_CODE_LEN + 2, dtype=np.int64)
+    aligned_first = np.full(C.MAX_CODE_LEN + 2, np.iinfo(np.uint64).max, dtype=np.uint64)
+    for idx, sym in enumerate(order):
+        ln = int(lengths[sym])
+        if aligned_first[ln] == np.iinfo(np.uint64).max:
+            index_base[ln] = idx
+            aligned_first[ln] = np.uint64(int(codes[sym]) << (32 - ln))
+    return sorted_symbols, index_base, aligned_first
 
 
 def build_all_tables(flat_counts: np.ndarray) -> tuple[np.ndarray, np.ndarray, list[int]]:

@@ -520,22 +520,14 @@ def _unpack(base, n_pixels: int, width: int):
 # ---------------------------------------------------------------------------
 
 
-def _decode_core_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: int,
-                    width: int, chunk_bits: int, steps: int, rounds: int, marks=None):
-    """Full device decode of a batch.
-
-    words (B, Wn) int32 bit patterns (Wn >= nch * chunk_bits/32 + the
-    lookahead, zeros past each payload); wbits (B,) int32; af/present/ib
-    (B, 10, 32); pfx (B, 1, 16); sym_tbl (B, 858).  Returns (out (B, 3, N)
-    uint8 channel-planar, ok (B,), gates (B, 4) bool) with gates =
-    [consistency, crossing, coverage, backref-index].  marks: optional list
-    receiving (stage, CUDA event) pairs.
-
-    Past the walk, at most about 34 bytes a slot of the final round are
-    live (`_slot_starts`); the value join, the records (in blocks of
-    RECORD_BLOCK slots) and the placement see only the real pixels' slots
-    (`_compact`), and every array is freed once the next step has used
-    it."""
+def walk_rounds(words, wbits, aff, dD, inc, pfx, *, chunk_bits: int, steps: int, rounds: int,
+                marks=None):
+    """The decode core's speculative walk: round 1 from the chunk starts,
+    each later round from the previous round's exits anchored at bit 0, the
+    final round with its records.  Returns (pos, sym, i12, i34, ok_consist,
+    ok_cross): the final round's records (B, nch, steps) and the walk
+    gates (B,).  Shapes as in `_decode_core_v3`; aff/dD/inc from
+    `derive_walk_tables`."""
     B, Wn = words.shape
     dev = words.device
     wpc = chunk_bits // 32
@@ -543,7 +535,6 @@ def _decode_core_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: in
     if nch < 1:
         raise ValueError(f"{Wn} words hold no {chunk_bits}-bit chunk")
     starts = (torch.arange(nch, dtype=torch.int32, device=dev) * chunk_bits)[None, :]
-    aff, dD, inc = derive_walk_tables(af, present, ib)
     wbits = wbits.to(torch.int32).contiguous()
     pfx = pfx.contiguous()
 
@@ -551,8 +542,6 @@ def _decode_core_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: in
         return walk(words, e, aff, dD, inc, pfx, wbits, chunk_bits=chunk_bits, steps=steps,
                     records=records)
 
-    # round 1 from the chunk starts; each later round from the previous
-    # round's exits, anchored at bit 0
     e = starts.expand(B, nch).contiguous()
     for r in range(rounds - 1):
         ex = run(e, False)[4]
@@ -570,12 +559,24 @@ def _decode_core_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: in
     walked = e < wb
     crossed = ex2 >= torch.minimum(bounds, wb)
     ok_cross = (crossed | ~walked).all(dim=1)
+    return pos, sym, i12, i34, ok_consist, ok_cross
 
-    del e, ex2
-    S = nch * steps
+
+def decode_planes_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: int,
+                     width: int, chunk_bits: int, steps: int, rounds: int, marks=None):
+    """The decode core up to the reconstruction: the walk rounds and their
+    gates, the slot assembly, the value join, the records and the
+    placement.  Returns (form (B, N), delta (B, 3, N), refoff (B, N),
+    gates (B, 4) bool), the reconstruction's inputs; see `_decode_core_v3`."""
+    B = words.shape[0]
+    aff, dD, inc = derive_walk_tables(af, present, ib)
+    pos, sym, i12, i34, ok_consist, ok_cross = walk_rounds(
+        words, wbits, aff, dD, inc, pfx, chunk_bits=chunk_bits, steps=steps, rounds=rounds,
+        marks=marks)
+    S = pos.shape[1] * steps
     N = n_pixels
     pos, sym, i12, i34 = (r.view(B, S) for r in (pos, sym, i12, i34))
-    valid = (pos >= 0) & (pos < wbits[:, None])
+    valid = (pos >= 0) & (pos < wbits.to(torch.int32)[:, None])
     del pos
     start, real, ok_cov = _slot_starts(valid, sym, N)
     del valid
@@ -602,9 +603,31 @@ def _decode_core_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: in
     form, delta, refoff = _unpack(base, N, width)
     del base
     mark_stage(marks, "records+place")
+    return form, delta, refoff, torch.stack([ok_consist, ok_cross, ok_cov, ok_ref], dim=1)
+
+
+def _decode_core_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: int,
+                    width: int, chunk_bits: int, steps: int, rounds: int, marks=None):
+    """Full device decode of a batch: `decode_planes_v3`, then the row
+    reconstruction.
+
+    words (B, Wn) int32 bit patterns (Wn >= nch * chunk_bits/32 + the
+    lookahead, zeros past each payload); wbits (B,) int32; af/present/ib
+    (B, 10, 32); pfx (B, 1, 16); sym_tbl (B, 858).  Returns (out (B, 3, N)
+    uint8 channel-planar, ok (B,), gates (B, 4) bool) with gates =
+    [consistency, crossing, coverage, backref-index].  marks: optional list
+    receiving (stage, CUDA event) pairs.
+
+    Past the walk, at most about 34 bytes a slot of the final round are
+    live (`_slot_starts`); the value join, the records (in blocks of
+    RECORD_BLOCK slots) and the placement see only the real pixels' slots
+    (`_compact`), and every array is freed once the next step has used
+    it."""
+    form, delta, refoff, gates = decode_planes_v3(
+        words, wbits, af, present, ib, pfx, sym_tbl, n_pixels=n_pixels, width=width,
+        chunk_bits=chunk_bits, steps=steps, rounds=rounds, marks=marks)
     out = recon.reconstruct_rows(form, delta, refoff, width=width)
     mark_stage(marks, "recon")
-    gates = torch.stack([ok_consist, ok_cross, ok_cov, ok_ref], dim=1)
     return out.to(torch.uint8), gates.all(dim=1), gates
 
 

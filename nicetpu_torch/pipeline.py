@@ -312,7 +312,8 @@ class Pipeline:
     and host work of different batches overlap.
 
     batch defaults to `config.batch_size`; the backend is `config.backend`
-    ("cuda", "cpu", or "native" for the host codec alone).  The pool has
+    ("cuda", "cpu", or "native" for the C++ host codec alone; "spec", the
+    numpy codec of `api`, has no batch path and raises).  The pool has
     `workers` threads where given; else `config.workers` on the host
     backends and `DEVICE_WORKERS` on a CUDA device, where a sub-batch is
     mostly a Python loop of small launches under the interpreter lock and
@@ -326,10 +327,14 @@ class Pipeline:
             from nicetpu_torch.config import RuntimeConfig
 
             config = RuntimeConfig.from_env()
-        from nicetpu_torch.api import backend_device
+        from nicetpu_torch.api import backend_target
 
+        target = backend_target(config.backend)
+        if target == "spec":
+            raise ValueError("Pipeline runs on the 'cuda', 'cpu' or 'native' backend; "
+                             "the spec codec is served by api.encode_batch")
         self.config = config
-        self.device = backend_device(config.backend)  # None: the host codec
+        self.device = None if target == "native" else target  # None: the C++ host codec
         self.batch = batch if batch is not None else config.batch_size
         if workers is None:
             on_card = self.device is not None and self.device.type == "cuda"

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from nicetpu_torch import bench, bench_all, bench_huffman_dev, bench_real, bench_trace, pipeline
+from nicetpu_torch import (bench, bench_all, bench_decode_profile, bench_huffman_dev, bench_multihost,
+                           bench_profile, bench_real, bench_trace, pipeline)
 
 BENCH_KEYS = {
     "metric", "value", "value_fastest", "value_slowest", "unit", "gpu_share", "gpu_batches",
@@ -205,7 +206,8 @@ def test_trace_top_ops_sum_by_name():
     assert len(bench_trace.top_ops(rows)[-1]["name"]) == bench_trace.NAME_CHARS
 
 
-@pytest.mark.parametrize("module", [bench, bench_all, bench_real, bench_trace, bench_huffman_dev])
+@pytest.mark.parametrize("module", [bench, bench_all, bench_real, bench_trace, bench_huffman_dev,
+                                    bench_profile, bench_decode_profile, bench_multihost])
 def test_the_benches_exit_1_without_cuda(module, capsys):
     if torch.cuda.is_available():
         pytest.skip("CUDA is available here")
