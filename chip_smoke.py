@@ -9,10 +9,17 @@ Phases, one printed line or block each; any failure exits nonzero:
   0. the card's name and power limit (nvidia-smi); exit 1 without CUDA;
   1. build the CUDA kernels from csrc/ with nvcc (one process per source),
      print the build time and the register report;
-  2. hold each of the six kernels against its plain PyTorch version on the
+  2. hold each of the seven kernels against its plain PyTorch version on the
      card (exact equality) and time kernel, plain version and, where one
      PyTorch call computes the same function, that call (CUDA events).
-     Encode kernels take seeded bins at the main path's shapes; the decode
+     Encode kernels take seeded bins at the main path's shapes; the Huffman
+     tables kernel takes the counts of the main path's first batch (int32,
+     and int64 as the sharded path gives them), the deep, random, sparse,
+     all-zero and heavy-symbol rows of tests/_huffman_rows.py (the deep
+     rows' row 1 runs the clamp re-merge) and B = 1 and 32, and is timed at
+     B = 1, 8 and 32; then build_tables_device and encode_fused_core run on
+     the main path's batch under torch.cuda.set_sync_debug_mode("error"):
+     one launch each of the tables kernel, no host sync; the decode
      kernels take the words, tables and records of a real 512x512x8 encode
      at the fast rung (the reconstruction's plain version, one step per
      pixel, is compared on the first 32 rows of each image), and then a
@@ -28,7 +35,7 @@ Phases, one printed line or block each; any failure exits nonzero:
   5. the main path: the same 64 images through
      nicetpu_torch.roundtrip_batch(device=dev.type) in 8 batches of 8: every
      image verified on the device, 0 fallbacks, every blob equal to the
-     native encoder's, all six kernels launched in every batch; MB/s and
+     native encoder's, all seven kernels launched in every batch; MB/s and
      per-stage milliseconds of the round trip;
   6. decode the 64 blobs with nicetpu_torch.decode_batch(device=dev.type):
      exact arrays, 0 fallbacks; MB/s;
@@ -54,13 +61,14 @@ Phases, one printed line or block each; any failure exits nonzero:
      4096x4096 raster through encode_sharded and decode_sharded as 4 gloo
      ranks on the one card (NCCL will not put two ranks on one GPU; the
      contexts time-slice, so the timing says nothing of scaling): bytes
-     equal to the native encoder's, raster exact, 0 fallbacks, all six
+     equal to the native encoder's, raster exact, 0 fallbacks, all seven
      kernels launched on every rank, seconds, MB/s and per-rank stage
      times; (c) decode_batch_sharded of 8 of the 512x512 blobs over the
      same 4 ranks, exact; (d) dryrun_multichip over one NCCL rank.  The
      spawned ranks run under a time limit of their own;
  11. the bench modules on the card, each line printed as the bench prints
-     it: nicetpu_torch.bench (the headline, 2 repeats), nicetpu_torch.bench_all
+     it: nicetpu_torch.bench (the headline, 2 repeats, then the hybrid
+     section at 1, 2 and 3 GPU workers in turn, 3 repeats), nicetpu_torch.bench_all
      config 1 and config 3's 4096x4096 lines (1-2 repeats; the real-photo
      lines run in phase 13) and nicetpu_torch.bench_trace (the round
      trip's device trace and idle share); fails on `degraded`, on any
@@ -115,15 +123,19 @@ Phases, one printed line or block each; any failure exits nonzero:
      alpha="drop" on the card.
 Phase 2 also holds the fold against its plain version off the main path's
 shape.  The line before the last is the kernels' JSON record (launches from
-phase 5, the two-step path's launches from phase 15, and the histogram's and
-the fold's figures at 16 slots a pixel); the last line is
+phase 5, the two-step path's launches from phase 15, rank 0's on the sharded
+path of phase 10, bench_profile's from phase 16, the histogram's and the
+fold's figures at 16 slots a pixel, and the Huffman kernel's times at B = 1,
+8 and 32); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -141,8 +153,23 @@ from nicetpu_torch.dist import launch, sharded_decode
 from nicetpu_torch.format import constants as C
 from nicetpu_torch.hostref import oracle
 from nicetpu_torch.format.huffman import build_tables_host
-from nicetpu_torch.kernels import build, cuda_ops, decode3, decode_dev, encode2, recon
+from nicetpu_torch.kernels import build, cuda_ops, decode3, decode_dev, encode2, huffman_dev, recon
 from nicetpu_torch.kernels.encode2 import encode_fused_core, mark_stage
+
+
+
+def _load_rows():
+    """tests/_huffman_rows.py (numpy only), loaded by its path so that
+    nothing under tests/ can shadow a module this script imports."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "_huffman_rows.py")
+    spec = importlib.util.spec_from_file_location("_huffman_rows", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_rows = _load_rows()
+_deep, _heavy, _random, _sparse, _zero = _rows._deep, _rows._heavy, _rows._random, _rows._sparse, _rows._zero
 
 SOURCES = {
     "histogram": "nicetpu_torch/csrc/encode_kernels.cu",
@@ -151,6 +178,7 @@ SOURCES = {
     "walk": "nicetpu_torch/csrc/decode_kernels.cu",
     "value_join": "nicetpu_torch/csrc/decode_kernels.cu",
     "reconstruct_rows": "nicetpu_torch/csrc/decode_kernels.cu",
+    "huffman_tables": "nicetpu_torch/csrc/huffman_kernels.cu",
 }
 REPLACES = {
     "histogram": "nicetpu/kernels/pallas_ops.py:100",
@@ -159,7 +187,11 @@ REPLACES = {
     "walk": "nicetpu/kernels/decode3.py:546",
     "value_join": "nicetpu/kernels/pallas_ops.py:193",
     "reconstruct_rows": "nicetpu/kernels/recon_pallas.py:215",
+    "huffman_tables": "nicetpu/kernels/huffman_dev.py:224 build_tables_device (jnp: fori_loop, cond, scan; "
+                      "not Pallas)",
 }
+# the two-step encode (api.encode, the CLI) builds its tables on the host
+HOST_TABLE_KERNELS = tuple(k for k in REPLACES if k != "huffman_tables")
 # main path shapes: 8 images of 512x512, 8 token slots per pixel, 8 pixels a group
 B, N, W512 = 8, 512 * 512, 512
 M, MG, S = N * 8, N // 8, 64
@@ -278,6 +310,103 @@ def phase_encode_kernels(dev) -> dict:
           f"over {32 * cuda_ops.FOLD_CAPW} bits (longest {int(rec_k[1].max())}); earlier: {FOLD_EARLIER}")
     check(over > 0, "the fold's main-shape input holds no record over 320 bits")
     fold_odd_shapes(dev)
+    out["huffman_tables"] = huffman_kernel(dev)
+    return out
+
+
+HUFFMAN_B = (1, 8, 32)  # a sharded rank's batch, the main path's, bench_profile's largest
+# a merge step, per slot of the stream: the pair-min's two compares, the
+# slot's and the symbol's two key tests, the key and length updates
+HUFFMAN_OPS_PER_SLOT_STEP = 6
+# an ESTIMATE, not a measurement: the cycles of one merge step's dependent
+# chain if each of its six rounds (five shuffle rounds and the exchange of
+# the warps' pairs through shared memory) took an assumed 30 cycles; it is
+# printed beside the measured time a step and kept out of the kernels record
+ASSUMED_STEP_CYCLES = 6 * 30
+
+
+def max_sm_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return float(out.split()[0])
+
+
+def huffman_counts(dev, n: int) -> torch.Tensor:
+    """(n, 858) int32 counts of make_image(512, 512, s) for s < n, as the
+    round trip's histogram kernel gives them."""
+    flat = pipeline.upload_batch([make_image(W512, W512, s) for s in range(n)], dev)
+    bins, _ = encode2._tokenize_core(flat, width=W512, ndigits_cap=3)
+    return cuda_ops.histogram(bins)
+
+
+def huffman_work(counts: torch.Tensor) -> tuple[int, int]:
+    """(slot-steps this data needs over all blocks, the longest chain of merge
+    steps of one block): a stream whose merge passes 31 bits merges twice."""
+    cs = huffman_dev._counts_to_streams(counts.cpu().to(torch.int64))
+    clamped = (huffman_dev._merge_lengths(cs) > C.MAX_CODE_LEN).any(dim=-1)  # (B, 10)
+    sizes = torch.tensor(C.ALPHABET_SIZES, dtype=torch.int64)
+    steps = (sizes - 2) * (1 + clamped.to(torch.int64))
+    return int((steps * sizes).sum()), int(steps.max())
+
+
+def huffman_kernel(dev) -> dict:
+    """The Huffman tables kernel against its plain version, exact, on every
+    listed input; its times at B = 1, 8 and 32; then one encode with no host
+    sync between the histogram and the table join."""
+    main = {b: huffman_counts(dev, b) for b in (8, 32)}
+    rows = {"main path 8 x 512^2": main[8], "main path, int64": main[8].to(torch.int64),
+            "deep (row 1 clamps)": _deep(), "random": _random(7), "sparse": _sparse(8), "zero": _zero(),
+            "heavy": _heavy(9), "B=1": main[8][:1], "B=32": main[32]}
+    for name, c in rows.items():
+        c = c if isinstance(c, torch.Tensor) else torch.from_numpy(c).to(dev)
+        got, want = huffman_dev.build_tables_device(c), huffman_dev.build_tables_device_plain(c)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)), f"huffman_tables differs on {name}")
+        slot_steps, chain = huffman_work(c)
+        print(f"[kernel] huffman_tables on {name} {tuple(c.shape)} {c.dtype}: exact; {slot_steps} slot-steps, "
+              f"longest chain {chain} merge steps")
+
+    c8 = main[8]
+    out = compare("huffman_tables", lambda: huffman_dev.build_tables_device(c8),
+                  lambda: huffman_dev.build_tables_device_plain(c8), reps=20, plain_reps=2,
+                  note=" (one launch a call; the plain version is some 7,000 small launches)")
+    slot_steps = huffman_work(c8)[0]
+    out.update(bound(nbytes(c8, *huffman_dev.build_tables_device(c8)), HUFFMAN_OPS_PER_SLOT_STEP * slot_steps))
+    mhz = max_sm_mhz()
+    ms_at, plain_at, chain_at = {}, {}, {}
+    for b in HUFFMAN_B:
+        cb = main[32][:b]
+        ms_at[b] = cuda_ms(lambda: huffman_dev.build_tables_device(cb), 20)
+        plain_at[b] = cuda_ms(lambda: huffman_dev.build_tables_device_plain(cb), 2, warmup=1)
+        chain_at[b] = huffman_work(cb)[1]
+    out.update(ms_at_B=ms_at, plain_ms_at_B=plain_at)
+    step_us = {b: ms_at[b] * 1e3 / chain_at[b] for b in HUFFMAN_B}
+    est = {b: chain_at[b] * ASSUMED_STEP_CYCLES / (mhz * 1e3) for b in HUFFMAN_B}
+    print(f"[kernel] huffman_tables at B = {HUFFMAN_B} of 512x512 make_image counts: kernel "
+          f"{json.dumps(ms_at)} ms, plain {json.dumps(plain_at)} ms; longest chain {json.dumps(chain_at)} merge "
+          f"steps, so a step took {json.dumps(step_us)} us (measured ms over steps; "
+          f"{json.dumps({b: round(u * mhz) for b, u in step_us.items()})} cycles at the {mhz:.0f} MHz maximum "
+          f"SM clock, the clock during the run not read); estimated floor, not measured, at an assumed "
+          f"{ASSUMED_STEP_CYCLES} cycles a step: {json.dumps(est)} ms; bound at B = 8 "
+          f"{out['bound_ms']:.6f} ms by {out['bound_by']}", flush=True)
+
+    # the fused encode's tables with no host sync: under "error" any sync raises
+    flat = pipeline.upload_batch([make_image(W512, W512, s) for s in range(B)], dev)
+    kw = dict(width=W512, ndigits_cap=3, w_cap=pipeline.w_cap(N))
+    encode_fused_core(flat, **kw)  # warm-up: the allocator's blocks
+    torch.cuda.synchronize()
+    cuda_ops.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tables = huffman_dev.build_tables_device(c8)
+        _, lengths, _, ovf = encode_fused_core(flat, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = dict(cuda_ops.LAUNCHES)
+    check(launches["huffman_tables"] == 2, f"the tables took other than one launch a call: {launches}")
+    check(torch.equal(lengths, tables[0]) and not bool(ovf.any()), "the synchronization-free encode differs")
+    print(f"[kernel] build_tables_device and encode_fused_core of {B} x 512x512 under "
+          f"torch.cuda.set_sync_debug_mode('error'): no host sync; launches={launches}", flush=True)
     return out
 
 
@@ -687,7 +816,7 @@ def phase_cli(img, ref) -> None:
         check(cli.main([nice, back]) == 0, "the CLI's decode failed")
         check(np.array_equal(nicetpu_torch.imread(back), img), "the CLI's PNG differs from the image")
     launches = dict(cuda_ops.LAUNCHES)
-    check(all(launches[k] >= 1 for k in REPLACES), f"the CLI did not run on the card: {launches}")
+    check(all(launches[k] >= 1 for k in HOST_TABLE_KERNELS), f"the CLI did not run on the card: {launches}")
     print(f"[cli] .png -> .nice -> .png on the card: bytes equal hostref.encode_native, pixels equal; "
           f"launches={launches}")
 
@@ -834,8 +963,9 @@ def _sharded_rank(comm, device: str, big, big_ref, blobs, imgs) -> dict:
             "encode_stats": es, "decode_stats": ds, "batch_stats": bs, "launches": launches}
 
 
-def phase_sharded(dev, big, big_ref, imgs, blobs) -> None:
-    """10: the sharded codec on the card."""
+def phase_sharded(dev, big, big_ref, imgs, blobs) -> dict:
+    """10: the sharded codec on the card.  Returns rank 0's launch counts of
+    encode_sharded and decode_sharded."""
     t_phase = time.perf_counter()
     phase_sharded_kernels(dev, big, big_ref, blobs[0])
     left = SHARDED_TIMEOUT - (time.perf_counter() - t_phase)
@@ -866,13 +996,15 @@ def phase_sharded(dev, big, big_ref, imgs, blobs) -> None:
         check(r["batch_equal"] and r["batch_stats"] == {"retries": 0, "fallbacks": 0},
               f"rank {r['rank']}: decode_batch_sharded differs or fell back: {r['batch_stats']}")
     print(f"[sharded] every rank: bytes equal hostref.encode_native, raster exact, 0 fallbacks, "
-          f"all six kernels launched; decode_batch_sharded of 8 512x512 blobs over {SHARDS} ranks "
+          f"all seven kernels launched; decode_batch_sharded of 8 512x512 blobs over {SHARDS} ranks "
           f"exact in {max(r['batch_s'] for r in res):.4f} s")
+    rank0_launches = res[0]["launches"]
     left = SHARDED_TIMEOUT - (time.perf_counter() - t_phase)
     res = launch.dryrun_multichip(1, "nccl", "cuda", timeout=left)
     check(all(v >= 1 for v in res[0]["launches"].values()), f"the NCCL dry run skipped a kernel: {res}")
     print(f"[sharded] dryrun_multichip(1, 'nccl', 'cuda'): exact, launches={res[0]['launches']}; "
           f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return rank0_launches
 
 
 # phase 11's synthetic configs of bench_all and their repeats (configs 2, 4
@@ -897,6 +1029,10 @@ def phase_bench(dev) -> None:
     print(json.dumps(line), flush=True)
     bench_line_ok(line)
     check(line["value"] is not None and line["gpu_share"] > 0, f"the device did no hybrid work: {line}")
+    sweep = bench.hybrid_sweep(dev.type, card=card)
+    print(json.dumps(sweep), flush=True)
+    check(not sweep["degraded"] and all(min(r["gpu_batches"]) > 0 for r in sweep["by_gpu_threads"].values()),
+          f"the GPU-worker sweep fell back or left the device idle: {sweep}")
     for config, reps in BENCH_ALL_SYNTHETIC:
         for ln in config(dev, card=card, reps=reps):
             print(json.dumps(ln), flush=True)
@@ -904,9 +1040,8 @@ def phase_bench(dev) -> None:
     tr = bench_trace.run(dev.type, card=card)
     print(json.dumps(tr), flush=True)
     check(tr["device_ops"] > 0 and 0 <= tr["device_idle_share"] < 1, f"the trace saw no device work: {tr}")
-    print(f"[bench] bench, bench_all 1 and 3 (4096x4096) and bench_trace on the card: exact, 0 fallbacks, "
-          f"not degraded; "
-          f"phase 11 took {time.perf_counter() - t0:.1f} s")
+    print(f"[bench] bench, its GPU-worker sweep, bench_all 1 and 3 (4096x4096) and bench_trace on the card: "
+          f"exact, 0 fallbacks, not degraded; phase 11 took {time.perf_counter() - t0:.1f} s")
 
 
 def phase_large(dev) -> None:
@@ -1051,6 +1186,7 @@ def phase_single_large(dev) -> None:
 
 S11 = 5 + C.MAX_RUN_DIGITS  # token slots a pixel at the 11-digit layout
 ENCODE_KERNELS = ("histogram", "table_join", "fold_records")
+FUSED_ENCODE_KERNELS = ENCODE_KERNELS + ("huffman_tables",)  # tables built on the device
 
 
 def phase_twostep_kernels(dev, imgs) -> dict:
@@ -1175,13 +1311,15 @@ DECODE_KERNELS = ("walk", "value_join", "reconstruct_rows")
 SPEC_SIDE = 64  # phase 16's spec image: its decoder is a serial Python loop
 
 
-def phase_finish(dev) -> None:
+def phase_finish(dev) -> dict:
     """16: bench_profile, bench_decode_profile and bench_multihost on the
-    card; the spec backend; the RGBA policy."""
+    card; the spec backend; the RGBA policy.  Returns bench_profile's
+    launch counts."""
     t0 = time.perf_counter()
     card = card_line()
+    profile_launches: dict = {}
     for name, run, kernels in (
-        ("bench_profile", lambda: bench_profile.run(dev.type, card=card), ENCODE_KERNELS),
+        ("bench_profile", lambda: bench_profile.run(dev.type, card=card), FUSED_ENCODE_KERNELS),
         ("bench_decode_profile", lambda: bench_decode_profile.run(dev.type, card=card), DECODE_KERNELS),
     ):
         t1 = time.perf_counter()
@@ -1189,12 +1327,13 @@ def phase_finish(dev) -> None:
         run()
         lc = dict(cuda_ops.LAUNCHES)
         check(all(lc[k] >= 1 for k in kernels), f"{name} skipped a kernel: {lc}")
+        profile_launches = profile_launches or lc
         print(f"[finish] {name}: exact, launches={lc}, {time.perf_counter() - t1:.1f} s", flush=True)
     t1 = time.perf_counter()
     lines = bench_multihost.run(dev.type, card=card)
     check([ln["processes"] for ln in lines] == list(bench_multihost.RANKS), f"bench_multihost: {lines}")
     for ln in lines:
-        check(all(ln["launches"][k] >= 1 for k in ENCODE_KERNELS),
+        check(all(ln["launches"][k] >= 1 for k in FUSED_ENCODE_KERNELS),
               f"bench_multihost at {ln['processes']} ranks skipped a kernel: {ln['launches']}")
     print(f"[finish] bench_multihost: rank 0's bytes equal the native encoder's at 1, 2 and 4 ranks, "
           f"{time.perf_counter() - t1:.1f} s", flush=True)
@@ -1222,6 +1361,7 @@ def phase_finish(dev) -> None:
           f"stats {{'backend': 'spec'}}, {spec_s:.2f} s; api.encode(rgba, alpha='error') raised ValueError, "
           f"alpha='drop' on the card equals the RGB bytes; phase 16 took {time.perf_counter() - t0:.1f} s",
           flush=True)
+    return profile_launches
 
 
 def main() -> int:
@@ -1256,17 +1396,18 @@ def main() -> int:
     phase_roundtrip_big(dev, big, big_ref)
     phase_scheduler(dev, imgs, refs)
     phase_cli(imgs[0], refs[0])
-    phase_sharded(dev, big, big_ref, imgs, refs)
+    sharded_launches = phase_sharded(dev, big, big_ref, imgs, refs)
     phase_bench(dev)
     phase_large(dev)
     phase_real(dev)
     phase_single_large(dev)
     twostep_launches, kernels16 = phase_twostep(dev, imgs, refs, fused_stage_ms)
-    phase_finish(dev)
+    profile_launches = phase_finish(dev)
 
     record = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], **kernels[name], "twostep_launches": twostep_launches[name],
+         "sharded_launches": sharded_launches[name], "bench_profile_launches": profile_launches[name],
          **({"at_16_slots": kernels16[name]} if name in kernels16 else {})}
         for name in REPLACES
     ]

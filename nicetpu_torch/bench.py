@@ -29,6 +29,10 @@ in a repeat: a hybrid figure from a run in which the device did no work is
 never reported.  Any unverified output raises and the process exits
 non-zero.  The kernels are built before anything is timed.  `card` is
 nvidia-smi's name and power limit of the card.
+
+`hybrid_sweep` times the hybrid section alone at each count of GPU workers
+(one host worker beside them), the counts taken in turn within each repeat;
+`chip_smoke.py` calls it.
 """
 
 from __future__ import annotations
@@ -138,32 +142,40 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def _hybrid(batches, host_batches, imgs, refs, reps, dev, counts):
-    """The headline section: `reps` timed runs of roundtrip_hybrid."""
+def _hybrid_once(batches, host_batches, imgs, refs, rep, dev, counts, section="hybrid", **workers):
+    """One timed, verified run of roundtrip_hybrid (`workers`: its thread
+    counts, else its defaults); returns (seconds, gpu_batches)."""
     from nicetpu_torch import pipeline
     from nicetpu_torch.hostref import oracle
 
+    sync(dev)
+    t0 = time.perf_counter()
+    results, stats = pipeline.roundtrip_hybrid(batches, **workers)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    blobs = [d for out in results for d, _ in out]
+    require(blobs == refs, "a hybrid blob differs from hostref.encode_native")
+    require(all(np.array_equal(a, im) for out, hb in zip(results, host_batches)
+                for (_, a), im in zip(out, hb)), "a hybrid array differs from its image")
+    # device workers take batches from the front: the first gpu_batches
+    # batches are the device's; one of their blobs is decoded by the host
+    n_dev = stats["gpu_batches"] * len(host_batches[0])
+    if n_dev:
+        k = rep % n_dev
+        require(np.array_equal(oracle.decode_native(blobs[k]), imgs[k]),
+                f"device blob {k} does not decode to its image on the host")
+    tally(counts, section, stats)
+    return seconds, stats["gpu_batches"]
+
+
+def _hybrid(batches, host_batches, imgs, refs, reps, dev, counts):
+    """The headline section: `reps` timed runs of roundtrip_hybrid."""
     mb = sum(im.nbytes for im in imgs) / 1e6
     secs, gpu_batches = [], []
     for rep in range(reps):
-        sync(dev)
-        t0 = time.perf_counter()
-        results, stats = pipeline.roundtrip_hybrid(batches)
-        sync(dev)
-        secs.append(time.perf_counter() - t0)
-        blobs = [d for out in results for d, _ in out]
-        require(blobs == refs, "a hybrid blob differs from hostref.encode_native")
-        require(all(np.array_equal(a, im) for out, hb in zip(results, host_batches)
-                    for (_, a), im in zip(out, hb)), "a hybrid array differs from its image")
-        # device workers take batches from the front: the first gpu_batches
-        # batches are the device's; one of their blobs is decoded by the host
-        n_dev = stats["gpu_batches"] * len(host_batches[0])
-        if n_dev:
-            k = rep % n_dev
-            require(np.array_equal(oracle.decode_native(blobs[k]), imgs[k]),
-                    f"device blob {k} does not decode to its image on the host")
-        gpu_batches.append(stats["gpu_batches"])
-        tally(counts, "hybrid", stats)
+        seconds, n_gpu = _hybrid_once(batches, host_batches, imgs, refs, rep, dev, counts)
+        secs.append(seconds)
+        gpu_batches.append(n_gpu)
     out = rates("value", mb, secs)
     if min(gpu_batches) == 0:
         out = dict.fromkeys(out)  # the device did no work in a repeat: no headline
@@ -313,6 +325,39 @@ def run(device="cuda", *, n_images: int = N_IMAGES, batch: int = BATCH, side: in
     line.update(reps=reps, images=n_images, batch=batch, side=side, device=str(dev),
                 card=card if card is not None else card_line())
     return line
+
+
+def hybrid_sweep(device="cuda", *, gpu_threads=(1, 2, 3), reps: int = REPS, n_images: int = N_IMAGES,
+                 batch: int = BATCH, side: int = SIDE, card: str | None = None) -> dict:
+    """The headline's roundtrip_hybrid at each count of device workers, one
+    host worker beside them, over the same uploaded batches; within each
+    repeat the counts take their turn in order.  Returns one line: MB/s
+    (median, fastest, slowest) and gpu_batches by count, the counts of
+    fallbacks, `degraded` and `card`.  Raises on any unverified output."""
+    from nicetpu_torch import pipeline
+    from nicetpu_torch.hostref import oracle
+
+    dev = prepare(device)
+    imgs = [make_image(side, side, s) for s in range(n_images)]
+    refs = [oracle.encode_native(im) for im in imgs]
+    mb = sum(im.nbytes for im in imgs) / 1e6
+    host_batches = [imgs[i : i + batch] for i in range(0, n_images, batch)]
+    batches = [(hb, pipeline.upload_batch(hb, dev)) for hb in host_batches]
+    pipeline.roundtrip_hybrid(batches)  # warm-up, untimed and uncounted
+    secs: dict = {g: [] for g in gpu_threads}
+    n_gpu: dict = {g: [] for g in gpu_threads}
+    counts: dict = {}
+    for rep in range(reps):
+        for g in gpu_threads:
+            seconds, gb = _hybrid_once(batches, host_batches, imgs, refs, rep, dev, counts,
+                                       section=f"hybrid_{g}", gpu_threads=g, cpu_threads=1)
+            secs[g].append(seconds)
+            n_gpu[g].append(gb)
+    by = {str(g): {**rates("value", mb, secs[g]), "gpu_batches": n_gpu[g]} for g in gpu_threads}
+    return {"metric": f"encode+decode MB/s ({n_images} {side}x{side} RGB8 bit-exact round trips, "
+                      f"roundtrip_hybrid by GPU workers, 1 host worker)", "unit": "MB/s",
+            "by_gpu_threads": by, "counts": counts, "degraded": degraded(counts), "reps": reps,
+            "device": str(dev), "card": card if card is not None else card_line()}
 
 
 def main(argv=None) -> int:

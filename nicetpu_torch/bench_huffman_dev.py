@@ -7,8 +7,8 @@ fused encode and the two-step encode of the same resident batches
 For each batch size B, B `make_image` side x side images (512x512 by
 default), uploaded once (untimed), go through
   fused    `encode2.encode_fused`: tokenizer, histogram, the tables built on
-           the device (`huffman_dev`, a 341-step merge loop of small
-           launches), join, fold and place; the (B, 860) small array
+           the device (`huffman_dev`, one launch of the `huffman_tables`
+           kernel), join, fold and place; the (B, 860) small array
            fetched;
   twostep  `encode2.encode_resident`: `tokenize_compact` (tokenizer and
            histogram), the counts fetched, `build_tables_host` per image

@@ -96,6 +96,7 @@ def load() -> ctypes.CDLL:
                         i32, vp],
             "nt_value_join": [vp, vp, vp, i32, i32, i64, i32, vp],
             "nt_reconstruct_rows": [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp],
+            "nt_huffman_tables": [vp, i32, vp, vp, vp, i32, i32, vp],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)

@@ -2,8 +2,10 @@
 
 Counterpart of `nicetpu/kernels/pallas_ops.py`: the encode's histogram,
 table join and group-record fold (`csrc/encode_kernels.cu`) and the
-decode's value join (`csrc/decode_kernels.cu`).  `LAUNCHES` also counts the
-walk (`decode3.walk`) and the row reconstruction (`recon.reconstruct_rows`).
+decode's value join (`csrc/decode_kernels.cu`), and the fused encode's
+Huffman tables (`csrc/huffman_kernels.cu`, the counterpart of JAX's jitted
+`huffman_dev.build_tables_device`).  `LAUNCHES` also counts the walk
+(`decode3.walk`) and the row reconstruction (`recon.reconstruct_rows`).
 Each kernel has
   * a wrapper that checks its inputs and, for a CUDA tensor, launches the
     kernel (or raises); for a CPU tensor it runs the plain version, since
@@ -32,7 +34,7 @@ FOLD_CAPW = 10  # words per group record (320 bits), as kCapw in the kernel
 
 LAUNCHES = {
     "histogram": 0, "table_join": 0, "fold_records": 0,
-    "walk": 0, "value_join": 0, "reconstruct_rows": 0,
+    "walk": 0, "value_join": 0, "reconstruct_rows": 0, "huffman_tables": 0,
 }
 _LAUNCHES_LOCK = threading.Lock()  # worker threads launch concurrently; the counts stay exact
 
@@ -253,3 +255,42 @@ def value_join(bins, val_tbl):
         ctypes.c_int(B), ctypes.c_longlong(M), device=bins.device,
     )
     return out
+
+
+# ---------------------------------------------------------------------------
+# Huffman tables (replaces huffman_dev.py build_tables_device, a jitted jnp
+# program; the plain version is huffman_dev.build_tables_device_plain)
+# ---------------------------------------------------------------------------
+
+
+def huffman_tables(counts: torch.Tensor):
+    """(B, 858) int32 or int64 histograms -> (lengths (B, 858) int32, codes
+    (B, 858) int32 bit patterns of the uint32 codes, overflow (B,) bool), in
+    one launch that reads nothing back to the host.  Equal to
+    `huffman_dev.build_tables_device_plain` for non-negative counts whose
+    stream totals stay below 2**52."""
+    if not isinstance(counts, torch.Tensor):
+        raise TypeError("counts must be a torch.Tensor")
+    if counts.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"counts must be int32 or int64, got {counts.dtype}")
+    if counts.dim() != 2 or counts.shape[1] != NSYM or counts.shape[0] == 0:
+        raise ValueError(f"counts must be (B, {NSYM}) with B >= 1, got shape {tuple(counts.shape)}")
+    if counts.device.type == "cpu":
+        from nicetpu_torch.kernels.huffman_dev import build_tables_device_plain
+
+        return build_tables_device_plain(counts)
+    if counts.device.type != "cuda":
+        raise ValueError(f"counts is on unsupported device {counts.device}")
+    B = counts.shape[0]
+    if B > 65535:
+        raise ValueError("huffman_tables takes at most 65535 images")
+    counts = counts.contiguous()
+    lengths = torch.empty(B, NSYM, dtype=torch.int32, device=counts.device)
+    codes = torch.empty_like(lengths)
+    stream_ovf = torch.empty(B, C.NUM_STREAMS, dtype=torch.bool, device=counts.device)
+    launch(
+        "huffman_tables", "nt_huffman_tables", ptr(counts),
+        ctypes.c_int(int(counts.dtype == torch.int64)), ptr(lengths), ptr(codes), ptr(stream_ovf),
+        ctypes.c_int(B), device=counts.device,
+    )
+    return lengths, codes, stream_ovf.any(dim=1)

@@ -4,15 +4,22 @@ Counterpart of `nicetpu/kernels/huffman_dev.py`: from per-image flat
 histograms it builds the same code lengths and canonical codes as the host
 tables of `nicetpu.format.huffman`, so the payload is byte-identical.
 
+`build_tables_device` is the wrapper: on a CUDA tensor it makes one launch
+of the `huffman_tables` kernel (`csrc/huffman_kernels.cu`, through
+`cuda_ops.huffman_tables`) and reads nothing back, as JAX's jitted
+`build_tables_device` is one device program; on a CPU tensor it runs the
+plain version, `build_tables_device_plain`, below.
+
 Merge order (the deterministic replacement for the reference's unspecified
 heap order): every live symbol starts as a leaf of length 1; the two minimum
 nodes merge until two remain; nodes order by (weight, leaf before internal,
 least symbol under the node).  The JAX version finds the minimum with three
 masked reductions; here the three fields pack into one int64 key,
 weight << 11 | internal << 10 | min_symbol (min_symbol < 343), whose
-ordinary minimum is the same node.  The 341-step merge is a Python loop of
-plain tensor ops over (B, 10, nodes) lanes; the length-limit re-merge runs
-only when some stream exceeds 31 bits, decided on the host.
+ordinary minimum is the same node.  In the plain version the 341-step merge
+is a Python loop of tensor ops over (B, 10, nodes) lanes, and the
+length-limit re-merge runs only when some stream exceeds 31 bits, decided
+on the host.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 
 from nicetpu_torch.format import constants as C
 from nicetpu_torch.convert import MASK32, to_int32_bits
+from nicetpu_torch.kernels import cuda_ops
 
 NSTREAMS = C.NUM_STREAMS
 PMAX = max(C.ALPHABET_SIZES)  # 343; nodes: leaves [0, PMAX), internals after
@@ -133,9 +141,15 @@ def canonical_codes_device(flat_lengths: torch.Tensor) -> torch.Tensor:
     return to_int32_bits(_streams_to_flat(codes))
 
 
-def build_tables_device(counts: torch.Tensor):
-    """(B, 858) histograms -> (lengths (B, 858) int32, codes (B, 858) int32
-    bit patterns, overflow (B,) bool).  Equal to format.huffman's tables
-    whenever overflow is False."""
+def build_tables_device_plain(counts: torch.Tensor):
+    """The plain version of `build_tables_device`, in tensor ops."""
     lengths, overflow = code_lengths_device(counts)
     return lengths, canonical_codes_device(lengths), overflow
+
+
+def build_tables_device(counts: torch.Tensor):
+    """(B, 858) int32 or int64 histograms -> (lengths (B, 858) int32, codes
+    (B, 858) int32 bit patterns, overflow (B,) bool).  Equal to
+    format.huffman's tables whenever overflow is False.  One kernel launch on
+    a CUDA tensor, with no host read; the plain version on a CPU tensor."""
+    return cuda_ops.huffman_tables(counts)

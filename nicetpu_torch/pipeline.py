@@ -215,11 +215,16 @@ def roundtrip_hybrid(batches, *, gpu_threads: int = 1, cpu_threads: int = 1,
     decode from the resident words, compare, all on the device); host
     workers pop from the back and run the native encoder and decoder.  The
     two ends meet wherever the resources balance: no static split.  One
-    device worker is the default: its batch is mostly a Python loop of small
-    launches under the interpreter lock, and a second such thread was
-    measured to halve the pace (PERF.md), while a host worker runs outside
-    the lock.  A resident batch is waited for on the stream that was
-    current, in the calling thread, when this function was called.
+    device worker is the default, where JAX's scheduler starts three: a
+    device batch is some 1,700 small device operations issued from Python
+    under the interpreter lock (the Huffman tables are one of them), and
+    more such threads only contend for the lock.  On an H100 80GB HBM3 at
+    512x512x8, two and three device workers beside one host worker ran at
+    0.89-0.94 and 0.65-0.80 of one worker's pace (medians of 3 in each of
+    two runs, PERF.md section 5), while a host worker runs outside the
+    lock.  A resident batch is waited
+    for on the stream that was current, in the calling thread, when this
+    function was called.
 
     Returns (results, stats): results[i] is the list of (bytes, array) of
     batches[i]; stats (the dict passed in, else a new one) accumulates
@@ -316,8 +321,10 @@ class Pipeline:
     numpy codec of `api`, has no batch path and raises).  The pool has
     `workers` threads where given; else `config.workers` on the host
     backends and `DEVICE_WORKERS` on a CUDA device, where a sub-batch is
-    mostly a Python loop of small launches under the interpreter lock and
-    more threads were measured to slow it down (PERF.md).
+    hundreds of small device operations issued under the interpreter lock
+    and more threads contend for it: on an H100 80GB HBM3, pools of 2 and 4
+    threads encoded 512x512x8 sub-batches at 0.60-0.77 and 0.40-0.47 of one
+    thread's rate (PERF.md section 5).
     """
 
     DEVICE_WORKERS = 1

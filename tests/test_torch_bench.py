@@ -40,6 +40,17 @@ def test_bench_line_on_the_cpu():
     assert (line["reps"], line["images"], line["device"]) == (1, 4, "cpu")
 
 
+def test_hybrid_sweep_on_the_cpu():
+    """The hybrid section alone at each count of GPU workers, in turn."""
+    line = bench.hybrid_sweep("cpu", gpu_threads=(1, 2), n_images=4, batch=2, side=32, reps=2, card="cpu")
+    assert set(line["by_gpu_threads"]) == {"1", "2"}
+    for r in line["by_gpu_threads"].values():
+        assert r["value_slowest"] <= r["value"] <= r["value_fastest"]
+        assert len(r["gpu_batches"]) == 2 and all(1 <= g <= 2 for g in r["gpu_batches"])
+    assert set(line["counts"]) == {"hybrid_1", "hybrid_2"} and line["degraded"] is False
+    assert (line["reps"], line["device"], line["card"]) == (2, "cpu", "cpu")
+
+
 def _host_batches(n=4, batch=2, side=32):
     imgs = [bench.make_image(side, side, s) for s in range(n)]
     from nicetpu_torch.hostref import oracle

@@ -17,7 +17,10 @@ from nicetpu_torch.config import RuntimeConfig
 from nicetpu_torch.dist import launch, sharded_decode
 from nicetpu_torch.format import constants as C
 from nicetpu_torch.hostref import oracle
-from nicetpu_torch.kernels import build, cuda_ops, decode3, decode_dev, recon
+from nicetpu_torch.bench import make_image
+from nicetpu_torch.kernels import build, cuda_ops, decode3, decode_dev, encode2, huffman_dev, recon
+
+from _huffman_rows import _deep, _heavy, _random, _sparse, _zero
 
 pytestmark = pytest.mark.cuda
 
@@ -170,7 +173,49 @@ def test_encode_batch_fused_cuda_sends_the_long_run_to_the_host(dev):
     out = pipeline.encode_batch_fused(same, device=torch.device("cuda"), stats=stats)
     assert out == [oracle.encode_native(im) for im in same]
     assert stats == {"overflow_fallbacks": 1}
-    assert all(cuda_ops.LAUNCHES[k] == 1 for k in ("histogram", "table_join", "fold_records"))
+    fused_kernels = ("histogram", "huffman_tables", "table_join", "fold_records")
+    assert all(cuda_ops.LAUNCHES[k] == 1 for k in fused_kernels)
+
+
+# ---------------------------------------------------------------------------
+# Huffman tables: the kernel against the plain version on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _image_counts(B, side=64):
+    imgs = np.stack([make_image(side, side, seed) for seed in range(B)])
+    _, stats = encode2.tokenize_compact(torch.from_numpy(imgs.reshape(B, -1, 3)), width=side, ndigits_cap=3)
+    return stats[:, :-1].numpy().astype(np.int64)
+
+
+HUFFMAN_ROWS = {"random": lambda: _random(7), "sparse": lambda: _sparse(8), "deep": _deep, "zero": _zero,
+                "heavy": lambda: _heavy(9), "make_image": lambda: _image_counts(3),
+                "B=1": lambda: _random(10)[:1], "B=32": lambda: _image_counts(32, side=32)}
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", sorted(HUFFMAN_ROWS))
+def test_huffman_tables_match_plain(dev, case, dtype):
+    """One launch, equal to the plain version bit for bit; the deep rows'
+    row 1 runs the clamp re-merge."""
+    counts = torch.from_numpy(HUFFMAN_ROWS[case]()).to(dtype)
+    want = huffman_dev.build_tables_device_plain(counts)
+    cuda_ops.reset_launches()
+    got = huffman_dev.build_tables_device(counts.to(dev))
+    assert cuda_ops.LAUNCHES["huffman_tables"] == 1
+    _same(tuple(g.cpu() for g in got), want)
+
+
+def test_huffman_tables_read_nothing_back(dev):
+    counts = torch.from_numpy(_deep()).to(dev)
+    want = huffman_dev.build_tables_device(counts)  # builds the library outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = huffman_dev.build_tables_device(counts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _same(got, want)
 
 
 # ---------------------------------------------------------------------------

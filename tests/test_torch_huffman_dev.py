@@ -14,45 +14,7 @@ from nicetpu.format.huffman import build_all_tables
 from nicetpu.kernels import huffman_dev as jhd
 from nicetpu_torch.kernels import huffman_dev as thd
 
-
-def _fib(n):
-    f = [1, 1]
-    while len(f) < n:
-        f.append(f[-1] + f[-2])
-    return np.asarray(f[:n], np.int64)
-
-
-def _random(seed):
-    rng = np.random.default_rng(seed)
-    return np.stack([rng.integers(0, 5000, C.TOTAL_SYMBOLS) for _ in range(3)])
-
-
-def _sparse(seed):
-    rng = np.random.default_rng(seed)
-    rows = np.zeros((3, C.TOTAL_SYMBOLS), np.int64)
-    for r in rows:
-        r[rng.integers(0, C.TOTAL_SYMBOLS, 25)] = rng.integers(1, 10**6, 25)
-    return rows
-
-
-def _deep():
-    """Deep-code fixture.  Every symbol has a count, so only the Fibonacci
-    streams run deep: row 0 puts Fibonacci counts on the 32-symbol
-    LUMA_OTHER_DIFF stream (a chain of codes 1..31 bits long, just inside
-    the limit); row 1 puts 40 of them on the 64-symbol LUMA_BASE_DIFF
-    stream (the other 24 symbols heavier still, so the chain stays whole),
-    whose raw merge passes 31 bits, so the clamp + re-merge runs;
-    row 2 scatters 40 over the 343-symbol SMALL_DIFF stream (codes past
-    15 bits among 342 others, no clamp)."""
-    rng = np.random.default_rng(4)
-    rows = rng.integers(1, 1000, (3, C.TOTAL_SYMBOLS)).astype(np.int64)
-    b3 = C.STREAM_BASE[C.SC_LUMA_OTHER_DIFF]
-    rows[0, b3 : b3 + 32] = _fib(32)
-    b2 = C.STREAM_BASE[C.SC_LUMA_BASE_DIFF]
-    rows[1, b2 : b2 + 64] = np.concatenate([np.full(24, _fib(37)[-1]), _fib(40)])
-    b5 = C.STREAM_BASE[C.SC_SMALL_DIFF]
-    rows[2, b5 + rng.permutation(343)[:40]] = _fib(40)
-    return rows
+from _huffman_rows import _deep, _random, _sparse
 
 
 CASES = {"random": _random(0), "sparse": _sparse(1), "deep": _deep()}
