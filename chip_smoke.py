@@ -15,11 +15,14 @@ Phases, one printed line or block each; any failure exits nonzero:
      Encode kernels take seeded bins at the main path's shapes; the Huffman
      tables kernel takes the counts of the main path's first batch (int32,
      and int64 as the sharded path gives them), the deep, random, sparse,
-     all-zero and heavy-symbol rows of tests/_huffman_rows.py (the deep
-     rows' row 1 runs the clamp re-merge) and B = 1 and 32, and is timed at
-     B = 1, 8 and 32; then build_tables_device and encode_fused_core run on
-     the main path's batch under torch.cuda.set_sync_debug_mode("error"):
-     one launch each of the tables kernel, no host sync; the decode
+     all-zero, heavy-symbol, tie and bound rows of tests/_huffman_rows.py
+     (the deep rows' row 1 takes the clamped merge; the tie rows take
+     equal-weight internal nodes out of creation order; the bound rows
+     put stream totals either side of the kernel's int keys) and B = 1 and 32,
+     and is timed at B = 1, 8 and 32 beside its earlier design's times;
+     then build_tables_device and encode_fused_core run on the main path's
+     batch under torch.cuda.set_sync_debug_mode("error"): one launch each
+     of the tables kernel, no host sync; the decode
      kernels take the words, tables and records of a real 512x512x8 encode
      at the fast rung (the reconstruction's plain version, one step per
      pixel, is compared on the first 32 rows of each image), and then a
@@ -169,7 +172,8 @@ def _load_rows():
 
 
 _rows = _load_rows()
-_deep, _heavy, _random, _sparse, _zero = _rows._deep, _rows._heavy, _rows._random, _rows._sparse, _rows._zero
+_bounds, _deep, _heavy, _random, _sparse, _ties, _zero = (_rows._bounds, _rows._deep, _rows._heavy, _rows._random,
+                                                         _rows._sparse, _rows._ties, _rows._zero)
 
 SOURCES = {
     "histogram": "nicetpu_torch/csrc/encode_kernels.cu",
@@ -202,6 +206,8 @@ OPS_PER_MS = 67e12 / 1e3  # published non-tensor-core rate (float32); the kernel
 FOLD_OPS_PER_SLOT = 28
 FOLD_EARLIER = ("0.2284 ms on an H100 80GB HBM3 at 700 W: one thread a group reading its slots from "
                 "device memory, the record in ten registers with a ten-way select a slot")
+HUFFMAN_EARLIER = ("0.4518 ms at B = 8 (0.4512 at 1, 0.8186 at 32) on an H100 80GB HBM3 at 700 W: 352 threads a "
+                   "block, a block-wide pair-min each step, the clamp re-merge after the first merge")
 HEAD_START_CYCLES = 20_000_000  # about 10 ms of device spin before a timed run of launches
 RECON_CHECK_ROWS = 32  # rows per image for the reconstruction's plain comparison
 RECON_RANDOM_ROWS = 64  # rows per image of the random-form comparison
@@ -318,11 +324,6 @@ HUFFMAN_B = (1, 8, 32)  # a sharded rank's batch, the main path's, bench_profile
 # a merge step, per slot of the stream: the pair-min's two compares, the
 # slot's and the symbol's two key tests, the key and length updates
 HUFFMAN_OPS_PER_SLOT_STEP = 6
-# an ESTIMATE, not a measurement: the cycles of one merge step's dependent
-# chain if each of its six rounds (five shuffle rounds and the exchange of
-# the warps' pairs through shared memory) took an assumed 30 cycles; it is
-# printed beside the measured time a step and kept out of the kernels record
-ASSUMED_STEP_CYCLES = 6 * 30
 
 
 def max_sm_mhz() -> float:
@@ -340,13 +341,15 @@ def huffman_counts(dev, n: int) -> torch.Tensor:
 
 
 def huffman_work(counts: torch.Tensor) -> tuple[int, int]:
-    """(slot-steps this data needs over all blocks, the longest chain of merge
-    steps of one block): a stream whose merge passes 31 bits merges twice."""
+    """(slot-steps the plain merge needs for this data, where a stream whose
+    merge passes 31 bits merges twice; the kernel's longest chain of merge
+    steps: its clamped merge runs beside the first, in a warp of its own, so
+    the chain is the largest alphabet's n - 2 whatever the data)."""
     cs = huffman_dev._counts_to_streams(counts.cpu().to(torch.int64))
     clamped = (huffman_dev._merge_lengths(cs) > C.MAX_CODE_LEN).any(dim=-1)  # (B, 10)
     sizes = torch.tensor(C.ALPHABET_SIZES, dtype=torch.int64)
     steps = (sizes - 2) * (1 + clamped.to(torch.int64))
-    return int((steps * sizes).sum()), int(steps.max())
+    return int((steps * sizes).sum()), int((sizes - 2).max())
 
 
 def huffman_kernel(dev) -> dict:
@@ -356,7 +359,9 @@ def huffman_kernel(dev) -> dict:
     main = {b: huffman_counts(dev, b) for b in (8, 32)}
     rows = {"main path 8 x 512^2": main[8], "main path, int64": main[8].to(torch.int64),
             "deep (row 1 clamps)": _deep(), "random": _random(7), "sparse": _sparse(8), "zero": _zero(),
-            "heavy": _heavy(9), "B=1": main[8][:1], "B=32": main[32]}
+            "heavy": _heavy(9), "ties (equal-weight internal nodes out of creation order)": _ties(11),
+            "bounds (stream totals at 2^20 - 1 and 2^20)": _bounds(14),
+            "B=1": main[8][:1], "B=32": main[32]}
     for name, c in rows.items():
         c = c if isinstance(c, torch.Tensor) else torch.from_numpy(c).to(dev)
         got, want = huffman_dev.build_tables_device(c), huffman_dev.build_tables_device_plain(c)
@@ -381,14 +386,12 @@ def huffman_kernel(dev) -> dict:
         chain_at[b] = huffman_work(cb)[1]
     out.update(ms_at_B=ms_at, plain_ms_at_B=plain_at)
     step_us = {b: ms_at[b] * 1e3 / chain_at[b] for b in HUFFMAN_B}
-    est = {b: chain_at[b] * ASSUMED_STEP_CYCLES / (mhz * 1e3) for b in HUFFMAN_B}
     print(f"[kernel] huffman_tables at B = {HUFFMAN_B} of 512x512 make_image counts: kernel "
           f"{json.dumps(ms_at)} ms, plain {json.dumps(plain_at)} ms; longest chain {json.dumps(chain_at)} merge "
           f"steps, so a step took {json.dumps(step_us)} us (measured ms over steps; "
           f"{json.dumps({b: round(u * mhz) for b, u in step_us.items()})} cycles at the {mhz:.0f} MHz maximum "
-          f"SM clock, the clock during the run not read); estimated floor, not measured, at an assumed "
-          f"{ASSUMED_STEP_CYCLES} cycles a step: {json.dumps(est)} ms; bound at B = 8 "
-          f"{out['bound_ms']:.6f} ms by {out['bound_by']}", flush=True)
+          f"SM clock, the clock during the run not read); bound at B = 8 {out['bound_ms']:.6f} ms by "
+          f"{out['bound_by']}; earlier: {HUFFMAN_EARLIER}", flush=True)
 
     # the fused encode's tables with no host sync: under "error" any sync raises
     flat = pipeline.upload_batch([make_image(W512, W512, s) for s in range(B)], dev)

@@ -70,3 +70,37 @@ def _heavy(seed):
         for base, size in zip(C.STREAM_BASE, C.ALPHABET_SIZES):
             r[base + rng.integers(0, size)] = 10**6
     return rows
+
+
+def _ties(seed):
+    """Equal-weight internal nodes out of creation order.  In each row one
+    stream holds leaves 0-3 of weight 1, leaf 4 of weight 4 and leaves 5-6
+    of weight 2, its other symbols heavy: 5 + 6 merge into Z (weight 4,
+    least symbol 5) before 0 + 1 and 2 + 3 make V (weight 4, least symbol
+    0), yet V orders before Z and pairs with leaf 4, while Z waits for a
+    later step.  A Huffman construction that keeps internal nodes in
+    creation order would pair leaf 4 with Z and give symbols 0-6 other
+    lengths.  The pattern sits in an 11-symbol stream (LUMA_BACK_REF), the
+    343-symbol SMALL_DIFF and the last stream (BACK_REF), one a row."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(1000, 2000, (3, C.TOTAL_SYMBOLS)).astype(np.int64)
+    for r, s in zip(rows, (C.SC_LUMA_BACK_REF, C.SC_SMALL_DIFF, C.SC_BACK_REF)):
+        r[C.STREAM_BASE[s] : C.STREAM_BASE[s] + 7] = (1, 1, 1, 1, 4, 2, 2)
+    return rows
+
+
+def _bounds(seed):
+    """Stream totals at the edge of the kernel's int keys (below 2^20): in
+    row 0 every stream sums to 2^20 - 1 with some empty symbols, so the
+    clamped counts pass 2^20 while the raw ones stay below; in row 1 every
+    stream sums to 2^20; in row 2 to 2^20 - 1 with no empty symbol."""
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((3, C.TOTAL_SYMBOLS), np.int64)
+    for base, size in zip(C.STREAM_BASE, C.ALPHABET_SIZES):
+        for r, (low, total) in enumerate([(0, 2**20 - 1), (0, 2**20), (1, 2**20 - 1)]):
+            c = rng.integers(low, 50, size)
+            if low == 0:
+                c[0] = 0  # an empty symbol, which the clamp raises to 1
+            c[-1] = total - c[:-1].sum()
+            rows[r, base : base + size] = c
+    return rows

@@ -20,7 +20,7 @@ from nicetpu_torch.hostref import oracle
 from nicetpu_torch.bench import make_image
 from nicetpu_torch.kernels import build, cuda_ops, decode3, decode_dev, encode2, huffman_dev, recon
 
-from _huffman_rows import _deep, _heavy, _random, _sparse, _zero
+from _huffman_rows import _bounds, _deep, _heavy, _random, _sparse, _ties, _zero
 
 pytestmark = pytest.mark.cuda
 
@@ -189,7 +189,8 @@ def _image_counts(B, side=64):
 
 
 HUFFMAN_ROWS = {"random": lambda: _random(7), "sparse": lambda: _sparse(8), "deep": _deep, "zero": _zero,
-                "heavy": lambda: _heavy(9), "make_image": lambda: _image_counts(3),
+                "heavy": lambda: _heavy(9), "ties": lambda: _ties(11), "bounds": lambda: _bounds(14),
+                "make_image": lambda: _image_counts(3),
                 "B=1": lambda: _random(10)[:1], "B=32": lambda: _image_counts(32, side=32)}
 
 
@@ -197,7 +198,8 @@ HUFFMAN_ROWS = {"random": lambda: _random(7), "sparse": lambda: _sparse(8), "dee
 @pytest.mark.parametrize("case", sorted(HUFFMAN_ROWS))
 def test_huffman_tables_match_plain(dev, case, dtype):
     """One launch, equal to the plain version bit for bit; the deep rows'
-    row 1 runs the clamp re-merge."""
+    row 1 takes the clamped merge, the tie rows take equal-weight internal
+    nodes out of creation order."""
     counts = torch.from_numpy(HUFFMAN_ROWS[case]()).to(dtype)
     want = huffman_dev.build_tables_device_plain(counts)
     cuda_ops.reset_launches()
