@@ -9,7 +9,7 @@ Phases, one printed line or block each; any failure exits nonzero:
   0. the card's name and power limit (nvidia-smi); exit 1 without CUDA;
   1. build the CUDA kernels from csrc/ with nvcc (one process per source),
      print the build time and the register report;
-  2. hold each of the seven kernels against its plain PyTorch version on the
+  2. hold each of the eight kernels against its plain PyTorch version on the
      card (exact equality) and time kernel, plain version and, where one
      PyTorch call computes the same function, that call (CUDA events).
      Encode kernels take seeded bins at the main path's shapes; the Huffman
@@ -22,7 +22,16 @@ Phases, one printed line or block each; any failure exits nonzero:
      and is timed at B = 1, 8 and 32 beside its earlier design's times;
      then build_tables_device and encode_fused_core run on the main path's
      batch under torch.cuda.set_sync_debug_mode("error"): one launch each
-     of the tables kernel, no host sync; the decode
+     of the tables kernel, one tokenizer call, no host sync; the tokenizer
+     kernel (tokenize.tokenize_bins, three launches) takes the main path's
+     batch at 3 and 11 run digits, a constant raster whose one run crosses
+     every tile, a raster that changes only at its last pixel, W = 4 and
+     W = 1100 rasters (the latter also at 5 digits, whose 10 slots take
+     the scalar stores) and a sharded rank's block (4-row halo, g0 > 0,
+     the later shards' first changes as its tail, and again with the tiles
+     given), each exact with the overflow flags expected; one call's device
+     operations (torch.profiler) are its three kernels and a memset; it is
+     timed at 8 x 512x512 and at 4096x4096; the decode
      kernels take the words, tables and records of a real 512x512x8 encode
      at the fast rung (the reconstruction's plain version, one step per
      pixel, is compared on the first 32 rows of each image), and then a
@@ -38,7 +47,7 @@ Phases, one printed line or block each; any failure exits nonzero:
   5. the main path: the same 64 images through
      nicetpu_torch.roundtrip_batch(device=dev.type) in 8 batches of 8: every
      image verified on the device, 0 fallbacks, every blob equal to the
-     native encoder's, all seven kernels launched in every batch; MB/s and
+     native encoder's, all eight kernels launched in every batch; MB/s and
      per-stage milliseconds of the round trip;
   6. decode the 64 blobs with nicetpu_torch.decode_batch(device=dev.type):
      exact arrays, 0 fallbacks; MB/s;
@@ -64,7 +73,7 @@ Phases, one printed line or block each; any failure exits nonzero:
      4096x4096 raster through encode_sharded and decode_sharded as 4 gloo
      ranks on the one card (NCCL will not put two ranks on one GPU; the
      contexts time-slice, so the timing says nothing of scaling): bytes
-     equal to the native encoder's, raster exact, 0 fallbacks, all seven
+     equal to the native encoder's, raster exact, 0 fallbacks, all eight
      kernels launched on every rank, seconds, MB/s and per-rank stage
      times; (c) decode_batch_sharded of 8 of the 512x512 blobs over the
      same 4 ranks, exact; (d) dryrun_multichip over one NCCL rank.  The
@@ -111,8 +120,8 @@ Phases, one printed line or block each; any failure exits nonzero:
      fallbacks (soccer0 tokenized again with 11 run digits, camera_hsv on
      the card); make_img(8192, 16384, 5) through nicetpu_torch.encode,
      equal to the native encoder's, with its seconds and peak device
-     memory; and the histogram and fold kernels against their plain versions
-     at the 11-digit layout (16 slots a pixel, 128 a group);
+     memory; and the tokenizer, histogram and fold kernels against their
+     plain versions at the 11-digit layout (16 slots a pixel, 128 a group);
  16. the last benches and backends: nicetpu_torch.bench_profile (the fused
      encode's dispatch, payload fetch, assembly and native batch decode at
      B = 8, 16 and 32 of 512x512), nicetpu_torch.bench_decode_profile (the
@@ -128,8 +137,9 @@ Phase 2 also holds the fold against its plain version off the main path's
 shape.  The line before the last is the kernels' JSON record (launches from
 phase 5, the two-step path's launches from phase 15, rank 0's on the sharded
 path of phase 10, bench_profile's from phase 16, the histogram's and the
-fold's figures at 16 slots a pixel, and the Huffman kernel's times at B = 1,
-8 and 32); the last line is
+fold's and the tokenizer's figures at 16 slots a pixel, the Huffman
+kernel's times at B = 1, 8 and 32, and the tokenizer's at 4096x4096); the
+last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -157,6 +167,7 @@ from nicetpu_torch.format import constants as C
 from nicetpu_torch.hostref import oracle
 from nicetpu_torch.format.huffman import build_tables_host
 from nicetpu_torch.kernels import build, cuda_ops, decode3, decode_dev, encode2, huffman_dev, recon
+from nicetpu_torch.kernels import tokenize as tok
 from nicetpu_torch.kernels.encode2 import encode_fused_core, mark_stage
 
 
@@ -183,6 +194,7 @@ SOURCES = {
     "value_join": "nicetpu_torch/csrc/decode_kernels.cu",
     "reconstruct_rows": "nicetpu_torch/csrc/decode_kernels.cu",
     "huffman_tables": "nicetpu_torch/csrc/huffman_kernels.cu",
+    "tokenize": "nicetpu_torch/csrc/tokenize_kernels.cu",
 }
 REPLACES = {
     "histogram": "nicetpu/kernels/pallas_ops.py:100",
@@ -193,6 +205,8 @@ REPLACES = {
     "reconstruct_rows": "nicetpu/kernels/recon_pallas.py:215",
     "huffman_tables": "nicetpu/kernels/huffman_dev.py:224 build_tables_device (jnp: fori_loop, cond, scan; "
                       "not Pallas)",
+    "tokenize": "nicetpu/kernels/encode2.py:46 _tokenize_core (jnp inside the jitted tokenize_compact :72 and "
+                "encode_fused :450; not Pallas)",
 }
 # the two-step encode (api.encode, the CLI) builds its tables on the host
 HOST_TABLE_KERNELS = tuple(k for k in REPLACES if k != "huffman_tables")
@@ -317,6 +331,7 @@ def phase_encode_kernels(dev) -> dict:
     check(over > 0, "the fold's main-shape input holds no record over 320 bits")
     fold_odd_shapes(dev)
     out["huffman_tables"] = huffman_kernel(dev)
+    out["tokenize"] = tokenize_kernel(dev)
     return out
 
 
@@ -407,9 +422,130 @@ def huffman_kernel(dev) -> dict:
         torch.cuda.set_sync_debug_mode("default")
     launches = dict(cuda_ops.LAUNCHES)
     check(launches["huffman_tables"] == 2, f"the tables took other than one launch a call: {launches}")
+    check(launches["tokenize"] == 1, f"encode_fused_core did not tokenize through the kernel: {launches}")
     check(torch.equal(lengths, tables[0]) and not bool(ovf.any()), "the synchronization-free encode differs")
     print(f"[kernel] build_tables_device and encode_fused_core of {B} x 512x512 under "
           f"torch.cuda.set_sync_debug_mode('error'): no host sync; launches={launches}", flush=True)
+    return out
+
+
+# the cascade's integer operations a pixel, counted from the kernel's source:
+# 16 probes of 3 loads, compares and masks (5 back references, 11 luma
+# references of some 12 operations each), the small difference, the
+# second luma, the residuals, the mode select, 5 + S slot selects, the run
+# and its digits
+TOKENIZE_OPS_PER_PIXEL = 350
+TOKENIZE_KERNELS = ("tile_first_kernel", "tile_suffix_kernel", "tokenize_kernel")
+
+
+def device_ops(fn) -> list:
+    """Names of the device operations one call of fn runs (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    on_dev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA), key=lambda e: e.time_range.start)
+    return [e.name for e in on_dev]
+
+
+def sharded_tokenize_case(dev) -> tuple:
+    """Rank 1 of 4 row blocks of a 4096x1024 make_image raster with its
+    4-row halo, its tail the first changes of ranks 2 and 3; the raster is
+    constant from 3 rows before the end of block 1 to 5 rows into block 2,
+    so the block's last run ends in a later shard."""
+    H, W, n = 4096, 1024, 4
+    img = make_image(H, W, 31)
+    rows = H // n
+    img[2 * rows - 3 : 2 * rows + 5] = img[2 * rows - 3, 0]
+    flat = torch.from_numpy(img.reshape(1, H * W, 3)).to(dev)
+    halo, n_local = tok.halo_pixels(W), rows * W
+
+    def shard(r):
+        lo = max(r * n_local - halo, 0)
+        return flat[:, lo : (r + 1) * n_local].contiguous(), r * n_local - lo
+
+    firsts = []
+    for r in (2, 3):
+        x, h = shard(r)
+        firsts.append(tok.change_tiles(x, halo=h, g0=r * n_local, n_total=H * W)[0, :1])
+    x, h = shard(1)
+    kw = dict(width=W, halo=h, g0=n_local, n_total=H * W, ndigits_cap=C.MAX_RUN_DIGITS,
+              invalid_bin=C.TOTAL_SYMBOLS, tail=torch.cat(firsts))
+    return x, kw
+
+
+def tokenize_cases(dev) -> dict:
+    """name -> (x_ext, tokenize_bins keywords, overflow expected or None)."""
+    main = pipeline.upload_batch([make_image(W512, W512, s) for s in range(B)], dev)
+    const = torch.full((2, N, 3), 77, dtype=torch.uint8, device=dev)  # one run over every tile
+    last = torch.zeros(1, N, 3, dtype=torch.uint8, device=dev)
+    last[0, -1] = 9  # a change only at the last pixel
+    w4 = pipeline.upload_batch([make_image(4096, 4, s) for s in range(2)], dev)
+    w1100 = pipeline.upload_batch([make_image(300, 1100, s) for s in range(3)], dev)
+
+    def kw(x, width, cap):
+        return dict(width=width, halo=0, g0=0, n_total=x.shape[1], ndigits_cap=cap, invalid_bin=encode2.INVALID_BIN)
+
+    cases = {f"main path {B} x 512^2, cap {cap}": (main, kw(main, W512, cap), False)
+             for cap in (3, C.MAX_RUN_DIGITS)}
+    cases.update({
+        "constant 512^2 x 2 (one run over every tile), cap 3": (const, kw(const, W512, 3), True),
+        "constant 512^2 x 2, cap 11": (const, kw(const, W512, C.MAX_RUN_DIGITS), False),
+        "change only at the last pixel, cap 3": (last, kw(last, W512, 3), True),
+        "W = 4, 4096 rows x 2, cap 3": (w4, kw(w4, 4, 3), None),
+        "W = 4, cap 11": (w4, kw(w4, 4, C.MAX_RUN_DIGITS), None),
+        "W = 1100, 300 rows x 3, cap 3": (w1100, kw(w1100, 1100, 3), None),
+        "W = 1100, cap 5 (10 slots: the scalar stores)": (w1100, kw(w1100, 1100, 5), None),
+    })
+    x, skw = sharded_tokenize_case(dev)
+    cases["sharded: rank 1 of 4, 4-row halo, g0 > 0, tail, cap 11"] = (x, skw, False)
+    return cases
+
+
+def tokenize_kernel(dev) -> dict:
+    """The tokenizer kernel against its plain version, exact, on every
+    listed input; one call's device operations; its times at the main
+    path's shape and at 4096^2."""
+    for name, (x, kw, want_ovf) in tokenize_cases(dev).items():
+        got, want = tok.tokenize_bins(x, **kw), tok.tokenize_bins_plain(x, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max_abs_err(got[0], want[0])
+        ovf = got[1].tolist()
+        print(f"[kernel] tokenize on {name} {tuple(x.shape)}: exact={same} max_abs_err={err}; overflow {ovf}")
+        check(same, f"tokenize differs from its plain version on {name} (max_abs_err {err})")
+        check(want_ovf is None or all(o == want_ovf for o in ovf), f"tokenize's overflow on {name}: {ovf}")
+    x, skw = sharded_tokenize_case(dev)
+    tiles = tok.change_tiles(x, halo=skw["halo"], g0=skw["g0"], n_total=skw["n_total"])
+    check(all(torch.equal(g, w) for g, w in zip(tok.tokenize_bins(x, tiles=tiles, **skw),
+                                                 tok.tokenize_bins_plain(x, **skw))),
+          "tokenize with the sharded path's precomputed tiles differs")
+
+    main = pipeline.upload_batch([make_image(W512, W512, s) for s in range(B)], dev)
+    kw = dict(width=W512, halo=0, g0=0, n_total=N, ndigits_cap=3, invalid_bin=encode2.INVALID_BIN)
+    names = device_ops(lambda: tok.tokenize_bins(main, **kw))
+    kernels = [n for n in names if "Memset" not in n]
+    print(f"[kernel] tokenize: one call's device operations {names}")
+    check(len(kernels) == 3 and all(k in n for k, n in zip(TOKENIZE_KERNELS, kernels)),
+          f"a tokenize call ran other device operations than its three kernels: {names}")
+    cuda_ops.reset_launches()
+    out = compare("tokenize", lambda: tok.tokenize_bins(main, **kw), lambda: tok.tokenize_bins_plain(main, **kw),
+                  plain_reps=3, note=" (three launches a call; the plain version is some 300 torch operations)")
+    bins, ovf = tok.tokenize_bins(main, **kw)
+    out.update(bound(nbytes(main, bins, ovf), TOKENIZE_OPS_PER_PIXEL * B * N))
+    big = pipeline.upload_batch([make_image(4096, 4096, 99)], dev)
+    kb = dict(kw, width=4096, n_total=4096 * 4096)
+    at = compare("tokenize at 4096^2", lambda: tok.tokenize_bins(big, **kb),
+                 lambda: tok.tokenize_bins_plain(big, **kb), reps=10, plain_reps=2)
+    bins, ovf = tok.tokenize_bins(big, **kb)
+    at.update(bound(nbytes(big, bins, ovf), TOKENIZE_OPS_PER_PIXEL * 4096 * 4096))
+    out["at_4096"] = at
+    print(f"[kernel] tokenize bound: {out['bound_ms']:.6f} ms at {B} x 512^2 ({out['ms'] / out['bound_ms']:.2f}x), "
+          f"{at['bound_ms']:.6f} ms at 4096^2 ({at['ms'] / at['bound_ms']:.2f}x), both by {out['bound_by']}",
+          flush=True)
     return out
 
 
@@ -628,7 +764,7 @@ def phase_encode(dev, imgs, refs) -> dict:
     print(f"[encode] 64 x 512x512 RGB8 in 8 batches of 8: {seconds:.4f} s, "
           f"{mb / seconds:.2f} MB/s encode; batch ms median {np.median(batch_ms):.3f} "
           f"max {max(batch_ms):.3f}; launches={launches}, stats={stats}")
-    launch_counts_rise(per_batch, ("histogram", "table_join", "fold_records"))
+    launch_counts_rise(per_batch, ENCODE_KERNELS)
     check(stats.get("overflow_fallbacks") == 0, f"overflow fallbacks: {stats}")
     check(blobs == refs, "an encoded blob differs from the native encoder's")
     totals: dict = {}
@@ -999,7 +1135,7 @@ def phase_sharded(dev, big, big_ref, imgs, blobs) -> dict:
         check(r["batch_equal"] and r["batch_stats"] == {"retries": 0, "fallbacks": 0},
               f"rank {r['rank']}: decode_batch_sharded differs or fell back: {r['batch_stats']}")
     print(f"[sharded] every rank: bytes equal hostref.encode_native, raster exact, 0 fallbacks, "
-          f"all seven kernels launched; decode_batch_sharded of 8 512x512 blobs over {SHARDS} ranks "
+          f"all eight kernels launched; decode_batch_sharded of 8 512x512 blobs over {SHARDS} ranks "
           f"exact in {max(r['batch_s'] for r in res):.4f} s")
     rank0_launches = res[0]["launches"]
     left = SHARDED_TIMEOUT - (time.perf_counter() - t_phase)
@@ -1188,7 +1324,7 @@ def phase_single_large(dev) -> None:
 
 
 S11 = 5 + C.MAX_RUN_DIGITS  # token slots a pixel at the 11-digit layout
-ENCODE_KERNELS = ("histogram", "table_join", "fold_records")
+ENCODE_KERNELS = ("tokenize", "histogram", "table_join", "fold_records")
 FUSED_ENCODE_KERNELS = ENCODE_KERNELS + ("huffman_tables",)  # tables built on the device
 
 
@@ -1211,6 +1347,11 @@ def phase_twostep_kernels(dev, imgs) -> dict:
         lambda: cuda_ops.histogram_plain(bins), lambda: torch.bincount(offs, minlength=B * 858 + 1),
         plain_reps=10)}
     out["histogram"].update(bound(nbytes(bins) + B * 858 * 4, bins.numel()))
+    kw11 = dict(width=W512, halo=0, g0=0, n_total=N, ndigits_cap=C.MAX_RUN_DIGITS, invalid_bin=encode2.INVALID_BIN)
+    out["tokenize"] = compare(
+        "tokenize at 16 slots a pixel", lambda: tok.tokenize_bins(flat, **kw11),
+        lambda: tok.tokenize_bins_plain(flat, **kw11))
+    out["tokenize"].update(bound(nbytes(flat, *tok.tokenize_bins(flat, **kw11)), TOKENIZE_OPS_PER_PIXEL * B * N))
     counts = cuda_ops.histogram(bins).cpu().numpy()
     tables = [build_tables_host(c) for c in counts]
     len_d, codes_d = tables_from_numpy(np.stack([t[0] for t in tables]), np.stack([t[1] for t in tables]), dev)
@@ -1232,7 +1373,7 @@ def phase_twostep_kernels(dev, imgs) -> dict:
 def phase_twostep(dev, imgs, refs, fused_stage_ms: dict) -> tuple[dict, dict]:
     """15: the two-step encode of api.encode and api.encode_batch.  Returns
     (the encode kernels' launches over the 64 images, the histogram's and the
-    fold's figures at 16 slots a pixel)."""
+    tokenizer's and the fold's figures at 16 slots a pixel)."""
     t0 = time.perf_counter()
     lines = bench_huffman_dev.run(dev.type, card=card_line())
     check([ln["B"] for ln in lines] == [1, 4, 8], f"bench_huffman_dev ran {[ln['B'] for ln in lines]}")

@@ -66,7 +66,8 @@ def stats_from_bitstream(data: bytes, *, device=None, config=None) -> dict:
     dev = api.target(device, config)
     img = api.decode(data, device=None if isinstance(dev, str) else dev, config=config)
     H, W, _ = img.shape
-    flat = torch.from_numpy(img.reshape(1, H * W, 3)).to("cpu" if isinstance(dev, str) else dev)
+    flat = torch.from_numpy(np.ascontiguousarray(img).reshape(1, H * W, 3))
+    flat = flat.to("cpu" if isinstance(dev, str) else dev)
     bins, _ = _tokenize_core(flat, width=W, ndigits_cap=C.MAX_RUN_DIGITS)
     return mode_stats(cuda_ops.histogram(bins.contiguous())[0].cpu().numpy())
 

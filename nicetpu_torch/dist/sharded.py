@@ -3,11 +3,12 @@
 Counterpart of `nicetpu/dist/sharded.py`.  The raster is cut into
 contiguous row blocks, one a rank.  Each rank:
   1. receives its 4-row halo from the previous rank (`Comm.ppermute`),
-  2. tokenizes its block with `cascade` at g0 = rank * n_local (mode
+  2. finds its block's changes at g0 = rank * n_local (`change_tiles`; mode
      decisions depend only on input bytes, so shard-local tokenization
      composes exactly),
-  3. fixes cross-shard run lengths with one all-gather of every shard's
-     first change,
+  3. all-gathers every shard's first change and tokenizes its block
+     (`tokenize_bins`), the run of its last change ended by the first
+     change of a later shard,
   4. counts its tokens with the histogram kernel and sums the counts over
      the ranks,
   5. builds the Huffman tables from the summed counts on its device
@@ -40,8 +41,7 @@ from nicetpu_torch.hostref import oracle
 from nicetpu_torch.kernels import cuda_ops
 from nicetpu_torch.kernels.encode2 import _fold_place_grouped_batched, total_bits_overflow
 from nicetpu_torch.kernels.huffman_dev import build_tables_device
-from nicetpu_torch.kernels.scan import suffix_min
-from nicetpu_torch.kernels.tokenize import assemble_bins, cascade, halo_pixels
+from nicetpu_torch.kernels.tokenize import change_tiles, halo_pixels, tokenize_bins
 from nicetpu_torch.utils.profiling import MarkedStageTimer
 
 
@@ -86,26 +86,20 @@ def rows_per_rank(height: int, width: int, n: int) -> int:
 
 
 def _tokenize_block(x, comm: Comm, *, width: int, n_local: int):
-    """x (n_local, 3) int32, this rank's rows -> flat bins (1, n_local * S)
-    with 858 holes, and the run-digit overflow flag."""
+    """x (n_local, 3) uint8, this rank's rows -> flat bins (1, n_local * S)
+    with 858 holes, and the run-digit overflow flag (1,)."""
     N = comm.size * n_local
     halo = halo_pixels(width)
     # the previous rank's last 4 rows (zeros on rank 0, whose halo reads the
     # cascade masks by position)
-    x_ext = torch.cat([comm.ppermute(x[n_local - halo :]), x], dim=0)
-    cas = cascade(x_ext, comm.rank * n_local, n_local, width=width, halo=halo)
-    pos = cas["pos"]
-    sfx = suffix_min(torch.where(cas["changed"], pos, N))
+    x_ext = torch.cat([comm.ppermute(x[n_local - halo :]), x], dim=0)[None]
+    kw = dict(halo=halo, g0=comm.rank * n_local, n_total=N)
+    tiles = change_tiles(x_ext, **kw)
     # every shard's first change (N if it is all run); the run of this
     # shard's last change ends at the first change of a later shard
-    firsts = comm.all_gather(sfx[:1])[:, 0]
-    later = torch.arange(comm.size, device=x.device) > comm.rank
-    tail_change = torch.where(later, firsts, N).min()
-    next_change = torch.minimum(torch.cat([sfx[1:], sfx.new_full((1,), N)]), tail_change)
-    bins, run_ovf = assemble_bins(
-        cas, next_change - pos - 1, ndigits_cap=C.MAX_RUN_DIGITS, invalid_bin=C.TOTAL_SYMBOLS
-    )
-    return bins.reshape(1, -1), run_ovf
+    firsts = comm.all_gather(tiles[0, :1])[:, 0]
+    return tokenize_bins(x_ext, width=width, ndigits_cap=C.MAX_RUN_DIGITS, invalid_bin=C.TOTAL_SYMBOLS,
+                         tail=firsts[comm.rank + 1 :], tiles=tiles, **kw)
 
 
 def encode_shards(img: np.ndarray, comm: Comm, device: torch.device, stats=None):
@@ -119,7 +113,7 @@ def encode_shards(img: np.ndarray, comm: Comm, device: torch.device, stats=None)
     n_local = rows * W
     clock = MarkedStageTimer(stats, device)
     block = np.ascontiguousarray(img[comm.rank * rows : (comm.rank + 1) * rows]).reshape(n_local, 3)
-    x = torch.from_numpy(block).to(device).to(torch.int32)
+    x = torch.from_numpy(block).to(device)
     bins, run_ovf = _tokenize_block(x, comm, width=W, n_local=n_local)
     clock.mark("tokenize")
     counts = comm.psum(cuda_ops.histogram(bins).to(torch.int64))

@@ -4,7 +4,9 @@ Counterpart of `nicetpu/kernels/pallas_ops.py`: the encode's histogram,
 table join and group-record fold (`csrc/encode_kernels.cu`) and the
 decode's value join (`csrc/decode_kernels.cu`), and the fused encode's
 Huffman tables (`csrc/huffman_kernels.cu`, the counterpart of JAX's jitted
-`huffman_dev.build_tables_device`).  `LAUNCHES` also counts the walk
+`huffman_dev.build_tables_device`), and the tokenizer
+(`csrc/tokenize_kernels.cu`, the counterpart of JAX's jnp `_tokenize_core`;
+dispatched by `tokenize.tokenize_bins`).  `LAUNCHES` also counts the walk
 (`decode3.walk`) and the row reconstruction (`recon.reconstruct_rows`).
 Each kernel has
   * a wrapper that checks its inputs and, for a CUDA tensor, launches the
@@ -13,7 +15,8 @@ Each kernel has
   * a plain PyTorch version of the same function (`*_plain`), which the CPU
     tests hold against the Pallas kernels and which `chip_smoke.py` holds
     against the CUDA kernel on the card;
-  * a launch count in `LAUNCHES`, raised by one at each kernel launch only.
+  * a launch count in `LAUNCHES`, raised by one at each kernel launch only
+    (the tokenizer's at its third pass, once a call of its three launches).
 
 Tensors carrying uint32 values (codes, records) are int32 bit patterns.
 """
@@ -34,7 +37,7 @@ FOLD_CAPW = 10  # words per group record (320 bits), as kCapw in the kernel
 
 LAUNCHES = {
     "histogram": 0, "table_join": 0, "fold_records": 0,
-    "walk": 0, "value_join": 0, "reconstruct_rows": 0, "huffman_tables": 0,
+    "walk": 0, "value_join": 0, "reconstruct_rows": 0, "huffman_tables": 0, "tokenize": 0,
 }
 _LAUNCHES_LOCK = threading.Lock()  # worker threads launch concurrently; the counts stay exact
 
@@ -75,8 +78,9 @@ def count_launch(name: str) -> None:
         LAUNCHES[name] += 1
 
 
-def launch(name: str, fn, *args, device: torch.device) -> None:
-    """Call a C entry point on `device`'s current stream; raise on error."""
+def launch(name: str | None, fn, *args, device: torch.device) -> None:
+    """Call a C entry point on `device`'s current stream; raise on error.
+    Counts one launch of `name` (none where name is None)."""
     from nicetpu_torch.kernels import build
 
     lib = build.load()
@@ -84,7 +88,8 @@ def launch(name: str, fn, *args, device: torch.device) -> None:
     err = getattr(lib, fn)(*args, ctypes.c_int(device.index), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{fn} failed: {lib.nt_error_string(err).decode()} ({err})")
-    count_launch(name)
+    if name is not None:
+        count_launch(name)
 
 
 # ---------------------------------------------------------------------------
@@ -294,3 +299,59 @@ def huffman_tables(counts: torch.Tensor):
         ctypes.c_int(B), device=counts.device,
     )
     return lengths, codes, stream_ovf.any(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# tokenizer (replaces encode2.py _tokenize_core, jnp inside the jitted
+# tokenize_compact and encode_fused; the plain version and the dispatching
+# wrapper are tokenize.tokenize_bins_plain and tokenize.tokenize_bins)
+# ---------------------------------------------------------------------------
+
+TOKENIZE_TILE = 256  # pixels a tile, as kTile in csrc/tokenize_kernels.cu
+
+
+def _tokenize_geometry(x_ext: torch.Tensor, halo: int) -> tuple[int, int, int, int]:
+    if x_ext.device.type != "cuda":
+        raise ValueError(f"the tokenizer kernel takes a CUDA tensor, got {x_ext.device}")
+    B, n_ext, _ = x_ext.shape
+    if B > 65535:
+        raise ValueError("the tokenizer takes at most 65535 images")
+    n_local = n_ext - halo
+    return B, n_ext, n_local, -(-n_local // TOKENIZE_TILE)
+
+
+def tokenize_tiles(x_ext: torch.Tensor, *, halo: int, g0: int, n_total: int) -> torch.Tensor:
+    """The kernel's passes 1 and 2 on a checked (B, halo + n_local, 3) uint8
+    CUDA tensor: (B, T + 1) int32, entry t the first changed global position
+    at or after tile t (TOKENIZE_TILE pixels a tile), else n_total; entry T
+    is n_total.  Two launches, not counted: they belong to `tokenize`'s."""
+    B, n_ext, n_local, T = _tokenize_geometry(x_ext, halo)
+    tiles = torch.empty(B, T + 1, dtype=torch.int32, device=x_ext.device)
+    launch(
+        None, "nt_tokenize_tiles", ptr(x_ext), ptr(tiles), ctypes.c_int(B), ctypes.c_longlong(n_ext),
+        ctypes.c_longlong(halo), ctypes.c_longlong(n_local), ctypes.c_longlong(g0),
+        ctypes.c_longlong(n_total), device=x_ext.device,
+    )
+    return tiles
+
+
+def tokenize(x_ext, tiles, tail, *, width: int, halo: int, g0: int, n_total: int, ndigits_cap: int,
+             invalid_bin: int):
+    """The kernel's pass 3 (one counted launch) on checked CUDA inputs:
+    tiles from `tokenize_tiles`, tail None or a 1-D int32 tensor.  Returns
+    (bins (B, n_local * (5 + ndigits_cap)) int32, overflow (B,) bool)."""
+    B, n_ext, n_local, T = _tokenize_geometry(x_ext, halo)
+    if tuple(tiles.shape) != (B, T + 1) or tiles.dtype != torch.int32 or not tiles.is_contiguous():
+        raise ValueError(f"tiles must be a contiguous ({B}, {T + 1}) int32 tensor")
+    S = 5 + ndigits_cap
+    bins = torch.empty(B, n_local * S, dtype=torch.int32, device=x_ext.device)
+    ovf = torch.empty(B, dtype=torch.bool, device=x_ext.device)
+    n_tail = 0 if tail is None else tail.numel()
+    launch(
+        "tokenize", "nt_tokenize_bins", ptr(x_ext), ptr(tiles),
+        ctypes.c_void_p(tail.data_ptr() if n_tail else None), ctypes.c_int(n_tail), ptr(bins), ptr(ovf),
+        ctypes.c_int(B), ctypes.c_longlong(n_ext), ctypes.c_longlong(halo), ctypes.c_longlong(n_local),
+        ctypes.c_longlong(g0), ctypes.c_longlong(n_total), ctypes.c_int(width), ctypes.c_int(ndigits_cap),
+        ctypes.c_int(invalid_bin), device=x_ext.device,
+    )
+    return bins, ovf

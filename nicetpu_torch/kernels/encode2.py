@@ -14,8 +14,8 @@ bit.  Two paths, as in the JAX package:
     `encode_fused_core`): tables built on the device (`huffman_dev`), no
     host round trip, and an overflow flag where the caller must take an
     exact host path.
-Histogram, join and fold run as the CUDA kernels of `cuda_ops` on a CUDA
-tensor and as their plain versions on a CPU tensor.
+Tokenizer, histogram, join and fold run as the CUDA kernels of `cuda_ops`
+on a CUDA tensor and as their plain versions on a CPU tensor.
 
 uint32 values (codes, records, payload words) travel as int32 bit patterns,
 because torch has no uint32 arithmetic; shifts and sums that need unsigned
@@ -35,8 +35,7 @@ from nicetpu_torch.format.huffman import build_tables_host
 from nicetpu_torch.kernels import cuda_ops
 from nicetpu_torch.kernels.bitpack import words_to_payload
 from nicetpu_torch.kernels.huffman_dev import build_tables_device
-from nicetpu_torch.kernels.scan import suffix_min
-from nicetpu_torch.kernels.tokenize import assemble_bins, cascade
+from nicetpu_torch.kernels.tokenize import tokenize_bins
 
 INVALID_BIN = 1023  # >= 858 means "no token"
 GROUP = 8  # pixels folded into one record
@@ -48,20 +47,11 @@ def _tokenize_core(imgs_flat: torch.Tensor, *, width: int, ndigits_cap: int):
 
     Bins are flat histogram bins in serial slot order (M = N * slots) with
     INVALID_BIN holes; overflow says a run needs more than ndigits_cap
-    base-8 digits.
+    base-8 digits.  On a CUDA tensor: the tokenizer kernel, three launches.
     """
     N = imgs_flat.shape[-2]
-    x = imgs_flat.to(torch.int32)
-    cas = cascade(x, 0, N, width=width, halo=0)
-    pos = cas["pos"]
-    change_idx = torch.where(cas["changed"], pos, N)
-    sfx = suffix_min(change_idx)
-    next_change = torch.cat([sfx[..., 1:], torch.full_like(sfx[..., :1], N)], dim=-1)
-    run_len = next_change - pos - 1
-    bins, overflow = assemble_bins(
-        cas, run_len, ndigits_cap=ndigits_cap, invalid_bin=INVALID_BIN
-    )
-    return bins.reshape(*bins.shape[:-2], -1), overflow
+    return tokenize_bins(imgs_flat, width=width, halo=0, g0=0, n_total=N, ndigits_cap=ndigits_cap,
+                         invalid_bin=INVALID_BIN)
 
 
 def _fold_place_grouped_batched(aob3, code3, *, w_cap: int, marks=None):

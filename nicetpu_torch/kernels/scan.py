@@ -1,8 +1,9 @@
 """Scan primitives for the tokenizer.
 
 Counterpart of `nicetpu/kernels/scan.py`.  The JAX version unrolls
-log-doubling shift-min steps because `lax.cummin` is slow on the TPU; on the
-GPU `torch.cummin` is a single native scan, so the port uses it directly.
+log-doubling shift-min steps because `lax.cummin` is slow on the TPU; the
+port's plain tokenizer (`tokenize.tokenize_bins_plain`) uses `torch.cummin`
+directly.  On the card the tokenizer kernel scans its tiles itself.
 """
 
 from __future__ import annotations

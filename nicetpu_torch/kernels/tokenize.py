@@ -1,13 +1,18 @@
-"""Vectorized `.nice` tokenizer in PyTorch.
+"""The `.nice` tokenizer: a raster's pixels -> flat histogram bins.
 
 Counterpart of `nicetpu/kernels/tokenize.py` (`halo_pixels`, `cascade`,
-`assemble_bins`).
-All predictors are statically shifted reads of the raster, the mode is a
-priority select over per-mode validity masks, and every token slot becomes
-a flat histogram bin.  The functions take any number of leading batch
-dimensions: (..., pixels, 3) in, (..., pixels) or (..., pixels, slots) out.
-The reference has no Pallas kernel here; this is plain elementwise tensor
-code (a few hundred launches per call).
+`assemble_bins`) and of the jnp program `nicetpu/kernels/encode2.py`
+`_tokenize_core` that composes them with the run scan.
+`tokenize_bins` is the wrapper every encode path calls: on a CUDA tensor it
+launches the kernel of `csrc/tokenize_kernels.cu` (three launches,
+`cuda_ops.tokenize_tiles` and `cuda_ops.tokenize`), on a CPU tensor it runs
+the plain version `tokenize_bins_plain`.  The plain version is vectorized
+elementwise torch code: all predictors are statically shifted reads of the
+raster, the mode is a priority select over per-mode validity masks, and
+every token slot becomes a flat histogram bin (a few hundred launches per
+call on a card).  `cascade` and `assemble_bins` take any number of leading
+batch dimensions: (..., pixels, 3) in, (..., pixels) or (..., pixels,
+slots) out.
 """
 
 from __future__ import annotations
@@ -16,12 +21,22 @@ import torch
 import torch.nn.functional as F
 
 from nicetpu_torch.format import constants as C
+from nicetpu_torch.kernels import cuda_ops
+from nicetpu_torch.kernels.scan import suffix_min
 
 
 def halo_pixels(width: int) -> int:
     """Halo (in pixels) a shard needs before its first pixel: 4 rows covers
     the deepest predictor reach 3W+3 (ref code.rs:141-145) for any W >= 4."""
     return 4 * width
+
+
+def _shift(x: torch.Tensor, off: int, halo: int, n_local: int) -> torch.Tensor:
+    """ref[i] = x[..., halo + i - off] for local pixel i (zeros if OOB)."""
+    start = halo - off
+    if start >= 0:
+        return x[..., start : start + n_local]
+    return F.pad(x, (-start, 0))[..., :n_local]
 
 
 def cascade(x_ext: torch.Tensor, g0, n_local: int, *, width: int, halo: int) -> dict:
@@ -36,11 +51,7 @@ def cascade(x_ext: torch.Tensor, g0, n_local: int, *, width: int, halo: int) -> 
     pos = torch.arange(n_local, dtype=torch.int32, device=x_ext.device) + g0
 
     def sh(x, off):
-        """ref[i] = x_ext[halo + i - off] for local pixel i (zeros if OOB)."""
-        start = halo - off
-        if start >= 0:
-            return x[..., start : start + n_local]
-        return F.pad(x, (-start, 0))[..., :n_local]
+        return _shift(x, off, halo, n_local)
 
     r, g, b = sh(r_, 0), sh(g_, 0), sh(b_, 0)
     row0 = pos < W
@@ -176,3 +187,102 @@ def assemble_bins(cas: dict, run_len: torch.Tensor, *, ndigits_cap: int, invalid
     else:
         overflow = torch.zeros(mode.shape[:-1], dtype=torch.bool, device=mode.device)
     return bins, overflow
+
+
+# ---------------------------------------------------------------------------
+# the whole tokenizer: cascade, the next change of every pixel, the bins
+# ---------------------------------------------------------------------------
+
+
+def _check_tokenize(x_ext, *, halo: int, g0: int, n_total: int, width: int = C.MIN_WIDTH,
+                    ndigits_cap: int = 0, tail=None) -> None:
+    """Raise on what the kernel does not take."""
+    if not isinstance(x_ext, torch.Tensor):
+        raise TypeError("x_ext must be a torch.Tensor")
+    if x_ext.dtype != torch.uint8:
+        raise TypeError(f"x_ext must be uint8, got {x_ext.dtype}")
+    if x_ext.dim() != 3 or x_ext.shape[2] != 3 or x_ext.shape[0] == 0:
+        raise ValueError(f"x_ext must be (B, halo + n_local, 3) with B >= 1, got {tuple(x_ext.shape)}")
+    if not x_ext.is_contiguous():
+        raise ValueError("x_ext must be contiguous")
+    if x_ext.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"x_ext is on unsupported device {x_ext.device}")
+    if width < C.MIN_WIDTH:
+        raise ValueError(f"width must be >= {C.MIN_WIDTH}, got {width}")
+    n_local = x_ext.shape[1] - halo
+    if halo < 0 or n_local < 1:
+        raise ValueError(f"halo {halo} leaves no local pixel of {x_ext.shape[1]}")
+    if g0 < 0 or g0 + n_local > n_total or n_total >= 2**31:
+        raise ValueError(f"pixels [{g0}, {g0 + n_local}) do not lie in a raster of {n_total} < 2**31")
+    if not 0 <= ndigits_cap <= C.MAX_RUN_DIGITS:
+        raise ValueError(f"ndigits_cap must be in 0..{C.MAX_RUN_DIGITS}, got {ndigits_cap}")
+    if tail is not None:
+        if tail.dtype != torch.int32 or tail.dim() != 1 or not tail.is_contiguous():
+            raise ValueError("tail must be a contiguous 1-D int32 tensor")
+        if tail.device != x_ext.device:
+            raise ValueError(f"tail is on {tail.device}, x_ext on {x_ext.device}")
+
+
+def change_tiles_plain(x_ext: torch.Tensor, *, halo: int, g0: int, n_total: int) -> torch.Tensor:
+    """(B, halo + n_local, 3) uint8 -> (B, T + 1) int32: entry t is the first
+    changed global position at or after tile t of cuda_ops.TOKENIZE_TILE
+    local pixels, else n_total; entry T is n_total."""
+    n_local = x_ext.shape[1] - halo
+    x = x_ext.to(torch.int32)
+    pos = torch.arange(n_local, dtype=torch.int32, device=x.device) + g0
+    changed = (x[:, halo:] != _shift(x.transpose(1, 2), 1, halo, n_local).transpose(1, 2)).any(dim=2)
+    idx = torch.where(changed | (pos == 0), pos, n_total)
+    tile = cuda_ops.TOKENIZE_TILE
+    idx = F.pad(idx, (0, -n_local % tile, 0, 0), value=n_total)
+    firsts = idx.view(x.shape[0], -1, tile).amin(dim=2)
+    return F.pad(suffix_min(firsts), (0, 1), value=n_total).contiguous()
+
+
+def change_tiles(x_ext: torch.Tensor, *, halo: int, g0: int, n_total: int) -> torch.Tensor:
+    """`change_tiles_plain`, on a CUDA tensor the kernel's first two passes
+    (two launches).  Column 0 is each image's first change: the sharded
+    encode all-gathers it before `tokenize_bins` with `tiles=` and `tail=`."""
+    _check_tokenize(x_ext, halo=halo, g0=g0, n_total=n_total)
+    if x_ext.device.type == "cpu":
+        return change_tiles_plain(x_ext, halo=halo, g0=g0, n_total=n_total)
+    return cuda_ops.tokenize_tiles(x_ext, halo=halo, g0=g0, n_total=n_total)
+
+
+def tokenize_bins_plain(x_ext: torch.Tensor, *, width: int, halo: int, g0: int, n_total: int,
+                        ndigits_cap: int, invalid_bin: int, tail=None):
+    """The composition the kernel replaces: `cascade`, then each pixel's next
+    change (a suffix minimum over the changed positions, ended by n_total
+    and by the smallest entry of `tail`), then `assemble_bins`.
+
+    x_ext: (B, halo + n_local, 3) uint8, halo pixels before the local ones;
+    g0: the global position of local pixel 0.  Returns (bins (B, n_local *
+    (5 + ndigits_cap)) int32 in serial slot order with `invalid_bin` holes,
+    overflow (B,) bool: a run needs more than ndigits_cap base-8 digits)."""
+    n_local = x_ext.shape[1] - halo
+    cas = cascade(x_ext.to(torch.int32), g0, n_local, width=width, halo=halo)
+    pos = cas["pos"]
+    sfx = suffix_min(torch.where(cas["changed"], pos, n_total))
+    next_change = torch.cat([sfx[:, 1:], sfx.new_full((sfx.shape[0], 1), n_total)], dim=1)
+    if tail is not None and tail.numel():
+        next_change = torch.minimum(next_change, tail.min())
+    bins, overflow = assemble_bins(cas, next_change - pos - 1, ndigits_cap=ndigits_cap,
+                                   invalid_bin=invalid_bin)
+    return bins.reshape(bins.shape[0], -1), overflow
+
+
+def tokenize_bins(x_ext: torch.Tensor, *, width: int, halo: int, g0: int, n_total: int, ndigits_cap: int,
+                  invalid_bin: int, tail=None, tiles=None):
+    """`tokenize_bins_plain`, bit for bit.  On a CUDA tensor: the kernel,
+    three launches (or one where `tiles`, `change_tiles`' output for this
+    x_ext, is given) and no host sync; on a CPU tensor: the plain version,
+    which ignores `tiles`.  tail: None or a 1-D int32 tensor on x_ext's
+    device (the first changes of the later shards)."""
+    _check_tokenize(x_ext, width=width, halo=halo, g0=g0, n_total=n_total, ndigits_cap=ndigits_cap,
+                    tail=tail)
+    kw = dict(width=width, halo=halo, g0=g0, n_total=n_total, ndigits_cap=ndigits_cap,
+              invalid_bin=invalid_bin)
+    if x_ext.device.type == "cpu":
+        return tokenize_bins_plain(x_ext, tail=tail, **kw)
+    if tiles is None:
+        tiles = cuda_ops.tokenize_tiles(x_ext, halo=halo, g0=g0, n_total=n_total)
+    return cuda_ops.tokenize(x_ext, tiles, tail, **kw)

@@ -19,6 +19,7 @@ from nicetpu_torch.format import constants as C
 from nicetpu_torch.hostref import oracle
 from nicetpu_torch.bench import make_image
 from nicetpu_torch.kernels import build, cuda_ops, decode3, decode_dev, encode2, huffman_dev, recon
+from nicetpu_torch.kernels import tokenize as tok
 
 from _huffman_rows import _bounds, _deep, _heavy, _random, _sparse, _ties, _zero
 
@@ -218,6 +219,73 @@ def test_huffman_tables_read_nothing_back(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     _same(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the tokenizer kernel against its plain version on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _flat(imgs):
+    return torch.from_numpy(np.stack([im.reshape(-1, 3) for im in imgs]))
+
+
+def _tokenize_case(case):
+    """(x_ext on the CPU, tokenize_bins keywords but the cap)."""
+    if case == "sharded":  # rank 1 of 4 row blocks of 64 x 40, its last run ended by a later shard
+        img = make_image(64, 40, 3)
+        img[29:37] = img[29, 0]
+        x, halo, n_local = img.reshape(-1, 3), tok.halo_pixels(40), 16 * 40
+        x_ext = torch.from_numpy(np.ascontiguousarray(x[n_local - halo : 2 * n_local]))[None]
+        return x_ext, dict(width=40, halo=halo, g0=n_local, n_total=64 * 40, invalid_bin=C.TOTAL_SYMBOLS,
+                           tail=torch.tensor([37 * 40, 48 * 40], dtype=torch.int32))
+    if case == "constant":  # one run over every tile
+        x = torch.full((2, 96 * 64, 3), 5, dtype=torch.uint8)
+    elif case == "last_pixel":
+        x = torch.zeros(1, 96 * 64, 3, dtype=torch.uint8)
+        x[0, -1] = 1
+    else:
+        h, w = {"W4": (700, 4), "W5": (301, 5), "W64": (64, 64), "W1100": (5, 1100)}[case]
+        x = _flat([make_image(h, w, s) for s in range(3)])
+        w = int(case[1:])
+        return x, dict(width=w, halo=0, g0=0, n_total=x.shape[1], invalid_bin=encode2.INVALID_BIN)
+    return x, dict(width=64, halo=0, g0=0, n_total=x.shape[1], invalid_bin=encode2.INVALID_BIN)
+
+
+@pytest.mark.parametrize("cap", [3, 5, C.MAX_RUN_DIGITS])
+@pytest.mark.parametrize("case", ["W4", "W5", "W64", "W1100", "constant", "last_pixel", "sharded"])
+def test_tokenize_matches_plain(dev, case, cap):
+    """Three launches (one counted), equal to the plain version bit for bit,
+    the overflow flags included; cap 5's 10 slots take the scalar stores."""
+    x, kw = _tokenize_case(case)
+    want = tok.tokenize_bins_plain(x, ndigits_cap=cap, **kw)
+    kw_d = dict(kw, tail=kw["tail"].to(dev)) if "tail" in kw else kw
+    before = cuda_ops.LAUNCHES["tokenize"]
+    got = tok.tokenize_bins(x.to(dev), ndigits_cap=cap, **kw_d)
+    assert cuda_ops.LAUNCHES["tokenize"] == before + 1
+    _same(tuple(g.cpu() for g in got), want)
+    if case in ("constant", "last_pixel"):
+        assert bool(want[1].all()) == (cap < 4)
+
+
+def test_tokenize_with_given_tiles_and_no_host_sync(dev):
+    """The sharded path's call: change_tiles first, then the main pass with
+    those tiles and a tail, all under set_sync_debug_mode("error")."""
+    x, kw = _tokenize_case("sharded")
+    want = tok.tokenize_bins_plain(x, ndigits_cap=C.MAX_RUN_DIGITS, **kw)
+    np.testing.assert_array_equal(
+        tok.change_tiles(x.to(dev), halo=kw["halo"], g0=kw["g0"], n_total=kw["n_total"]).cpu().numpy(),
+        tok.change_tiles_plain(x, halo=kw["halo"], g0=kw["g0"], n_total=kw["n_total"]).numpy())
+    x_d, kw_d = x.to(dev), dict(kw, tail=kw["tail"].to(dev))
+    tok.tokenize_bins(x_d, ndigits_cap=C.MAX_RUN_DIGITS, **kw_d)  # builds the library outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tiles = tok.change_tiles(x_d, halo=kw["halo"], g0=kw["g0"], n_total=kw["n_total"])
+        got = tok.tokenize_bins(x_d, ndigits_cap=C.MAX_RUN_DIGITS, tiles=tiles, **kw_d)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _same(tuple(g.cpu() for g in got), want)
 
 
 # ---------------------------------------------------------------------------
