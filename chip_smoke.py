@@ -9,7 +9,7 @@ Phases, one printed line or block each; any failure exits nonzero:
   0. the card's name and power limit (nvidia-smi); exit 1 without CUDA;
   1. build the CUDA kernels from csrc/ with nvcc (one process per source),
      print the build time and the register report;
-  2. hold each of the eight kernels against its plain PyTorch version on the
+  2. hold each of the ten kernels against its plain PyTorch version on the
      card (exact equality) and time kernel, plain version and, where one
      PyTorch call computes the same function, that call (CUDA events).
      Encode kernels take seeded bins at the main path's shapes; the Huffman
@@ -31,7 +31,18 @@ Phases, one printed line or block each; any failure exits nonzero:
      the later shards' first changes as its tail, and again with the tiles
      given), each exact with the overflow flags expected; one call's device
      operations (torch.profiler) are its three kernels and a memset; it is
-     timed at 8 x 512x512 and at 4096x4096; the decode
+     timed at 8 x 512x512 and at 4096x4096; the decode tables kernels
+     (decode3.prepare_tables_v3 -> decode_tables, decode3.derive_walk_tables
+     -> walk_tables, one launch each) take the code lengths of the main
+     path's first batch (int32 from encode_fused_core, and again as int64,
+     as the decode from bytes and the sharded decode upload them), of
+     soccer0's committed stream, the deep, single-length, bad-value,
+     past-2^32 and Kraft rows of tests/_decode_table_rows.py (tables_ok
+     false where it must be) and B = 1 and 32, and walk_tables also the
+     rows' arbitrary words, each exact against its plain version; then
+     encode_fused_core -> prepare_tables_v3 -> derive_walk_tables run under
+     torch.cuda.set_sync_debug_mode("error"): no host sync; both are timed
+     at the main path's 8 images; the decode
      kernels take the words, tables and records of a real 512x512x8 encode
      at the fast rung (the reconstruction's plain version, one step per
      pixel, is compared on the first 32 rows of each image), and then a
@@ -47,10 +58,11 @@ Phases, one printed line or block each; any failure exits nonzero:
   5. the main path: the same 64 images through
      nicetpu_torch.roundtrip_batch(device=dev.type) in 8 batches of 8: every
      image verified on the device, 0 fallbacks, every blob equal to the
-     native encoder's, all eight kernels launched in every batch; MB/s and
+     native encoder's, all ten kernels launched in every batch; MB/s and
      per-stage milliseconds of the round trip;
   6. decode the 64 blobs with nicetpu_torch.decode_batch(device=dev.type):
-     exact arrays, 0 fallbacks; MB/s;
+     exact arrays, 0 fallbacks, the decode tables and decode kernels
+     launched in every batch; MB/s;
   7. the round trip of one 4096x4096 image, with peak device memory;
   8. the scheduler: the 64 images as 8 uploaded batches of 8 through
      pipeline.roundtrip_hybrid, with one GPU worker, with two, and with one
@@ -73,7 +85,7 @@ Phases, one printed line or block each; any failure exits nonzero:
      4096x4096 raster through encode_sharded and decode_sharded as 4 gloo
      ranks on the one card (NCCL will not put two ranks on one GPU; the
      contexts time-slice, so the timing says nothing of scaling): bytes
-     equal to the native encoder's, raster exact, 0 fallbacks, all eight
+     equal to the native encoder's, raster exact, 0 fallbacks, all ten
      kernels launched on every rank, seconds, MB/s and per-rank stage
      times; (c) decode_batch_sharded of 8 of the 512x512 blobs over the
      same 4 ranks, exact; (d) dryrun_multichip over one NCCL rank.  The
@@ -136,10 +148,10 @@ Phases, one printed line or block each; any failure exits nonzero:
 Phase 2 also holds the fold against its plain version off the main path's
 shape.  The line before the last is the kernels' JSON record (launches from
 phase 5, the two-step path's launches from phase 15, rank 0's on the sharded
-path of phase 10, bench_profile's from phase 16, the histogram's and the
-fold's and the tokenizer's figures at 16 slots a pixel, the Huffman
-kernel's times at B = 1, 8 and 32, and the tokenizer's at 4096x4096); the
-last line is
+path of phase 10, bench_profile's and bench_decode_profile's from phase
+16, the histogram's and the fold's and the tokenizer's figures at 16
+slots a pixel, the Huffman kernel's times at B = 1, 8 and 32, and the
+tokenizer's at 4096x4096); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -172,17 +184,18 @@ from nicetpu_torch.kernels.encode2 import encode_fused_core, mark_stage
 
 
 
-def _load_rows():
-    """tests/_huffman_rows.py (numpy only), loaded by its path so that
+def _load_rows(name: str):
+    """tests/<name>.py (numpy and the port only), loaded by its path so that
     nothing under tests/ can shadow a module this script imports."""
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "_huffman_rows.py")
-    spec = importlib.util.spec_from_file_location("_huffman_rows", path)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
-_rows = _load_rows()
+_rows = _load_rows("_huffman_rows")
+_table_rows = _load_rows("_decode_table_rows")
 _bounds, _deep, _heavy, _random, _sparse, _ties, _zero = (_rows._bounds, _rows._deep, _rows._heavy, _rows._random,
                                                          _rows._sparse, _rows._ties, _rows._zero)
 
@@ -195,6 +208,8 @@ SOURCES = {
     "reconstruct_rows": "nicetpu_torch/csrc/decode_kernels.cu",
     "huffman_tables": "nicetpu_torch/csrc/huffman_kernels.cu",
     "tokenize": "nicetpu_torch/csrc/tokenize_kernels.cu",
+    "decode_tables": "nicetpu_torch/csrc/decode_tables_kernels.cu",
+    "walk_tables": "nicetpu_torch/csrc/decode_tables_kernels.cu",
 }
 REPLACES = {
     "histogram": "nicetpu/kernels/pallas_ops.py:100",
@@ -207,8 +222,12 @@ REPLACES = {
                       "not Pallas)",
     "tokenize": "nicetpu/kernels/encode2.py:46 _tokenize_core (jnp inside the jitted tokenize_compact :72 and "
                 "encode_fused :450; not Pallas)",
+    "decode_tables": "nicetpu/kernels/decode3.py:1143 prepare_tables_v3_jnp (jnp inside the jitted round trip "
+                     ":1619, jitted at :1646; not Pallas)",
+    "walk_tables": "nicetpu/kernels/decode3.py:180 derive_walk_tables (jnp inside the jitted decode core :943, "
+                   "jitted at :1044; not Pallas)",
 }
-# the two-step encode (api.encode, the CLI) builds its tables on the host
+# the two-step encode (api.encode, the CLI) builds its Huffman tables on the host
 HOST_TABLE_KERNELS = tuple(k for k in REPLACES if k != "huffman_tables")
 # main path shapes: 8 images of 512x512, 8 token slots per pixel, 8 pixels a group
 B, N, W512 = 8, 512 * 512, 512
@@ -332,6 +351,7 @@ def phase_encode_kernels(dev) -> dict:
     fold_odd_shapes(dev)
     out["huffman_tables"] = huffman_kernel(dev)
     out["tokenize"] = tokenize_kernel(dev)
+    out.update(decode_tables_kernels(dev))
     return out
 
 
@@ -546,6 +566,93 @@ def tokenize_kernel(dev) -> dict:
     print(f"[kernel] tokenize bound: {out['bound_ms']:.6f} ms at {B} x 512^2 ({out['ms'] / out['bound_ms']:.2f}x), "
           f"{at['bound_ms']:.6f} ms at 4096^2 ({at['ms'] / at['bound_ms']:.2f}x), both by {out['bound_by']}",
           flush=True)
+    return out
+
+
+def main_lengths(dev, n: int) -> torch.Tensor:
+    """(n, 858) int32 code lengths of make_image(512, 512, s) for s < n, as
+    encode_fused_core gives them to the round trip's prepare_tables_v3 (an
+    image's lengths do not depend on its batch)."""
+    flat = pipeline.upload_batch([make_image(W512, W512, s) for s in range(n)], dev)
+    return encode_fused_core(flat, width=W512, ndigits_cap=3, w_cap=pipeline.w_cap(N))[1]
+
+
+def decode_tables_kernels(dev) -> dict:
+    """The decode tables' two kernels against their plain versions, exact,
+    on every listed input; one fused encode -> tables -> walk tables with no
+    host sync; their times at the main path's 8 images."""
+    lens32 = main_lengths(dev, 32)
+    lens = lens32[:B].contiguous()  # the main path's first batch
+    rows = {f"main path {B} x 512^2 (int32)": lens, "main path, int64": lens.to(torch.int64), "B=1": lens[:1],
+            "B=32": lens32}
+    rows.update({name: _table_rows.LENGTH_ROWS[name]()
+                 for name in ("soccer0", "deep", "single_length", "bad_values", "past_2_32", "kraft")})
+    for name, row in rows.items():
+        row = row if isinstance(row, torch.Tensor) else torch.from_numpy(row).to(dev)
+        got, want = decode3.prepare_tables_v3(row), decode3.prepare_tables_v3_plain(row)
+        got_w, want_w = decode3.derive_walk_tables(*got[:3]), decode3.derive_walk_tables_plain(*want[:3])
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)), f"decode_tables differs on {name}")
+        check(all(torch.equal(g, w) for g, w in zip(got_w, want_w)), f"walk_tables differs on {name}")
+        print(f"[kernel] decode_tables and walk_tables on {name} {tuple(row.shape)} {row.dtype}: exact; "
+              f"tables_ok {got[-1].tolist() if row.shape[0] <= 8 else bool(got[-1].all())}")
+    check(bool(decode3.prepare_tables_v3(lens)[-1].all()), "the main path's tables are not all valid")
+    for name, make in _table_rows.WALK_ROWS.items():
+        words = [torch.from_numpy(x).to(dev) for x in make()]
+        got, want = decode3.derive_walk_tables(*words), decode3.derive_walk_tables_plain(*words)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)), f"walk_tables differs on the {name} words")
+        print(f"[kernel] walk_tables on the {name} words {tuple(words[0].shape)}: exact")
+
+    # the round trip's tables with no host sync: under "error" any sync raises
+    flat = pipeline.upload_batch([make_image(W512, W512, s) for s in range(B)], dev)
+    kw = dict(width=W512, ndigits_cap=3, w_cap=pipeline.w_cap(N))
+
+    def fused():
+        lengths = encode_fused_core(flat, **kw)[1]
+        tables = decode3.prepare_tables_v3(lengths)
+        return tables, decode3.derive_walk_tables(*tables[:3])
+
+    fused()
+    torch.cuda.synchronize()
+    cuda_ops.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tables, walk_t = fused()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = dict(cuda_ops.LAUNCHES)
+    check(launches["decode_tables"] == 1 and launches["walk_tables"] == 1,
+          f"the decode tables took other than one launch each: {launches}")
+    want = decode3.prepare_tables_v3_plain(lens)
+    check(all(torch.equal(g, w) for g, w in zip(tables, want)), "the synchronization-free tables differ")
+    check(all(torch.equal(g, w) for g, w in zip(walk_t, decode3.derive_walk_tables_plain(*want[:3]))),
+          "the synchronization-free walk tables differ")
+    print(f"[kernel] encode_fused_core -> prepare_tables_v3 -> derive_walk_tables of {B} x 512x512 under "
+          f"torch.cuda.set_sync_debug_mode('error'): no host sync; launches={launches}", flush=True)
+
+    names = device_ops(lambda: decode3.derive_walk_tables(*decode3.prepare_tables_v3(lens)[:3]))
+    check(len(names) == 2 and "decode_tables_kernel" in names[0] and "walk_tables_kernel" in names[1],
+          f"a decode tables call ran other device operations than its kernel: {names}")
+    n_plain = [len(device_ops(lambda: decode3.prepare_tables_v3_plain(lens))),
+               len(device_ops(lambda: decode3.derive_walk_tables_plain(*want[:3])))]
+    print(f"[kernel] prepare_tables_v3 -> derive_walk_tables at {B} images: device operations {names}; the plain "
+          f"versions run {n_plain[0]} and {n_plain[1]} device operations (torch.profiler)", flush=True)
+    out = {"decode_tables": compare(
+        "decode_tables", lambda: decode3.prepare_tables_v3(lens), lambda: decode3.prepare_tables_v3_plain(lens),
+        plain_reps=3, note=f" (one launch a call; the plain version {n_plain[0]} device operations)")}
+    got = decode3.prepare_tables_v3(lens)
+    # both kernels are bounded by the bytes they move alone: no operation count is made for them
+    out["decode_tables"].update(bound(nbytes(lens, *got), 0))
+    af, pr, ib = got[:3]
+    out["walk_tables"] = compare(
+        "walk_tables", lambda: decode3.derive_walk_tables(af, pr, ib),
+        lambda: decode3.derive_walk_tables_plain(af, pr, ib), plain_reps=5,
+        note=f" (one launch a call; the plain version {n_plain[1]} device operations)")
+    out["walk_tables"].update(bound(nbytes(af, pr, ib, *decode3.derive_walk_tables(af, pr, ib)), 0))
+    for name in ("decode_tables", "walk_tables"):
+        r = out[name]
+        print(f"[kernel] {name} at {B} images: {r['ms']:.4f} ms, bound {r['bound_ms']:.6f} ms by {r['bound_by']} "
+              f"({r['ms'] / r['bound_ms']:.0f}x), plain {r['plain_ms']:.4f} ms", flush=True)
     return out
 
 
@@ -862,7 +969,7 @@ def phase_decode(dev, imgs, blobs) -> None:
     mb = sum(im.nbytes for im in imgs) / 1e6
     print(f"[decode] 64 blobs in 8 batches of 8: {seconds:.4f} s, {mb / seconds:.2f} MB/s decode; "
           f"launches={dict(cuda_ops.LAUNCHES)}; stats={stats}")
-    launch_counts_rise(per_batch, ("walk", "value_join", "reconstruct_rows"))
+    launch_counts_rise(per_batch, DECODE_KERNELS)
     check(stats.get("fallbacks") == 0, f"decode fallbacks: {stats}")
     check(all(np.array_equal(o, im) for o, im in zip(out, imgs)), "a decoded image differs")
     print("[decode] 64/64 decoded arrays equal their images")
@@ -1135,7 +1242,7 @@ def phase_sharded(dev, big, big_ref, imgs, blobs) -> dict:
         check(r["batch_equal"] and r["batch_stats"] == {"retries": 0, "fallbacks": 0},
               f"rank {r['rank']}: decode_batch_sharded differs or fell back: {r['batch_stats']}")
     print(f"[sharded] every rank: bytes equal hostref.encode_native, raster exact, 0 fallbacks, "
-          f"all eight kernels launched; decode_batch_sharded of 8 512x512 blobs over {SHARDS} ranks "
+          f"all ten kernels launched; decode_batch_sharded of 8 512x512 blobs over {SHARDS} ranks "
           f"exact in {max(r['batch_s'] for r in res):.4f} s")
     rank0_launches = res[0]["launches"]
     left = SHARDED_TIMEOUT - (time.perf_counter() - t_phase)
@@ -1325,6 +1432,7 @@ def phase_single_large(dev) -> None:
 
 S11 = 5 + C.MAX_RUN_DIGITS  # token slots a pixel at the 11-digit layout
 ENCODE_KERNELS = ("tokenize", "histogram", "table_join", "fold_records")
+DECODE_KERNELS = ("decode_tables", "walk_tables", "walk", "value_join", "reconstruct_rows")
 FUSED_ENCODE_KERNELS = ENCODE_KERNELS + ("huffman_tables",)  # tables built on the device
 
 
@@ -1451,14 +1559,13 @@ def phase_twostep(dev, imgs, refs, fused_stage_ms: dict) -> tuple[dict, dict]:
     return launches, kernels16
 
 
-DECODE_KERNELS = ("walk", "value_join", "reconstruct_rows")
 SPEC_SIDE = 64  # phase 16's spec image: its decoder is a serial Python loop
 
 
 def phase_finish(dev) -> dict:
     """16: bench_profile, bench_decode_profile and bench_multihost on the
-    card; the spec backend; the RGBA policy.  Returns bench_profile's
-    launch counts."""
+    card; the spec backend; the RGBA policy.  Returns the two profilers'
+    launch counts by name."""
     t0 = time.perf_counter()
     card = card_line()
     profile_launches: dict = {}
@@ -1471,7 +1578,7 @@ def phase_finish(dev) -> dict:
         run()
         lc = dict(cuda_ops.LAUNCHES)
         check(all(lc[k] >= 1 for k in kernels), f"{name} skipped a kernel: {lc}")
-        profile_launches = profile_launches or lc
+        profile_launches[name] = lc
         print(f"[finish] {name}: exact, launches={lc}, {time.perf_counter() - t1:.1f} s", flush=True)
     t1 = time.perf_counter()
     lines = bench_multihost.run(dev.type, card=card)
@@ -1551,7 +1658,9 @@ def main() -> int:
     record = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], **kernels[name], "twostep_launches": twostep_launches[name],
-         "sharded_launches": sharded_launches[name], "bench_profile_launches": profile_launches[name],
+         "sharded_launches": sharded_launches[name],
+         "bench_profile_launches": profile_launches["bench_profile"][name],
+         "bench_decode_profile_launches": profile_launches["bench_decode_profile"][name],
          **({"at_16_slots": kernels16[name]} if name in kernels16 else {})}
         for name in REPLACES
     ]

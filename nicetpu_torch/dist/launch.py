@@ -145,7 +145,7 @@ def _dryrun_rank(comm, device: str) -> dict:
         raise AssertionError("sharded decode diverges from the input")
     if dstats["fallbacks"]:
         raise AssertionError(f"sharded decode fell back to the host: {dstats}")
-    return {"bytes": len(got), "launches": dict(cuda_ops.LAUNCHES)}
+    return {"bytes": len(got), "launches": dict(cuda_ops.LAUNCHES), "real_slots": dstats["real_slots"]}
 
 
 def dryrun_multichip(n: int, backend: str = "nccl", device: str = "cuda",
@@ -156,7 +156,7 @@ def dryrun_multichip(n: int, backend: str = "nccl", device: str = "cuda",
     ranges, cross-shard offsets, carry pipeline) equal to the image, with no
     host fallback.  NCCL on the card by default; backend="gloo",
     device="cpu" is the CPU form.  Returns each rank's {"bytes",
-    "launches"}; raises on any mismatch."""
+    "launches", "real_slots"}; raises on any mismatch."""
     res = run(_dryrun_rank, n, backend=backend, device=device, args=(device,), timeout=timeout)
     print(f"dryrun_multichip({n}, {backend!r}, {device!r}): OK — {res[0]['bytes']} bytes equal "
           "hostref.encode_native; sharded decode equals the image")

@@ -200,6 +200,8 @@ def _decode_block(data: bytes, comm: Comm, device: torch.device, cfg, stats):
     del is_pfx
     sym, i12, i34, start = sym[keep], i12[keep], i34[keep], start[keep]
     del keep
+    if stats is not None:
+        stats["real_slots"] = sym.numel()
 
     # payload symbols and packed placement records of the real slots
     bins = decode3._payload_bins(sym[None], i12[None], i34[None])
@@ -294,8 +296,10 @@ def decode_sharded(data: bytes, *, device="cuda", group=None, cfg: decode3.WalkC
     "cpu" (the kernels' plain versions).  cfg: the walk configuration
     (default the robust rung `decode3.LADDER[-1]`).  stats: optional dict;
     receives "fallbacks" (1 when the host decoder served the raster),
-    "gates" (the four gates over all ranks, where the walk ran) and
-    "stages" (host-clock seconds per stage of this rank)."""
+    "gates" (the four gates over all ranks, where the walk ran),
+    "real_slots" (this rank's slots of real pixels, 0 on a shard of runs
+    only, which launches no value join) and "stages" (host-clock seconds per
+    stage of this rank)."""
     return decode_across(data, Comm(group), _resolve_device(device), everywhere=True, cfg=cfg,
                          stats=stats)
 

@@ -4,10 +4,14 @@ Counterpart of `nicetpu/kernels/pallas_ops.py`: the encode's histogram,
 table join and group-record fold (`csrc/encode_kernels.cu`) and the
 decode's value join (`csrc/decode_kernels.cu`), and the fused encode's
 Huffman tables (`csrc/huffman_kernels.cu`, the counterpart of JAX's jitted
-`huffman_dev.build_tables_device`), and the tokenizer
+`huffman_dev.build_tables_device`), the tokenizer
 (`csrc/tokenize_kernels.cu`, the counterpart of JAX's jnp `_tokenize_core`;
-dispatched by `tokenize.tokenize_bins`).  `LAUNCHES` also counts the walk
-(`decode3.walk`) and the row reconstruction (`recon.reconstruct_rows`).
+dispatched by `tokenize.tokenize_bins`) and the decode tables
+(`csrc/decode_tables_kernels.cu`, the counterparts of JAX's jnp
+`prepare_tables_v3_jnp` and `derive_walk_tables`; dispatched by
+`decode3.prepare_tables_v3` and `decode3.derive_walk_tables`).  `LAUNCHES`
+also counts the walk (`decode3.walk`) and the row reconstruction
+(`recon.reconstruct_rows`).
 Each kernel has
   * a wrapper that checks its inputs and, for a CUDA tensor, launches the
     kernel (or raises); for a CPU tensor it runs the plain version, since
@@ -38,6 +42,7 @@ FOLD_CAPW = 10  # words per group record (320 bits), as kCapw in the kernel
 LAUNCHES = {
     "histogram": 0, "table_join": 0, "fold_records": 0,
     "walk": 0, "value_join": 0, "reconstruct_rows": 0, "huffman_tables": 0, "tokenize": 0,
+    "decode_tables": 0, "walk_tables": 0,
 }
 _LAUNCHES_LOCK = threading.Lock()  # worker threads launch concurrently; the counts stay exact
 
@@ -61,6 +66,21 @@ def check(t: torch.Tensor, name: str, ndim: int) -> None:
         raise ValueError(f"{name} is on unsupported device {t.device}")
     if t.numel() == 0:
         raise ValueError(f"{name} must not be empty")
+
+
+def check_per_symbol(t: torch.Tensor, name: str, kernel: str) -> None:
+    """A (B, 858) int32 or int64 tensor with B >= 1, on the CPU or a card
+    (there B <= 65535, the kernel's grid)."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor")
+    if t.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{name} must be int32 or int64, got {t.dtype}")
+    if t.dim() != 2 or t.shape[1] != NSYM or t.shape[0] == 0:
+        raise ValueError(f"{name} must be (B, {NSYM}) with B >= 1, got shape {tuple(t.shape)}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} is on unsupported device {t.device}")
+    if t.device.type == "cuda" and t.shape[0] > 65535:
+        raise ValueError(f"{kernel} takes at most 65535 images")
 
 
 def same_device(*ts: torch.Tensor) -> None:
@@ -274,21 +294,12 @@ def huffman_tables(counts: torch.Tensor):
     one launch that reads nothing back to the host.  Equal to
     `huffman_dev.build_tables_device_plain` for non-negative counts whose
     stream totals stay below 2**52."""
-    if not isinstance(counts, torch.Tensor):
-        raise TypeError("counts must be a torch.Tensor")
-    if counts.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"counts must be int32 or int64, got {counts.dtype}")
-    if counts.dim() != 2 or counts.shape[1] != NSYM or counts.shape[0] == 0:
-        raise ValueError(f"counts must be (B, {NSYM}) with B >= 1, got shape {tuple(counts.shape)}")
+    check_per_symbol(counts, "counts", "huffman_tables")
     if counts.device.type == "cpu":
         from nicetpu_torch.kernels.huffman_dev import build_tables_device_plain
 
         return build_tables_device_plain(counts)
-    if counts.device.type != "cuda":
-        raise ValueError(f"counts is on unsupported device {counts.device}")
     B = counts.shape[0]
-    if B > 65535:
-        raise ValueError("huffman_tables takes at most 65535 images")
     counts = counts.contiguous()
     lengths = torch.empty(B, NSYM, dtype=torch.int32, device=counts.device)
     codes = torch.empty_like(lengths)
@@ -355,3 +366,70 @@ def tokenize(x_ext, tiles, tail, *, width: int, halo: int, g0: int, n_total: int
         ctypes.c_int(invalid_bin), device=x_ext.device,
     )
     return bins, ovf
+
+
+# ---------------------------------------------------------------------------
+# decode tables (replace decode3.py prepare_tables_v3_jnp and
+# derive_walk_tables, jnp inside the jitted round trip and decode core; the
+# plain versions are decode3.prepare_tables_v3_plain and
+# decode3.derive_walk_tables_plain)
+# ---------------------------------------------------------------------------
+
+TABLE_LENGTHS = 32  # code lengths 0..31 a stream in af/present/ib/aff/dD/inc
+
+
+def decode_tables(lens: torch.Tensor):
+    """(B, 858) int32 or int64 code lengths -> (af, present, ib (B, 10, 32),
+    pfx16 (B, 1, 16), sym_tbl (B, 858), stream_max (B, 10), all int32, and
+    tables_ok (B,) bool), in one launch that reads nothing back to the host.
+    Equal to `decode3.prepare_tables_v3_plain` for any lengths."""
+    check_per_symbol(lens, "lens", "decode_tables")
+    if lens.device.type == "cpu":
+        from nicetpu_torch.kernels.decode3 import prepare_tables_v3_plain
+
+        return prepare_tables_v3_plain(lens)
+    B = lens.shape[0]
+    lens = lens.contiguous()
+    i32 = dict(dtype=torch.int32, device=lens.device)
+    af = torch.empty(B, C.NUM_STREAMS, TABLE_LENGTHS, **i32)
+    present = torch.empty_like(af)
+    ib = torch.empty_like(af)
+    pfx16 = torch.empty(B, 1, 16, **i32)
+    sym_tbl = torch.empty(B, NSYM, **i32)
+    stream_max = torch.empty(B, C.NUM_STREAMS, **i32)
+    tables_ok = torch.empty(B, dtype=torch.bool, device=lens.device)
+    launch(
+        "decode_tables", "nt_decode_tables", ptr(lens), ctypes.c_int(int(lens.dtype == torch.int64)),
+        ptr(af), ptr(present), ptr(ib), ptr(pfx16), ptr(sym_tbl), ptr(stream_max), ptr(tables_ok),
+        ctypes.c_int(B), device=lens.device,
+    )
+    return af, present, ib, pfx16, sym_tbl, stream_max, tables_ok
+
+
+def walk_tables(af: torch.Tensor, present: torch.Tensor, ib: torch.Tensor):
+    """(B, 10, 32) int32 af, present (nonzero: present) and ib, any values
+    -> the walk's (aff, dD, inc), each (B, 10, 32) int32, in one launch.
+    Equal to `decode3.derive_walk_tables_plain`."""
+    for t, name in ((af, "af"), (present, "present"), (ib, "ib")):
+        check(t, name, 3)
+        if tuple(t.shape[1:]) != (C.NUM_STREAMS, TABLE_LENGTHS):
+            raise ValueError(f"{name} must be (B, {C.NUM_STREAMS}, {TABLE_LENGTHS}), got {tuple(t.shape)}")
+    same_device(af, present, ib)
+    if not af.shape == present.shape == ib.shape:
+        raise ValueError(f"af, present, ib shapes differ: {tuple(af.shape)}, {tuple(present.shape)}, "
+                         f"{tuple(ib.shape)}")
+    if af.device.type == "cpu":
+        from nicetpu_torch.kernels.decode3 import derive_walk_tables_plain
+
+        return derive_walk_tables_plain(af, present, ib)
+    B = af.shape[0]
+    if B > 65535:
+        raise ValueError("walk_tables takes at most 65535 images")
+    aff = torch.empty_like(af)
+    dD = torch.empty_like(af)
+    inc = torch.empty_like(af)
+    launch(
+        "walk_tables", "nt_walk_tables", ptr(af), ptr(present), ptr(ib), ptr(aff), ptr(dD), ptr(inc),
+        ctypes.c_int(B), device=af.device,
+    )
+    return aff, dD, inc

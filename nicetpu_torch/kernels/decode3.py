@@ -29,7 +29,11 @@ same `WalkCfg`:
 
 uint32 words travel as int32 bit patterns (see `convert`).  Tables keep the
 JAX layouts: af/present/ib/aff/dD/inc (B, 10, 32) int32, pfx16 (B, 1, 16),
-sym_tbl (B, 858).
+sym_tbl (B, 858).  They are built on the device by two CUDA kernels, one
+launch each (`prepare_tables_v3` -> `cuda_ops.decode_tables`,
+`derive_walk_tables` -> `cuda_ops.walk_tables`), as JAX builds them inside
+its jitted programs; their plain versions are `prepare_tables_v3_plain` and
+`derive_walk_tables_plain`.
 """
 
 from __future__ import annotations
@@ -111,15 +115,25 @@ def _deep_cap(s: int) -> int:
 
 
 def prepare_tables_v3(lens_b: torch.Tensor):
-    """(B, 858) integer code lengths on any device -> the decode tables,
-    built there: (af (B, 10, 32) int32 bit patterns of the left-aligned
+    """(B, 858) int32 or int64 code lengths -> the decode tables, built on
+    their device: (af (B, 10, 32) int32 bit patterns of the left-aligned
     first codes (0xFFFFFFFF where a length is absent), present, ib,
     pfx16 (B, 1, 16), sym_tbl (B, 858), stream_max (B, 10), tables_ok (B,)).
 
     Port of `prepare_tables_v3_jnp`.  tables_ok is `validate_flat_lengths`
     on the device: lengths in 1..=31 and a Kraft sum of exactly 2**32 per
     stream, summed in int64 (the JAX int32 sum also accepts multiples of
-    2**32)."""
+    2**32).  On a CUDA tensor one launch of the decode_tables kernel
+    (`cuda_ops.decode_tables`, `csrc/decode_tables_kernels.cu`) with nothing
+    read back, as JAX builds them inside its jitted round trip; on a CPU
+    tensor the plain version, `prepare_tables_v3_plain`."""
+    return cuda_ops.decode_tables(lens_b)
+
+
+def prepare_tables_v3_plain(lens_b: torch.Tensor):
+    """The plain version of `prepare_tables_v3`, in torch operations: per
+    stream a clamp, an argsort by (length, symbol) and the first codes from
+    an int64 cumsum."""
     lens_all = lens_b.to(torch.int64)
     B, dev = lens_all.shape[0], lens_all.device
     i32 = dict(dtype=torch.int32, device=dev)
@@ -159,6 +173,14 @@ def prepare_tables_v3(lens_b: torch.Tensor):
 
 
 def derive_walk_tables(af, present, ib):
+    """(B, 10, 32) int32 af/present/ib -> the walk's threshold tables (aff,
+    dD, inc), each (B, 10, 32) int32 (see `derive_walk_tables_plain`).  On
+    CUDA tensors one launch of the walk_tables kernel
+    (`cuda_ops.walk_tables`); on CPU tensors the plain version."""
+    return cuda_ops.walk_tables(af, present, ib)
+
+
+def derive_walk_tables_plain(af, present, ib):
     """(B, 10, 32) af/present/ib -> the walk's threshold tables (aff, dD,
     inc), each (B, 10, 32) int32 (see the JAX `derive_walk_tables`):
 

@@ -165,6 +165,8 @@ def test_multihost_pair_returns_on_rank_0_only():
     np.testing.assert_array_equal(out0, img)
     assert out1 is None
     assert dry0["bytes"] == dry1["bytes"] == len(oracle.encode_native(launch.dryrun_image(2)))
+    # the lower shard of the dry run's image holds runs only: no real slot there
+    assert (dry0["real_slots"] > 0, dry1["real_slots"]) == (True, 0)
 
 
 def test_a_failing_rank_fails_the_call():
