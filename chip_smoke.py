@@ -23,15 +23,19 @@ Phases, one printed line or block each; any failure exits nonzero:
      then build_tables_device and encode_fused_core run on the main path's
      batch under torch.cuda.set_sync_debug_mode("error"): one launch each
      of the tables kernel, one tokenizer call, no host sync; the tokenizer
-     kernel (tokenize.tokenize_bins, three launches) takes the main path's
-     batch at 3 and 11 run digits, a constant raster whose one run crosses
-     every tile, a raster that changes only at its last pixel, W = 4 and
-     W = 1100 rasters (the latter also at 5 digits, whose 10 slots take
-     the scalar stores) and a sharded rank's block (4-row halo, g0 > 0,
-     the later shards' first changes as its tail, and again with the tiles
-     given), each exact with the overflow flags expected; one call's device
-     operations (torch.profiler) are its three kernels and a memset; it is
-     timed at 8 x 512x512 and at 4096x4096; the decode tables kernels
+     kernel (tokenize.tokenize_bins, one launch after one memset) takes the
+     main path's batch at 3 and 11 run digits, a constant raster whose one
+     run crosses every span, a raster that changes only at its last pixel
+     (512x512, and 4096x4096: a run over 16,383 spans), spans alternating
+     with and without changes, 64 512x512 images (more blocks than can be
+     resident), W = 4, W = 1100 and W = 29051 rasters (at 5 and 0 digits
+     too: the scalar stores; and a view that is not word-aligned) and a
+     sharded rank's block (4-row halo, g0 > 0,
+     the later shards' first changes from first_change as its tail), each
+     exact with the overflow flags expected; 20 back-to-back calls equal;
+     one call's device operations (torch.profiler) are its kernel and a
+     memset, the sharded path's first_change and that kernel; it is timed
+     at 8 x 512x512 and at 4096x4096; the decode tables kernels
      (decode3.prepare_tables_v3 -> decode_tables, decode3.derive_walk_tables
      -> walk_tables, one launch each) take the code lengths of the main
      path's first batch (int32 from encode_fused_core, and again as int64,
@@ -449,13 +453,17 @@ def huffman_kernel(dev) -> dict:
     return out
 
 
-# the cascade's integer operations a pixel, counted from the kernel's source:
-# 16 probes of 3 loads, compares and masks (5 back references, 11 luma
-# references of some 12 operations each), the small difference, the
-# second luma, the residuals, the mode select, 5 + S slot selects, the run
-# and its digits
+# the cascade's integer operations a pixel, as counted from the source of
+# the earlier three-launch design and kept so that the bound stays
+# comparable: 16 probes (5 back references, 11 luma references of some 12
+# operations each), the small difference, the second luma, the residuals,
+# the mode select, 5 + S slot selects, the run and its digits; bytes bound
+# the kernel either way
 TOKENIZE_OPS_PER_PIXEL = 350
-TOKENIZE_KERNELS = ("tile_first_kernel", "tile_suffix_kernel", "tokenize_kernel")
+TOKENIZE_EARLIER = ("0.0637 ms at 8 x 512^2, 0.0982 at 16 slots, 0.5623 at 4096^2 on an H100 80GB HBM3 at 700 W: "
+                    "three launches, 256-pixel tiles, probes of three byte loads from device memory")
+TOKENIZE_KERNEL = "tokenize_kernel"
+TOKENIZE_REPEATS = 20  # back-to-back calls that must agree: the per-call reset of tickets and words
 
 
 def device_ops(fn) -> list:
@@ -473,9 +481,10 @@ def device_ops(fn) -> list:
 
 def sharded_tokenize_case(dev) -> tuple:
     """Rank 1 of 4 row blocks of a 4096x1024 make_image raster with its
-    4-row halo, its tail the first changes of ranks 2 and 3; the raster is
-    constant from 3 rows before the end of block 1 to 5 rows into block 2,
-    so the block's last run ends in a later shard."""
+    4-row halo, its tail the first changes of ranks 2 and 3 (first_change on
+    their blocks); the raster is constant from 3 rows before the end of
+    block 1 to 5 rows into block 2, so the block's last run ends in a later
+    shard."""
     H, W, n = 4096, 1024, 4
     img = make_image(H, W, 31)
     rows = H // n
@@ -490,7 +499,10 @@ def sharded_tokenize_case(dev) -> tuple:
     firsts = []
     for r in (2, 3):
         x, h = shard(r)
-        firsts.append(tok.change_tiles(x, halo=h, g0=r * n_local, n_total=H * W)[0, :1])
+        got = tok.first_change(x, halo=h, g0=r * n_local, n_total=H * W)
+        check(torch.equal(got, tok.first_change_plain(x, halo=h, g0=r * n_local, n_total=H * W)),
+              f"first_change differs from its plain version on rank {r}'s block")
+        firsts.append(got)
     x, h = shard(1)
     kw = dict(width=W, halo=h, g0=n_local, n_total=H * W, ndigits_cap=C.MAX_RUN_DIGITS,
               invalid_bin=C.TOTAL_SYMBOLS, tail=torch.cat(firsts))
@@ -499,12 +511,22 @@ def sharded_tokenize_case(dev) -> tuple:
 
 def tokenize_cases(dev) -> dict:
     """name -> (x_ext, tokenize_bins keywords, overflow expected or None)."""
+    span = cuda_ops.TOKENIZE_SPAN
     main = pipeline.upload_batch([make_image(W512, W512, s) for s in range(B)], dev)
-    const = torch.full((2, N, 3), 77, dtype=torch.uint8, device=dev)  # one run over every tile
+    const = torch.full((2, N, 3), 77, dtype=torch.uint8, device=dev)  # one run over every span
     last = torch.zeros(1, N, 3, dtype=torch.uint8, device=dev)
     last[0, -1] = 9  # a change only at the last pixel
+    big_last = torch.zeros(1, 4096 * 4096, 3, dtype=torch.uint8, device=dev)
+    big_last[0, -1] = 9  # 16,384 spans, all but the last one run
+    alternate = pipeline.upload_batch([make_image(W512, W512, s) for s in range(2)], dev)
+    for j in range(1, N // span, 2):  # every other span one run, the one before it a change at its end
+        alternate[:, j * span : (j + 1) * span] = alternate[:, j * span - 1 : j * span]
     w4 = pipeline.upload_batch([make_image(4096, 4, s) for s in range(2)], dev)
     w1100 = pipeline.upload_batch([make_image(300, 1100, s) for s in range(3)], dev)
+    w29051 = pipeline.upload_batch([make_image(5, 29051, s) for s in range(2)], dev)
+    unaligned = w1100[:1, 1:]  # contiguous, its data one pixel past the allocation's start
+    check(unaligned.is_contiguous() and unaligned.data_ptr() % 4 != 0, "the unaligned view is aligned")
+    many = pipeline.upload_batch([make_image(W512, W512, s % 8) for s in range(64)], dev)
 
     def kw(x, width, cap):
         return dict(width=width, halo=0, g0=0, n_total=x.shape[1], ndigits_cap=cap, invalid_bin=encode2.INVALID_BIN)
@@ -512,13 +534,20 @@ def tokenize_cases(dev) -> dict:
     cases = {f"main path {B} x 512^2, cap {cap}": (main, kw(main, W512, cap), False)
              for cap in (3, C.MAX_RUN_DIGITS)}
     cases.update({
-        "constant 512^2 x 2 (one run over every tile), cap 3": (const, kw(const, W512, 3), True),
+        "constant 512^2 x 2 (one run over every span), cap 3": (const, kw(const, W512, 3), True),
         "constant 512^2 x 2, cap 11": (const, kw(const, W512, C.MAX_RUN_DIGITS), False),
         "change only at the last pixel, cap 3": (last, kw(last, W512, 3), True),
+        "4096^2, a change only at the last pixel (a run over 16,383 spans), cap 11":
+            (big_last, kw(big_last, 4096, C.MAX_RUN_DIGITS), False),
+        "512^2 x 2, spans alternating with and without changes, cap 3": (alternate, kw(alternate, W512, 3), None),
+        "64 x 512^2 (more blocks than can be resident), cap 3": (many, kw(many, W512, 3), False),
         "W = 4, 4096 rows x 2, cap 3": (w4, kw(w4, 4, 3), None),
         "W = 4, cap 11": (w4, kw(w4, 4, C.MAX_RUN_DIGITS), None),
         "W = 1100, 300 rows x 3, cap 3": (w1100, kw(w1100, 1100, 3), None),
         "W = 1100, cap 5 (10 slots: the scalar stores)": (w1100, kw(w1100, 1100, 5), None),
+        "W = 1100, a view 3 bytes past a word (pixel-by-pixel staging), cap 3": (unaligned, kw(unaligned, 1100, 3), None),
+        "W = 29051, 5 rows x 2, cap 3": (w29051, kw(w29051, 29051, 3), None),
+        "W = 29051, cap 0 (5 slots)": (w29051, kw(w29051, 29051, 0), None),
     })
     x, skw = sharded_tokenize_case(dev)
     cases["sharded: rank 1 of 4, 4-row halo, g0 > 0, tail, cap 11"] = (x, skw, False)
@@ -527,33 +556,53 @@ def tokenize_cases(dev) -> dict:
 
 def tokenize_kernel(dev) -> dict:
     """The tokenizer kernel against its plain version, exact, on every
-    listed input; one call's device operations; its times at the main
-    path's shape and at 4096^2."""
+    listed input; repeated calls equal; one call's device operations; its
+    times at the main path's shape and at 4096^2."""
     for name, (x, kw, want_ovf) in tokenize_cases(dev).items():
         got, want = tok.tokenize_bins(x, **kw), tok.tokenize_bins_plain(x, **kw)
         torch.cuda.synchronize()
         same = all(torch.equal(g, w) for g, w in zip(got, want))
         err = max_abs_err(got[0], want[0])
         ovf = got[1].tolist()
-        print(f"[kernel] tokenize on {name} {tuple(x.shape)}: exact={same} max_abs_err={err}; overflow {ovf}")
+        print(f"[kernel] tokenize on {name} {tuple(x.shape)}: exact={same} max_abs_err={err}; "
+              f"overflow {ovf if len(ovf) <= 8 else all(ovf) if want_ovf else any(ovf)}")
         check(same, f"tokenize differs from its plain version on {name} (max_abs_err {err})")
         check(want_ovf is None or all(o == want_ovf for o in ovf), f"tokenize's overflow on {name}: {ovf}")
-    x, skw = sharded_tokenize_case(dev)
-    tiles = tok.change_tiles(x, halo=skw["halo"], g0=skw["g0"], n_total=skw["n_total"])
-    check(all(torch.equal(g, w) for g, w in zip(tok.tokenize_bins(x, tiles=tiles, **skw),
-                                                 tok.tokenize_bins_plain(x, **skw))),
-          "tokenize with the sharded path's precomputed tiles differs")
 
     main = pipeline.upload_batch([make_image(W512, W512, s) for s in range(B)], dev)
     kw = dict(width=W512, halo=0, g0=0, n_total=N, ndigits_cap=3, invalid_bin=encode2.INVALID_BIN)
-    names = device_ops(lambda: tok.tokenize_bins(main, **kw))
-    kernels = [n for n in names if "Memset" not in n]
-    print(f"[kernel] tokenize: one call's device operations {names}")
-    check(len(kernels) == 3 and all(k in n for k, n in zip(TOKENIZE_KERNELS, kernels)),
-          f"a tokenize call ran other device operations than its three kernels: {names}")
+    first = tok.tokenize_bins(main, **kw)
+    calls = [tok.tokenize_bins(main, **kw) for _ in range(TOKENIZE_REPEATS)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, w) for c in calls for g, w in zip(c, first)),
+          f"{TOKENIZE_REPEATS} back-to-back tokenize calls differ")
+    print(f"[kernel] tokenize: {TOKENIZE_REPEATS} back-to-back calls on the main path's batch all equal")
+
+    # one profiled window (a second profiler session in one process may
+    # record no device operation): the main path's call, then the sharded
+    # path's first_change (of its own block: only the launch is counted here)
+    # and its call
+    x, skw = sharded_tokenize_case(dev)
+    sk = dict(halo=skw["halo"], g0=skw["g0"], n_total=skw["n_total"])
+
+    def both():
+        tok.tokenize_bins(main, **kw)
+        torch.cuda.synchronize()
+        tok.first_change(x, **sk)
+        tok.tokenize_bins(x, **skw)
+
+    names = device_ops(both)
+    print(f"[kernel] tokenize: device operations of one call, then of the sharded path's first_change and "
+          f"call: {names}")
+    pattern = ["Memset", TOKENIZE_KERNEL, "first_change_kernel", "Memset", TOKENIZE_KERNEL]
+    check(len(names) == len(pattern) and all(p in n for p, n in zip(pattern, names)),
+          f"a tokenize call ran other device operations than one memset and one kernel, or the sharded path "
+          f"other than first_change and that call: {names}")
+
     cuda_ops.reset_launches()
     out = compare("tokenize", lambda: tok.tokenize_bins(main, **kw), lambda: tok.tokenize_bins_plain(main, **kw),
-                  plain_reps=3, note=" (three launches a call; the plain version is some 300 torch operations)")
+                  plain_reps=3, note=" (one launch and one memset a call; the plain version is some 300 torch "
+                                     "operations)")
     bins, ovf = tok.tokenize_bins(main, **kw)
     out.update(bound(nbytes(main, bins, ovf), TOKENIZE_OPS_PER_PIXEL * B * N))
     big = pipeline.upload_batch([make_image(4096, 4096, 99)], dev)
@@ -564,8 +613,8 @@ def tokenize_kernel(dev) -> dict:
     at.update(bound(nbytes(big, bins, ovf), TOKENIZE_OPS_PER_PIXEL * 4096 * 4096))
     out["at_4096"] = at
     print(f"[kernel] tokenize bound: {out['bound_ms']:.6f} ms at {B} x 512^2 ({out['ms'] / out['bound_ms']:.2f}x), "
-          f"{at['bound_ms']:.6f} ms at 4096^2 ({at['ms'] / at['bound_ms']:.2f}x), both by {out['bound_by']}",
-          flush=True)
+          f"{at['bound_ms']:.6f} ms at 4096^2 ({at['ms'] / at['bound_ms']:.2f}x), both by {out['bound_by']}; "
+          f"earlier: {TOKENIZE_EARLIER}", flush=True)
     return out
 
 

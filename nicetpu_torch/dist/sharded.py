@@ -3,12 +3,12 @@
 Counterpart of `nicetpu/dist/sharded.py`.  The raster is cut into
 contiguous row blocks, one a rank.  Each rank:
   1. receives its 4-row halo from the previous rank (`Comm.ppermute`),
-  2. finds its block's changes at g0 = rank * n_local (`change_tiles`; mode
-     decisions depend only on input bytes, so shard-local tokenization
-     composes exactly),
+  2. finds its block's first change at g0 = rank * n_local (`first_change`,
+     one launch; mode decisions depend only on input bytes, so shard-local
+     tokenization composes exactly),
   3. all-gathers every shard's first change and tokenizes its block
-     (`tokenize_bins`), the run of its last change ended by the first
-     change of a later shard,
+     (`tokenize_bins`, one launch), the run of its last change ended by the
+     first change of a later shard (`tail=`),
   4. counts its tokens with the histogram kernel and sums the counts over
      the ranks,
   5. builds the Huffman tables from the summed counts on its device
@@ -41,7 +41,7 @@ from nicetpu_torch.hostref import oracle
 from nicetpu_torch.kernels import cuda_ops
 from nicetpu_torch.kernels.encode2 import _fold_place_grouped_batched, total_bits_overflow
 from nicetpu_torch.kernels.huffman_dev import build_tables_device
-from nicetpu_torch.kernels.tokenize import change_tiles, halo_pixels, tokenize_bins
+from nicetpu_torch.kernels.tokenize import first_change, halo_pixels, tokenize_bins
 from nicetpu_torch.utils.profiling import MarkedStageTimer
 
 
@@ -94,12 +94,11 @@ def _tokenize_block(x, comm: Comm, *, width: int, n_local: int):
     # cascade masks by position)
     x_ext = torch.cat([comm.ppermute(x[n_local - halo :]), x], dim=0)[None]
     kw = dict(halo=halo, g0=comm.rank * n_local, n_total=N)
-    tiles = change_tiles(x_ext, **kw)
     # every shard's first change (N if it is all run); the run of this
     # shard's last change ends at the first change of a later shard
-    firsts = comm.all_gather(tiles[0, :1])[:, 0]
+    firsts = comm.all_gather(first_change(x_ext, **kw))[:, 0]
     return tokenize_bins(x_ext, width=width, ndigits_cap=C.MAX_RUN_DIGITS, invalid_bin=C.TOTAL_SYMBOLS,
-                         tail=firsts[comm.rank + 1 :], tiles=tiles, **kw)
+                         tail=firsts[comm.rank + 1 :], **kw)
 
 
 def encode_shards(img: np.ndarray, comm: Comm, device: torch.device, stats=None):

@@ -97,9 +97,9 @@ def load() -> ctypes.CDLL:
             "nt_value_join": [vp, vp, vp, i32, i32, i64, i32, vp],
             "nt_reconstruct_rows": [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp],
             "nt_huffman_tables": [vp, i32, vp, vp, vp, i32, i32, vp],
-            "nt_tokenize_tiles": [vp, vp, i32, i64, i64, i64, i64, i64, i32, vp],
-            "nt_tokenize_bins": [vp, vp, vp, i32, vp, vp, i32, i64, i64, i64, i64, i64, i32, i32, i32,
-                                 i32, vp],
+            "nt_first_change": [vp, vp, i32, i64, i64, i64, i64, i64, i32, vp],
+            "nt_tokenize_bins": [vp, vp, i32, vp, vp, i64, i64, i32, i64, i64, i64, i64, i64, i32, i32,
+                                 i32, i32, vp],
             "nt_decode_tables": [vp, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, vp],
             "nt_walk_tables": [vp, vp, vp, vp, vp, vp, i32, i32, vp],
         }

@@ -20,7 +20,8 @@ Each kernel has
     tests hold against the Pallas kernels and which `chip_smoke.py` holds
     against the CUDA kernel on the card;
   * a launch count in `LAUNCHES`, raised by one at each kernel launch only
-    (the tokenizer's at its third pass, once a call of its three launches).
+    (the tokenizer's once a call of its one launch; the sharded path's
+    `first_change` before it is not counted).
 
 Tensors carrying uint32 values (codes, records) are int32 bit patterns.
 """
@@ -318,54 +319,58 @@ def huffman_tables(counts: torch.Tensor):
 # wrapper are tokenize.tokenize_bins_plain and tokenize.tokenize_bins)
 # ---------------------------------------------------------------------------
 
-TOKENIZE_TILE = 256  # pixels a tile, as kTile in csrc/tokenize_kernels.cu
+TOKENIZE_SPAN = 1024  # pixels a block of the kernel takes, as kSpan in csrc/tokenize_kernels.cu
 
 
 def _tokenize_geometry(x_ext: torch.Tensor, halo: int) -> tuple[int, int, int, int]:
+    """(B, n_ext, n_local, spans) of a checked CUDA x_ext; raises on what the
+    kernels do not take."""
     if x_ext.device.type != "cuda":
         raise ValueError(f"the tokenizer kernel takes a CUDA tensor, got {x_ext.device}")
     B, n_ext, _ = x_ext.shape
-    if B > 65535:
-        raise ValueError("the tokenizer takes at most 65535 images")
     n_local = n_ext - halo
-    return B, n_ext, n_local, -(-n_local // TOKENIZE_TILE)
+    spans = -(-n_local // TOKENIZE_SPAN)
+    if B > 65535 or B * spans >= 2**31:
+        raise ValueError(f"the tokenizer takes at most 65535 images and 2**31 spans, got {B} x {spans}")
+    return B, n_ext, n_local, spans
 
 
-def tokenize_tiles(x_ext: torch.Tensor, *, halo: int, g0: int, n_total: int) -> torch.Tensor:
-    """The kernel's passes 1 and 2 on a checked (B, halo + n_local, 3) uint8
-    CUDA tensor: (B, T + 1) int32, entry t the first changed global position
-    at or after tile t (TOKENIZE_TILE pixels a tile), else n_total; entry T
-    is n_total.  Two launches, not counted: they belong to `tokenize`'s."""
-    B, n_ext, n_local, T = _tokenize_geometry(x_ext, halo)
-    tiles = torch.empty(B, T + 1, dtype=torch.int32, device=x_ext.device)
+def first_change(x_ext: torch.Tensor, *, halo: int, g0: int, n_total: int) -> torch.Tensor:
+    """One launch of the kernel's `first_change_kernel` on a checked (B, halo
+    + n_local, 3) uint8 CUDA tensor: (B,) int32, each image's first changed
+    global position among its local pixels, else n_total.  Not counted: it
+    belongs to the sharded path's `tokenize`."""
+    B, n_ext, n_local, _ = _tokenize_geometry(x_ext, halo)
+    first = torch.empty(B, dtype=torch.int32, device=x_ext.device)
     launch(
-        None, "nt_tokenize_tiles", ptr(x_ext), ptr(tiles), ctypes.c_int(B), ctypes.c_longlong(n_ext),
+        None, "nt_first_change", ptr(x_ext), ptr(first), ctypes.c_int(B), ctypes.c_longlong(n_ext),
         ctypes.c_longlong(halo), ctypes.c_longlong(n_local), ctypes.c_longlong(g0),
         ctypes.c_longlong(n_total), device=x_ext.device,
     )
-    return tiles
+    return first
 
 
-def tokenize(x_ext, tiles, tail, *, width: int, halo: int, g0: int, n_total: int, ndigits_cap: int,
+def tokenize(x_ext, tail, *, width: int, halo: int, g0: int, n_total: int, ndigits_cap: int,
              invalid_bin: int):
-    """The kernel's pass 3 (one counted launch) on checked CUDA inputs:
-    tiles from `tokenize_tiles`, tail None or a 1-D int32 tensor.  Returns
-    (bins (B, n_local * (5 + ndigits_cap)) int32, overflow (B,) bool)."""
-    B, n_ext, n_local, T = _tokenize_geometry(x_ext, halo)
-    if tuple(tiles.shape) != (B, T + 1) or tiles.dtype != torch.int32 or not tiles.is_contiguous():
-        raise ValueError(f"tiles must be a contiguous ({B}, {T + 1}) int32 tensor")
+    """The kernel (one counted launch after one memset) on checked CUDA
+    inputs, tail None or a 1-D int32 tensor.  Returns (bins (B, n_local * (5
+    + ndigits_cap)) int32, overflow (B,) bool).  The overflow flags are the
+    first B bytes of the call's scratch, which the kernel's memset zeroes
+    and which also holds the ticket and one word a span."""
+    B, n_ext, n_local, spans = _tokenize_geometry(x_ext, halo)
     S = 5 + ndigits_cap
     bins = torch.empty(B, n_local * S, dtype=torch.int32, device=x_ext.device)
-    ovf = torch.empty(B, dtype=torch.bool, device=x_ext.device)
+    ticket_at = -(-B // 8) * 8
+    scratch = torch.empty(ticket_at + 4 * (1 + B * spans), dtype=torch.uint8, device=x_ext.device)
     n_tail = 0 if tail is None else tail.numel()
     launch(
-        "tokenize", "nt_tokenize_bins", ptr(x_ext), ptr(tiles),
-        ctypes.c_void_p(tail.data_ptr() if n_tail else None), ctypes.c_int(n_tail), ptr(bins), ptr(ovf),
-        ctypes.c_int(B), ctypes.c_longlong(n_ext), ctypes.c_longlong(halo), ctypes.c_longlong(n_local),
-        ctypes.c_longlong(g0), ctypes.c_longlong(n_total), ctypes.c_int(width), ctypes.c_int(ndigits_cap),
-        ctypes.c_int(invalid_bin), device=x_ext.device,
+        "tokenize", "nt_tokenize_bins", ptr(x_ext), ctypes.c_void_p(tail.data_ptr() if n_tail else None),
+        ctypes.c_int(n_tail), ptr(bins), ptr(scratch), ctypes.c_longlong(scratch.numel()),
+        ctypes.c_longlong(ticket_at), ctypes.c_int(B), ctypes.c_longlong(n_ext), ctypes.c_longlong(halo),
+        ctypes.c_longlong(n_local), ctypes.c_longlong(g0), ctypes.c_longlong(n_total), ctypes.c_int(width),
+        ctypes.c_int(ndigits_cap), ctypes.c_int(invalid_bin), device=x_ext.device,
     )
-    return bins, ovf
+    return bins, scratch[:B].view(torch.bool)
 
 
 # ---------------------------------------------------------------------------

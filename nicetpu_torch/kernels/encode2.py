@@ -47,7 +47,7 @@ def _tokenize_core(imgs_flat: torch.Tensor, *, width: int, ndigits_cap: int):
 
     Bins are flat histogram bins in serial slot order (M = N * slots) with
     INVALID_BIN holes; overflow says a run needs more than ndigits_cap
-    base-8 digits.  On a CUDA tensor: the tokenizer kernel, three launches.
+    base-8 digits.  On a CUDA tensor: the tokenizer kernel, one launch.
     """
     N = imgs_flat.shape[-2]
     return tokenize_bins(imgs_flat, width=width, halo=0, g0=0, n_total=N, ndigits_cap=ndigits_cap,

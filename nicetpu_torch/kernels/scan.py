@@ -3,7 +3,8 @@
 Counterpart of `nicetpu/kernels/scan.py`.  The JAX version unrolls
 log-doubling shift-min steps because `lax.cummin` is slow on the TPU; the
 port's plain tokenizer (`tokenize.tokenize_bins_plain`) uses `torch.cummin`
-directly.  On the card the tokenizer kernel scans its tiles itself.
+directly.  On the card the tokenizer kernel finds each next change itself
+(published span words, a look-ahead, warp ballots).
 """
 
 from __future__ import annotations

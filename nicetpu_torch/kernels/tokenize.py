@@ -4,9 +4,11 @@ Counterpart of `nicetpu/kernels/tokenize.py` (`halo_pixels`, `cascade`,
 `assemble_bins`) and of the jnp program `nicetpu/kernels/encode2.py`
 `_tokenize_core` that composes them with the run scan.
 `tokenize_bins` is the wrapper every encode path calls: on a CUDA tensor it
-launches the kernel of `csrc/tokenize_kernels.cu` (three launches,
-`cuda_ops.tokenize_tiles` and `cuda_ops.tokenize`), on a CPU tensor it runs
-the plain version `tokenize_bins_plain`.  The plain version is vectorized
+launches the kernel of `csrc/tokenize_kernels.cu` (`cuda_ops.tokenize`: one
+memset of its scratch, then one launch), on a CPU tensor it runs the plain
+version `tokenize_bins_plain`.  The sharded encode first finds each shard's
+first change with `first_change` (one launch), all-gathers it and passes the
+later shards' to `tokenize_bins` as its tail.  The plain version is vectorized
 elementwise torch code: all predictors are statically shifted reads of the
 raster, the mode is a priority select over per-mode validity masks, and
 every token slot becomes a flat histogram bin (a few hundred launches per
@@ -223,29 +225,25 @@ def _check_tokenize(x_ext, *, halo: int, g0: int, n_total: int, width: int = C.M
             raise ValueError(f"tail is on {tail.device}, x_ext on {x_ext.device}")
 
 
-def change_tiles_plain(x_ext: torch.Tensor, *, halo: int, g0: int, n_total: int) -> torch.Tensor:
-    """(B, halo + n_local, 3) uint8 -> (B, T + 1) int32: entry t is the first
-    changed global position at or after tile t of cuda_ops.TOKENIZE_TILE
-    local pixels, else n_total; entry T is n_total."""
+def first_change_plain(x_ext: torch.Tensor, *, halo: int, g0: int, n_total: int) -> torch.Tensor:
+    """(B, halo + n_local, 3) uint8 -> (B,) int32: each image's first changed
+    global position among its local pixels (a pixel that differs from the
+    one before it, or pixel 0 of the raster), else n_total."""
     n_local = x_ext.shape[1] - halo
     x = x_ext.to(torch.int32)
     pos = torch.arange(n_local, dtype=torch.int32, device=x.device) + g0
     changed = (x[:, halo:] != _shift(x.transpose(1, 2), 1, halo, n_local).transpose(1, 2)).any(dim=2)
-    idx = torch.where(changed | (pos == 0), pos, n_total)
-    tile = cuda_ops.TOKENIZE_TILE
-    idx = F.pad(idx, (0, -n_local % tile, 0, 0), value=n_total)
-    firsts = idx.view(x.shape[0], -1, tile).amin(dim=2)
-    return F.pad(suffix_min(firsts), (0, 1), value=n_total).contiguous()
+    return torch.where(changed | (pos == 0), pos, n_total).amin(dim=1).to(torch.int32)
 
 
-def change_tiles(x_ext: torch.Tensor, *, halo: int, g0: int, n_total: int) -> torch.Tensor:
-    """`change_tiles_plain`, on a CUDA tensor the kernel's first two passes
-    (two launches).  Column 0 is each image's first change: the sharded
-    encode all-gathers it before `tokenize_bins` with `tiles=` and `tail=`."""
+def first_change(x_ext: torch.Tensor, *, halo: int, g0: int, n_total: int) -> torch.Tensor:
+    """`first_change_plain`, on a CUDA tensor one launch of the kernel's
+    `first_change_kernel`.  The sharded encode all-gathers it before
+    `tokenize_bins` with the later shards' as `tail=`."""
     _check_tokenize(x_ext, halo=halo, g0=g0, n_total=n_total)
     if x_ext.device.type == "cpu":
-        return change_tiles_plain(x_ext, halo=halo, g0=g0, n_total=n_total)
-    return cuda_ops.tokenize_tiles(x_ext, halo=halo, g0=g0, n_total=n_total)
+        return first_change_plain(x_ext, halo=halo, g0=g0, n_total=n_total)
+    return cuda_ops.first_change(x_ext, halo=halo, g0=g0, n_total=n_total)
 
 
 def tokenize_bins_plain(x_ext: torch.Tensor, *, width: int, halo: int, g0: int, n_total: int,
@@ -271,18 +269,15 @@ def tokenize_bins_plain(x_ext: torch.Tensor, *, width: int, halo: int, g0: int, 
 
 
 def tokenize_bins(x_ext: torch.Tensor, *, width: int, halo: int, g0: int, n_total: int, ndigits_cap: int,
-                  invalid_bin: int, tail=None, tiles=None):
-    """`tokenize_bins_plain`, bit for bit.  On a CUDA tensor: the kernel,
-    three launches (or one where `tiles`, `change_tiles`' output for this
-    x_ext, is given) and no host sync; on a CPU tensor: the plain version,
-    which ignores `tiles`.  tail: None or a 1-D int32 tensor on x_ext's
-    device (the first changes of the later shards)."""
+                  invalid_bin: int, tail=None):
+    """`tokenize_bins_plain`, bit for bit.  On a CUDA tensor: the kernel, one
+    launch after one memset, and no host sync; on a CPU tensor: the plain
+    version.  tail: None or a 1-D int32 tensor on x_ext's device (the first
+    changes of the later shards)."""
     _check_tokenize(x_ext, width=width, halo=halo, g0=g0, n_total=n_total, ndigits_cap=ndigits_cap,
                     tail=tail)
     kw = dict(width=width, halo=halo, g0=g0, n_total=n_total, ndigits_cap=ndigits_cap,
               invalid_bin=invalid_bin)
     if x_ext.device.type == "cpu":
         return tokenize_bins_plain(x_ext, tail=tail, **kw)
-    if tiles is None:
-        tiles = cuda_ops.tokenize_tiles(x_ext, halo=halo, g0=g0, n_total=n_total)
-    return cuda_ops.tokenize(x_ext, tiles, tail, **kw)
+    return cuda_ops.tokenize(x_ext, tail, **kw)

@@ -246,7 +246,7 @@ def _tokenize_case(case):
         x = torch.zeros(1, 96 * 64, 3, dtype=torch.uint8)
         x[0, -1] = 1
     else:
-        h, w = {"W4": (700, 4), "W5": (301, 5), "W64": (64, 64), "W1100": (5, 1100)}[case]
+        h, w = {"W4": (700, 4), "W5": (301, 5), "W64": (64, 64), "W1100": (5, 1100), "W29051": (3, 29051)}[case]
         x = _flat([make_image(h, w, s) for s in range(3)])
         w = int(case[1:])
         return x, dict(width=w, halo=0, g0=0, n_total=x.shape[1], invalid_bin=encode2.INVALID_BIN)
@@ -254,10 +254,10 @@ def _tokenize_case(case):
 
 
 @pytest.mark.parametrize("cap", [3, 5, C.MAX_RUN_DIGITS])
-@pytest.mark.parametrize("case", ["W4", "W5", "W64", "W1100", "constant", "last_pixel", "sharded"])
+@pytest.mark.parametrize("case", ["W4", "W5", "W64", "W1100", "W29051", "constant", "last_pixel", "sharded"])
 def test_tokenize_matches_plain(dev, case, cap):
-    """Three launches (one counted), equal to the plain version bit for bit,
-    the overflow flags included; cap 5's 10 slots take the scalar stores."""
+    """One counted launch, equal to the plain version bit for bit, the
+    overflow flags included; cap 5's 10 slots take the scalar stores."""
     x, kw = _tokenize_case(case)
     want = tok.tokenize_bins_plain(x, ndigits_cap=cap, **kw)
     kw_d = dict(kw, tail=kw["tail"].to(dev)) if "tail" in kw else kw
@@ -269,24 +269,71 @@ def test_tokenize_matches_plain(dev, case, cap):
         assert bool(want[1].all()) == (cap < 4)
 
 
-def test_tokenize_with_given_tiles_and_no_host_sync(dev):
-    """The sharded path's call: change_tiles first, then the main pass with
-    those tiles and a tail, all under set_sync_debug_mode("error")."""
+def test_tokenize_with_first_change_and_no_host_sync(dev):
+    """The sharded path's call: first_change, then the kernel with a tail,
+    all under set_sync_debug_mode("error")."""
     x, kw = _tokenize_case("sharded")
     want = tok.tokenize_bins_plain(x, ndigits_cap=C.MAX_RUN_DIGITS, **kw)
-    np.testing.assert_array_equal(
-        tok.change_tiles(x.to(dev), halo=kw["halo"], g0=kw["g0"], n_total=kw["n_total"]).cpu().numpy(),
-        tok.change_tiles_plain(x, halo=kw["halo"], g0=kw["g0"], n_total=kw["n_total"]).numpy())
-    x_d, kw_d = x.to(dev), dict(kw, tail=kw["tail"].to(dev))
-    tok.tokenize_bins(x_d, ndigits_cap=C.MAX_RUN_DIGITS, **kw_d)  # builds the library outside the check
+    img = make_image(64, 40, 3)  # the raster of _tokenize_case("sharded"): ranks 2 and 3 give the tail
+    img[29:37] = img[29, 0]
+    flat, halo, n_local = torch.from_numpy(img.reshape(1, -1, 3)), tok.halo_pixels(40), 16 * 40
+    later = [(flat[:, r * n_local - halo : (r + 1) * n_local].contiguous(), dict(halo=halo, g0=r * n_local,
+                                                                               n_total=64 * 40)) for r in (2, 3)]
+    firsts = [tok.first_change_plain(xr, **at) for xr, at in later]
+    assert torch.equal(torch.cat(firsts), kw["tail"])
+    for (xr, at), f in zip(later, firsts):
+        assert torch.equal(tok.first_change(xr.to(dev), **at).cpu(), f)
+    x_d, later_d = x.to(dev), [(xr.to(dev), at) for xr, at in later]
+    tok.tokenize_bins(x_d, ndigits_cap=C.MAX_RUN_DIGITS, **dict(kw, tail=kw["tail"].to(dev)))  # builds the library
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        tiles = tok.change_tiles(x_d, halo=kw["halo"], g0=kw["g0"], n_total=kw["n_total"])
-        got = tok.tokenize_bins(x_d, ndigits_cap=C.MAX_RUN_DIGITS, tiles=tiles, **kw_d)
+        tail = torch.cat([tok.first_change(xr, **at) for xr, at in later_d])
+        got = tok.tokenize_bins(x_d, ndigits_cap=C.MAX_RUN_DIGITS, **dict(kw, tail=tail))
     finally:
         torch.cuda.set_sync_debug_mode("default")
     _same(tuple(g.cpu() for g in got), want)
+
+
+@pytest.mark.parametrize("case", ["constant", "last_pixel", "W4"])
+def test_first_change_matches_plain(dev, case):
+    """Each image's first change, at g0 = 0 and past a halo."""
+    x, _ = _tokenize_case(case)
+    for halo, g0 in ((0, 0), (64, 5000)):
+        at = dict(halo=halo, g0=g0, n_total=g0 + x.shape[1] - halo)
+        np.testing.assert_array_equal(tok.first_change(x.to(dev), **at).cpu().numpy(),
+                                      tok.first_change_plain(x, **at).numpy())
+
+
+def test_tokenize_on_an_unaligned_view(dev):
+    """A contiguous view whose data starts 3 bytes past a word: the kernel
+    stages it pixel by pixel, with the same result."""
+    x, kw = _tokenize_case("W1100")
+    view = x.to(dev)[1:2, 1:]
+    assert view.is_contiguous() and view.data_ptr() % 4
+    kw = dict(kw, n_total=view.shape[1])
+    _same(tuple(g.cpu() for g in tok.tokenize_bins(view, ndigits_cap=3, **kw)),
+          tok.tokenize_bins_plain(view.cpu(), ndigits_cap=3, **kw))
+
+
+def test_tokenize_calls_agree_and_reset(dev):
+    """20 back-to-back calls give equal outputs (the scratch's tickets and
+    words are reset each call), at 64 images: more blocks than fit on the
+    card at once."""
+    x = _flat([make_image(64, 64, s % 5) for s in range(64)])
+    kw = dict(width=64, halo=0, g0=0, n_total=x.shape[1], ndigits_cap=3, invalid_bin=encode2.INVALID_BIN)
+    want = tok.tokenize_bins_plain(x, **kw)
+    x_d = x.to(dev)
+    calls = [tok.tokenize_bins(x_d, **kw) for _ in range(20)]
+    for got in calls:
+        _same(tuple(g.cpu() for g in got), want)
+
+
+def test_tokenize_refuses_what_the_kernel_does_not_take(dev):
+    """A CUDA tensor the kernel refuses raises; it never reaches the plain version."""
+    x = torch.zeros(65536, 8, 3, dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):
+        tok.tokenize_bins(x, width=4, halo=0, g0=0, n_total=8, ndigits_cap=3, invalid_bin=1023)
 
 
 # ---------------------------------------------------------------------------
