@@ -35,18 +35,21 @@ Phases, one printed line or block each; any failure exits nonzero:
      exact with the overflow flags expected; 20 back-to-back calls equal;
      one call's device operations (torch.profiler) are its kernel and a
      memset, the sharded path's first_change and that kernel; it is timed
-     at 8 x 512x512 and at 4096x4096; the decode tables kernels
-     (decode3.prepare_tables_v3 -> decode_tables, decode3.derive_walk_tables
-     -> walk_tables, one launch each) take the code lengths of the main
-     path's first batch (int32 from encode_fused_core, and again as int64,
-     as the decode from bytes and the sharded decode upload them), of
+     at 8 x 512x512 and at 4096x4096; the decode tables kernel
+     (decode3.prepare_tables_v3(walk=True) -> decode_tables: all ten tables,
+     the walk's with the rest, in one launch) takes the code lengths of the
+     main path's first batch (int32 from encode_fused_core, and again as
+     int64, as the decode from bytes and the sharded decode upload them), of
      soccer0's committed stream, the deep, single-length, bad-value,
-     past-2^32 and Kraft rows of tests/_decode_table_rows.py (tables_ok
-     false where it must be) and B = 1 and 32, and walk_tables also the
-     rows' arbitrary words, each exact against its plain version; then
-     encode_fused_core -> prepare_tables_v3 -> derive_walk_tables run under
-     torch.cuda.set_sync_debug_mode("error"): no host sync; both are timed
-     at the main path's 8 images; the decode
+     past-2^32, Kraft and straddle rows of tests/_decode_table_rows.py
+     (tables_ok false where it must be) and B = 1 and 32, the ten and the
+     seven alone each exact against the plain pair; walk_tables
+     (decode3.derive_walk_tables, off the decode paths) takes the rows'
+     arbitrary words; then encode_fused_core -> prepare_tables_v3(walk=True)
+     runs under torch.cuda.set_sync_debug_mode("error"): one launch, no host
+     sync; a tables call is one device operation; the kernel is timed at
+     B = 1, 8 and 32 beside an empty kernel's launch and one call's host
+     microseconds beside the earlier two calls'; the decode
      kernels take the words, tables and records of a real 512x512x8 encode
      at the fast rung (the reconstruction's plain version, one step per
      pixel, is compared on the first 32 rows of each image), and then a
@@ -62,17 +65,19 @@ Phases, one printed line or block each; any failure exits nonzero:
   5. the main path: the same 64 images through
      nicetpu_torch.roundtrip_batch(device=dev.type) in 8 batches of 8: every
      image verified on the device, 0 fallbacks, every blob equal to the
-     native encoder's, all ten kernels launched in every batch; MB/s and
-     per-stage milliseconds of the round trip;
+     native encoder's, the nine kernels of the path launched in every
+     batch and walk_tables never (the walk's tables come with the decode
+     tables, once a batch); MB/s and per-stage milliseconds of the round
+     trip;
   6. decode the 64 blobs with nicetpu_torch.decode_batch(device=dev.type):
      exact arrays, 0 fallbacks, the decode tables and decode kernels
-     launched in every batch; MB/s;
+     launched in every batch, walk_tables never; MB/s;
   7. the round trip of one 4096x4096 image, with peak device memory;
   8. the scheduler: the 64 images as 8 uploaded batches of 8 through
      pipeline.roundtrip_hybrid, with one GPU worker, with two, and with one
      and two GPU workers beside one host worker: results complete and in order, every
      blob equal to the native encoder's, every array equal to its image, 0
-     fallbacks, every kernel launched at least once per GPU batch; MB/s and
+     fallbacks, every path kernel launched at least once per GPU batch; MB/s and
      the GPU/host split of each run; then the 64 images through
      Pipeline.encode_many with the pool at its default width and at 1, 2
      and 4 threads, every blob equal to the native encoder's; MB/s of each;
@@ -89,8 +94,8 @@ Phases, one printed line or block each; any failure exits nonzero:
      4096x4096 raster through encode_sharded and decode_sharded as 4 gloo
      ranks on the one card (NCCL will not put two ranks on one GPU; the
      contexts time-slice, so the timing says nothing of scaling): bytes
-     equal to the native encoder's, raster exact, 0 fallbacks, all ten
-     kernels launched on every rank, seconds, MB/s and per-rank stage
+     equal to the native encoder's, raster exact, 0 fallbacks, the nine
+     path kernels launched on every rank, seconds, MB/s and per-rank stage
      times; (c) decode_batch_sharded of 8 of the 512x512 blobs over the
      same 4 ranks, exact; (d) dryrun_multichip over one NCCL rank.  The
      spawned ranks run under a time limit of their own;
@@ -112,7 +117,7 @@ Phases, one printed line or block each; any failure exits nonzero:
      (fallbacks 1), equal to the raster;
  13. the real-photo corpus (nicetpu_torch/data/realcorpus/, 8 images) at full
      size: each image through roundtrip_batch on the card, its bytes equal
-     to the committed file, every kernel launched where the fused encode
+     to the committed file, every path kernel launched where the fused encode
      did not overflow; per image the ratio, verified, retries, fallbacks,
      overflow fallbacks and the gates of every rung that fails on its bytes
      (rung_probe.single_device); each image's round-trip stage times and
@@ -154,8 +159,11 @@ shape.  The line before the last is the kernels' JSON record (launches from
 phase 5, the two-step path's launches from phase 15, rank 0's on the sharded
 path of phase 10, bench_profile's and bench_decode_profile's from phase
 16, the histogram's and the fold's and the tokenizer's figures at 16
-slots a pixel, the Huffman kernel's times at B = 1, 8 and 32, and the
-tokenizer's at 4096x4096); the last line is
+slots a pixel, the Huffman kernel's times at B = 1, 8 and 32, the
+tokenizer's at 4096x4096, and the decode tables' at B = 1, 8 and 32 with
+the empty-launch floor and the host microseconds; walk_tables, off the
+main path, has `on_main_path` false, 0 launches there and its launches in
+bench_decode_profile); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -173,8 +181,9 @@ import numpy as np
 import torch
 
 import nicetpu_torch
-from nicetpu_torch import (bench, bench_all, bench_decode_profile, bench_huffman_dev, bench_multihost,
-                           bench_profile, bench_real, bench_trace, cli, pipeline, realcorpus, rung_probe)
+from nicetpu_torch import (bench, bench_all, bench_decode_profile, bench_decode_tables, bench_huffman_dev,
+                           bench_multihost, bench_profile, bench_real, bench_trace, cli, pipeline, realcorpus,
+                           rung_probe)
 from nicetpu_torch.bench import card_line, make_image
 from nicetpu_torch.config import RuntimeConfig
 from nicetpu_torch.convert import from_int32_bits, tables_from_numpy
@@ -226,13 +235,17 @@ REPLACES = {
                       "not Pallas)",
     "tokenize": "nicetpu/kernels/encode2.py:46 _tokenize_core (jnp inside the jitted tokenize_compact :72 and "
                 "encode_fused :450; not Pallas)",
-    "decode_tables": "nicetpu/kernels/decode3.py:1143 prepare_tables_v3_jnp (jnp inside the jitted round trip "
-                     ":1619, jitted at :1646; not Pallas)",
-    "walk_tables": "nicetpu/kernels/decode3.py:180 derive_walk_tables (jnp inside the jitted decode core :943, "
-                   "jitted at :1044; not Pallas)",
+    "decode_tables": "nicetpu/kernels/decode3.py:1143 prepare_tables_v3_jnp and :180 derive_walk_tables of its "
+                     "tables (jnp inside the jitted round trip :1619, jitted at :1646, and decode core :943; not "
+                     "Pallas)",
+    "walk_tables": "nicetpu/kernels/decode3.py:180 derive_walk_tables on any tables (jnp inside the jitted decode "
+                   "core :943, jitted at :1044; not Pallas); on the decode paths through decode_tables",
 }
+# what a batch of the round trip launches: every kernel but walk_tables,
+# whose tables come with the decode tables
+PATH_KERNELS = tuple(k for k in REPLACES if k != "walk_tables")
 # the two-step encode (api.encode, the CLI) builds its Huffman tables on the host
-HOST_TABLE_KERNELS = tuple(k for k in REPLACES if k != "huffman_tables")
+HOST_TABLE_KERNELS = tuple(k for k in PATH_KERNELS if k != "huffman_tables")
 # main path shapes: 8 images of 512x512, 8 token slots per pixel, 8 pixels a group
 B, N, W512 = 8, 512 * 512, 512
 M, MG, S = N * 8, N // 8, 64
@@ -466,16 +479,27 @@ TOKENIZE_KERNEL = "tokenize_kernel"
 TOKENIZE_REPEATS = 20  # back-to-back calls that must agree: the per-call reset of tickets and words
 
 
+PROFILE_SESSIONS = 3  # a later profiler session in one process may trace no device operation at all
+
+
 def device_ops(fn) -> list:
-    """Names of the device operations one call of fn runs (torch.profiler)."""
+    """Names of the device operations one call of fn runs (torch.profiler).
+    Every fn given here launches at least one, so a session that traces
+    none failed to trace: it is taken again, up to PROFILE_SESSIONS in all,
+    and the last one's names (empty only if every session was) returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(PROFILE_SESSIONS):
         torch.cuda.synchronize()
-    on_dev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA), key=lambda e: e.time_range.start)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        on_dev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if on_dev:
+            break
+        print("[profile] a profiler session traced no device operation: taken again", flush=True)
     return [e.name for e in on_dev]
 
 
@@ -618,34 +642,48 @@ def tokenize_kernel(dev) -> dict:
     return out
 
 
-def main_lengths(dev, n: int) -> torch.Tensor:
-    """(n, 858) int32 code lengths of make_image(512, 512, s) for s < n, as
-    encode_fused_core gives them to the round trip's prepare_tables_v3 (an
-    image's lengths do not depend on its batch)."""
-    flat = pipeline.upload_batch([make_image(W512, W512, s) for s in range(n)], dev)
-    return encode_fused_core(flat, width=W512, ndigits_cap=3, w_cap=pipeline.w_cap(N))[1]
+# decode_tables_kernel's integer operations an image, counted from its
+# source: 33 a symbol (address, load, range check and clamp, the match, rank
+# and count store; the slot's two shared loads, sums and stores) for 858
+# symbols, 4 a (chunk, length) in the offset scan, and 130 a (stream,
+# length) lane (two 5-step scans, one of them 64 bits wide, the Kraft total,
+# the six stores, and the walk's suffix minimum, ballot, forward fill and
+# three stores); walk_tables_kernel's 50 a (stream, length) lane
+DECODE_TABLES_OPS_PER_IMAGE = 33 * 858 + 4 * 29 * 32 + 130 * 320
+WALK_TABLES_OPS_PER_IMAGE = 50 * 320
+DECODE_TABLES_B = (1, 8, 32)
+DECODE_TABLES_EARLIER = ("two launches at B = 8 on an H100 80GB HBM3 at 700 W: decode_tables_kernel 0.0060 ms (one "
+                         "warp a stream, 320 threads an image, the 343-symbol stream in 22 serial chunk steps) and "
+                         "walk_tables_kernel 0.0023 ms")
+HOST_REPS = 200  # calls whose median host time is read
 
 
 def decode_tables_kernels(dev) -> dict:
-    """The decode tables' two kernels against their plain versions, exact,
-    on every listed input; one fused encode -> tables -> walk tables with no
-    host sync; their times at the main path's 8 images."""
-    lens32 = main_lengths(dev, 32)
+    """The decode tables kernel (all ten tables, and the seven alone) and
+    the walk_tables kernel against their plain versions, exact, on every
+    listed input; one fused encode -> tables with no host sync in one
+    launch; a call's device operations; times at B = 1, 8 and 32 beside an
+    empty kernel's, and one call's host microseconds."""
+    lens32 = bench_decode_tables.main_lengths(dev, 32)
     lens = lens32[:B].contiguous()  # the main path's first batch
     rows = {f"main path {B} x 512^2 (int32)": lens, "main path, int64": lens.to(torch.int64), "B=1": lens[:1],
             "B=32": lens32}
     rows.update({name: _table_rows.LENGTH_ROWS[name]()
-                 for name in ("soccer0", "deep", "single_length", "bad_values", "past_2_32", "kraft")})
+                 for name in ("soccer0", "deep", "single_length", "bad_values", "past_2_32", "kraft", "straddle")})
+
+    def plain_pair(x):
+        tables = decode3.prepare_tables_v3_plain(x)
+        return tables + decode3.derive_walk_tables_plain(*tables[:3])
+
     for name, row in rows.items():
         row = row if isinstance(row, torch.Tensor) else torch.from_numpy(row).to(dev)
-        got, want = decode3.prepare_tables_v3(row), decode3.prepare_tables_v3_plain(row)
-        got_w, want_w = decode3.derive_walk_tables(*got[:3]), decode3.derive_walk_tables_plain(*want[:3])
+        got, seven, want = decode3.prepare_tables_v3(row, walk=True), decode3.prepare_tables_v3(row), plain_pair(row)
         torch.cuda.synchronize()
-        check(all(torch.equal(g, w) for g, w in zip(got, want)), f"decode_tables differs on {name}")
-        check(all(torch.equal(g, w) for g, w in zip(got_w, want_w)), f"walk_tables differs on {name}")
-        print(f"[kernel] decode_tables and walk_tables on {name} {tuple(row.shape)} {row.dtype}: exact; "
-              f"tables_ok {got[-1].tolist() if row.shape[0] <= 8 else bool(got[-1].all())}")
-    check(bool(decode3.prepare_tables_v3(lens)[-1].all()), "the main path's tables are not all valid")
+        check(len(got) == 10 and all(torch.equal(g, w) for g, w in zip(got, want)), f"decode_tables differs on {name}")
+        check(all(torch.equal(g, w) for g, w in zip(seven, want[:7])), f"decode_tables' seven differ on {name}")
+        print(f"[kernel] decode_tables (ten, and the seven alone) on {name} {tuple(row.shape)} {row.dtype}: exact; "
+              f"tables_ok {got[6].tolist() if row.shape[0] <= 8 else bool(got[6].all())}")
+    check(bool(decode3.prepare_tables_v3(lens)[6].all()), "the main path's tables are not all valid")
     for name, make in _table_rows.WALK_ROWS.items():
         words = [torch.from_numpy(x).to(dev) for x in make()]
         got, want = decode3.derive_walk_tables(*words), decode3.derive_walk_tables_plain(*words)
@@ -657,47 +695,61 @@ def decode_tables_kernels(dev) -> dict:
     kw = dict(width=W512, ndigits_cap=3, w_cap=pipeline.w_cap(N))
 
     def fused():
-        lengths = encode_fused_core(flat, **kw)[1]
-        tables = decode3.prepare_tables_v3(lengths)
-        return tables, decode3.derive_walk_tables(*tables[:3])
+        return decode3.prepare_tables_v3(encode_fused_core(flat, **kw)[1], walk=True)
 
     fused()
     torch.cuda.synchronize()
     cuda_ops.reset_launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        tables, walk_t = fused()
+        tables = fused()
     finally:
         torch.cuda.set_sync_debug_mode("default")
     launches = dict(cuda_ops.LAUNCHES)
-    check(launches["decode_tables"] == 1 and launches["walk_tables"] == 1,
-          f"the decode tables took other than one launch each: {launches}")
-    want = decode3.prepare_tables_v3_plain(lens)
+    check(launches["decode_tables"] == 1 and launches["walk_tables"] == 0,
+          f"the ten tables took other than one launch: {launches}")
+    want = plain_pair(lens)
     check(all(torch.equal(g, w) for g, w in zip(tables, want)), "the synchronization-free tables differ")
-    check(all(torch.equal(g, w) for g, w in zip(walk_t, decode3.derive_walk_tables_plain(*want[:3]))),
-          "the synchronization-free walk tables differ")
-    print(f"[kernel] encode_fused_core -> prepare_tables_v3 -> derive_walk_tables of {B} x 512x512 under "
+    print(f"[kernel] encode_fused_core -> prepare_tables_v3(walk=True) of {B} x 512x512 under "
           f"torch.cuda.set_sync_debug_mode('error'): no host sync; launches={launches}", flush=True)
 
-    names = device_ops(lambda: decode3.derive_walk_tables(*decode3.prepare_tables_v3(lens)[:3]))
-    check(len(names) == 2 and "decode_tables_kernel" in names[0] and "walk_tables_kernel" in names[1],
+    names = device_ops(lambda: decode3.prepare_tables_v3(lens, walk=True))
+    check(len(names) == 1 and "decode_tables_kernel" in names[0],
           f"a decode tables call ran other device operations than its kernel: {names}")
     n_plain = [len(device_ops(lambda: decode3.prepare_tables_v3_plain(lens))),
                len(device_ops(lambda: decode3.derive_walk_tables_plain(*want[:3])))]
-    print(f"[kernel] prepare_tables_v3 -> derive_walk_tables at {B} images: device operations {names}; the plain "
-          f"versions run {n_plain[0]} and {n_plain[1]} device operations (torch.profiler)", flush=True)
+    print(f"[kernel] prepare_tables_v3(walk=True) at {B} images: device operations {names}; the plain versions "
+          f"run {n_plain[0]} and {n_plain[1]} device operations (torch.profiler)", flush=True)
     out = {"decode_tables": compare(
-        "decode_tables", lambda: decode3.prepare_tables_v3(lens), lambda: decode3.prepare_tables_v3_plain(lens),
-        plain_reps=3, note=f" (one launch a call; the plain version {n_plain[0]} device operations)")}
-    got = decode3.prepare_tables_v3(lens)
-    # both kernels are bounded by the bytes they move alone: no operation count is made for them
-    out["decode_tables"].update(bound(nbytes(lens, *got), 0))
+        "decode_tables", lambda: decode3.prepare_tables_v3(lens, walk=True), lambda: plain_pair(lens),
+        plain_reps=3, note=f" (all ten tables in one launch; the plain pair {sum(n_plain)} device operations)")}
+    got = decode3.prepare_tables_v3(lens, walk=True)
+    out["decode_tables"].update(bound(nbytes(lens, *got), DECODE_TABLES_OPS_PER_IMAGE * B))
     af, pr, ib = got[:3]
     out["walk_tables"] = compare(
         "walk_tables", lambda: decode3.derive_walk_tables(af, pr, ib),
         lambda: decode3.derive_walk_tables_plain(af, pr, ib), plain_reps=5,
-        note=f" (one launch a call; the plain version {n_plain[1]} device operations)")
-    out["walk_tables"].update(bound(nbytes(af, pr, ib, *decode3.derive_walk_tables(af, pr, ib)), 0))
+        note=f" (arbitrary tables, off the decode paths; the plain version {n_plain[1]} device operations)")
+    out["walk_tables"].update(bound(nbytes(af, pr, ib, *got[7:]), WALK_TABLES_OPS_PER_IMAGE * B))
+
+    # the one launch at B = 1, 8, 32 beside the seven alone, the earlier
+    # design's two launches (this source's kernels) and an empty kernel
+    at = {b: lens32[:b] for b in DECODE_TABLES_B}
+    ms_at = {b: cuda_ms(lambda: decode3.prepare_tables_v3(at[b], walk=True), 20) for b in DECODE_TABLES_B}
+    seven_at = {b: cuda_ms(lambda: decode3.prepare_tables_v3(at[b]), 20) for b in DECODE_TABLES_B}
+    pair_at = {b: cuda_ms(lambda: decode3.derive_walk_tables(*decode3.prepare_tables_v3(at[b])[:3]), 20)
+               for b in DECODE_TABLES_B}
+    empty = bench_decode_tables.empty_launch_ms(dev)
+    host = {"one call": bench_decode_tables.host_us(lambda x: decode3.prepare_tables_v3(x, walk=True), lens,
+                                                     HOST_REPS),
+            "two calls": bench_decode_tables.host_us(
+                lambda x: decode3.derive_walk_tables(*decode3.prepare_tables_v3(x)[:3]), lens, HOST_REPS)}
+    out["decode_tables"].update(ms_at_B=ms_at, seven_ms_at_B=seven_at, two_launches_ms_at_B=pair_at,
+                                empty_launch_ms=empty, host_us=host)
+    print(f"[kernel] decode_tables at B = {DECODE_TABLES_B}: the ten in one launch {json.dumps(ms_at)} ms, the seven "
+          f"alone {json.dumps(seven_at)} ms, seven then walk_tables (two launches) {json.dumps(pair_at)} ms; an "
+          f"empty kernel (blocks x threads) {json.dumps(empty)} ms; host us of one call without a sync (median of "
+          f"{HOST_REPS}): {json.dumps(host)}; earlier: {DECODE_TABLES_EARLIER}", flush=True)
     for name in ("decode_tables", "walk_tables"):
         r = out[name]
         print(f"[kernel] {name} at {B} images: {r['ms']:.4f} ms, bound {r['bound_ms']:.6f} ms by {r['bound_by']} "
@@ -759,8 +811,7 @@ def phase_decode_kernels(dev) -> dict:
     w_cap = decode3.roundtrip_cap_words(N)
     words, lengths, totals, ovf = encode_fused_core(flat, width=W512, ndigits_cap=3, w_cap=w_cap)
     check(not bool(ovf.any()), "the kernel phase's encode overflowed")
-    af, pr, ib, pfx, sym_tbl, _, ok = decode3.prepare_tables_v3(lengths)
-    aff, dD, inc = decode3.derive_walk_tables(af, pr, ib)
+    af, pr, ib, pfx, sym_tbl, _, ok, aff, dD, inc = decode3.prepare_tables_v3(lengths, walk=True)
     wi = decode3._fit_words(words, decode3._wcap_one((32 * (w_cap - 2)) // 8, cfg))
     wbits = totals.to(torch.int32)
     nch = (wi.shape[1] - decode3._wrows(cfg.chunk_bits)) // (cfg.chunk_bits // 32)
@@ -989,7 +1040,8 @@ def phase_roundtrip(dev, imgs, refs) -> tuple[dict, list]:
           f"{mb / seconds:.2f} MB/s round trip; batch ms median {np.median(batch_ms):.3f} "
           f"max {max(batch_ms):.3f}; verified on the device {sum(verified)}/64; "
           f"launches={launches}; stats={stats} (retries {stats.get('retries')})")
-    launch_counts_rise(per_batch, REPLACES)
+    launch_counts_rise(per_batch, PATH_KERNELS)
+    check(launches["walk_tables"] == 0, f"the round trip derived the walk tables apart: {launches}")
     check(all(verified), "an image was not verified on the device")
     check(stats.get("fallbacks") == 0 and stats.get("overflow_fallbacks") == 0, f"fallbacks: {stats}")
     check(blobs == refs, "a round-trip blob differs from the native encoder's")
@@ -1019,6 +1071,7 @@ def phase_decode(dev, imgs, blobs) -> None:
     print(f"[decode] 64 blobs in 8 batches of 8: {seconds:.4f} s, {mb / seconds:.2f} MB/s decode; "
           f"launches={dict(cuda_ops.LAUNCHES)}; stats={stats}")
     launch_counts_rise(per_batch, DECODE_KERNELS)
+    check(per_batch[-1]["walk_tables"] == 0, f"the decode derived the walk tables apart: {per_batch[-1]}")
     check(stats.get("fallbacks") == 0, f"decode fallbacks: {stats}")
     check(all(np.array_equal(o, im) for o, im in zip(out, imgs)), "a decoded image differs")
     print("[decode] 64/64 decoded arrays equal their images")
@@ -1038,7 +1091,8 @@ def phase_roundtrip_big(dev, img, ref) -> None:
     check(datas[0] == ref, "4096^2 round-trip blob differs from the native encoder's")
     check(bool(verified[0]), f"4096^2 image not verified on the device: {stats}")
     check(stats.get("fallbacks") == 0 and stats.get("overflow_fallbacks") == 0, f"4096^2: {stats}")
-    launch_counts_rise([launches], REPLACES)
+    launch_counts_rise([launches], PATH_KERNELS)
+    check(launches["walk_tables"] == 0, f"the 4096^2 round trip derived the walk tables apart: {launches}")
     per = {k: round(v, 4) for k, v in instrumented_roundtrip(dev, [img], [ref]).items()}
     print(f"[roundtrip-big] 4096x4096 RGB8: {seconds:.4f} s, {img.nbytes / 1e6 / seconds:.2f} MB/s "
           f"round trip, verified on the device, blob equals native, peak device memory "
@@ -1068,8 +1122,8 @@ def phase_scheduler(dev, imgs, refs) -> None:
               f"the scheduler's split does not add up: {stats}")
         check(cpu_threads > 0 or stats["gpu_batches"] == 8, f"host batches without a host worker: {stats}")
         check(stats["fallbacks"] == 0 and stats["overflow_fallbacks"] == 0, f"scheduler fallbacks: {stats}")
-        check(all(launches[k] >= stats["gpu_batches"] for k in REPLACES),
-              f"a kernel was launched fewer times than there were GPU batches: {launches}")
+        check(all(launches[k] >= stats["gpu_batches"] for k in PATH_KERNELS) and launches["walk_tables"] == 0,
+              f"a kernel was launched fewer times than there were GPU batches, or walk_tables at all: {launches}")
     # the thread pool: the same 64 images through Pipeline.encode_many, the
     # pool at its default width on the card (workers None) and at 1, 2 and 4
     for workers in (None, 1, 2, 4):
@@ -1286,17 +1340,17 @@ def phase_sharded(dev, big, big_ref, imgs, blobs) -> dict:
         check(r["raster_equal"], f"rank {r['rank']}: the sharded decode differs from the image")
         check(r["encode_stats"]["overflow_fallbacks"] == 0 and r["decode_stats"]["fallbacks"] == 0,
               f"rank {r['rank']}: sharded fallbacks {r['encode_stats']} {r['decode_stats']}")
-        check(all(r["launches"][k] >= 1 for k in REPLACES),
-              f"rank {r['rank']} did not launch every kernel on the sharded path: {r['launches']}")
+        check(all(r["launches"][k] >= 1 for k in PATH_KERNELS) and r["launches"]["walk_tables"] == 0,
+              f"rank {r['rank']} did not launch every kernel on the sharded path, or walk_tables: {r['launches']}")
         check(r["batch_equal"] and r["batch_stats"] == {"retries": 0, "fallbacks": 0},
               f"rank {r['rank']}: decode_batch_sharded differs or fell back: {r['batch_stats']}")
     print(f"[sharded] every rank: bytes equal hostref.encode_native, raster exact, 0 fallbacks, "
-          f"all ten kernels launched; decode_batch_sharded of 8 512x512 blobs over {SHARDS} ranks "
+          f"all nine path kernels launched, walk_tables never; decode_batch_sharded of 8 512x512 blobs over {SHARDS} ranks "
           f"exact in {max(r['batch_s'] for r in res):.4f} s")
     rank0_launches = res[0]["launches"]
     left = SHARDED_TIMEOUT - (time.perf_counter() - t_phase)
     res = launch.dryrun_multichip(1, "nccl", "cuda", timeout=left)
-    check(all(v >= 1 for v in res[0]["launches"].values()), f"the NCCL dry run skipped a kernel: {res}")
+    check(all(res[0]["launches"][k] >= 1 for k in PATH_KERNELS), f"the NCCL dry run skipped a kernel: {res}")
     print(f"[sharded] dryrun_multichip(1, 'nccl', 'cuda'): exact, launches={res[0]['launches']}; "
           f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
     return rank0_launches
@@ -1380,7 +1434,7 @@ def phase_real(dev) -> None:
         check(bool(verified[0]) or stats["fallbacks"] + stats["overflow_fallbacks"] == 1,
               f"{name}: neither verified on the device nor counted: {stats}")
         if not stats["overflow_fallbacks"]:
-            check(all(launches[k] >= 1 for k in REPLACES), f"{name} skipped a kernel: {launches}")
+            check(all(launches[k] >= 1 for k in PATH_KERNELS), f"{name} skipped a kernel: {launches}")
         failed = [{"rung": r["rung"], "gates": r["gates"]} for r in rung_probe.single_device(dev, img, ref)
                   if not all(r["gates"].values())]
         for k in ("retries", "fallbacks", "overflow_fallbacks"):
@@ -1481,7 +1535,7 @@ def phase_single_large(dev) -> None:
 
 S11 = 5 + C.MAX_RUN_DIGITS  # token slots a pixel at the 11-digit layout
 ENCODE_KERNELS = ("tokenize", "histogram", "table_join", "fold_records")
-DECODE_KERNELS = ("decode_tables", "walk_tables", "walk", "value_join", "reconstruct_rows")
+DECODE_KERNELS = ("decode_tables", "walk", "value_join", "reconstruct_rows")
 FUSED_ENCODE_KERNELS = ENCODE_KERNELS + ("huffman_tables",)  # tables built on the device
 
 
@@ -1706,7 +1760,7 @@ def main() -> int:
 
     record = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-         "launches": launches[name], **kernels[name], "twostep_launches": twostep_launches[name],
+         "launches": launches[name], "on_main_path": name in PATH_KERNELS, **kernels[name], "twostep_launches": twostep_launches[name],
          "sharded_launches": sharded_launches[name],
          "bench_profile_launches": profile_launches["bench_profile"][name],
          "bench_decode_profile_launches": profile_launches["bench_decode_profile"][name],

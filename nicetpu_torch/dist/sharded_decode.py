@@ -147,8 +147,7 @@ def _decode_block(data: bytes, comm: Comm, device: torch.device, cfg, stats):
     flat_lengths = headers.parse_stream_headers(data[C.FILE_HEADER_BYTES :])
     validate_flat_lengths(flat_lengths)
     lens = torch.from_numpy(flat_lengths.astype(np.int64)[None]).to(device)
-    af, pr, ib, pfx, sym_tbl, _, _ = decode3.prepare_tables_v3(lens)
-    aff, dD, inc = decode3.derive_walk_tables(af, pr, ib)
+    _, _, _, pfx, sym_tbl, _, _, aff, dD, inc = decode3.prepare_tables_v3(lens, walk=True)
     wbits = decode3.payload_bits(data)
     nlc, steps = shard_geometry(wbits, n, cfg)
     payload = memoryview(data)[C.FILE_HEADER_BYTES + C.STREAM_HEADERS_BYTES : len(data) - 4]

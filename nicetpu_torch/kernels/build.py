@@ -100,7 +100,7 @@ def load() -> ctypes.CDLL:
             "nt_first_change": [vp, vp, i32, i64, i64, i64, i64, i64, i32, vp],
             "nt_tokenize_bins": [vp, vp, i32, vp, vp, i64, i64, i32, i64, i64, i64, i64, i64, i32, i32,
                                  i32, i32, vp],
-            "nt_decode_tables": [vp, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, vp],
+            "nt_decode_tables": [vp, i32, vp, i32, i32, i32, vp],
             "nt_walk_tables": [vp, vp, vp, vp, vp, vp, i32, i32, vp],
         }
         for name, argtypes in signatures.items():

@@ -9,7 +9,8 @@ Huffman tables (`csrc/huffman_kernels.cu`, the counterpart of JAX's jitted
 dispatched by `tokenize.tokenize_bins`) and the decode tables
 (`csrc/decode_tables_kernels.cu`, the counterparts of JAX's jnp
 `prepare_tables_v3_jnp` and `derive_walk_tables`; dispatched by
-`decode3.prepare_tables_v3` and `decode3.derive_walk_tables`).  `LAUNCHES`
+`decode3.prepare_tables_v3`, which builds all ten tables in one launch,
+and `decode3.derive_walk_tables` for arbitrary tables).  `LAUNCHES`
 also counts the walk (`decode3.walk`) and the row reconstruction
 (`recon.reconstruct_rows`).
 Each kernel has
@@ -29,6 +30,8 @@ Tensors carrying uint32 values (codes, records) are int32 bit patterns.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 import threading
 
 import torch
@@ -383,32 +386,56 @@ def tokenize(x_ext, tail, *, width: int, halo: int, g0: int, n_total: int, ndigi
 TABLE_LENGTHS = 32  # code lengths 0..31 a stream in af/present/ib/aff/dD/inc
 
 
-def decode_tables(lens: torch.Tensor):
+@functools.lru_cache(maxsize=None)
+def _table_layout(B: int, walk: bool) -> tuple:
+    """Where `decode_tables`' outputs lie in its one buffer, in the kernel's
+    order (nt_decode_tables): ((shape, strides, int32 offset) of af,
+    present, ib, pfx16, sym_tbl, stream_max[, aff, dD, inc]), tables_ok's
+    byte offset, and the buffer's bytes (whole int32 words)."""
+    row = (B, C.NUM_STREAMS, TABLE_LENGTHS)
+    shapes = [row] * 3 + [(B, 1, 16), (B, NSYM), (B, C.NUM_STREAMS)] + [row] * (3 * walk)
+    tables, at = [], 0
+    for shape in shapes:
+        strides = tuple(math.prod(shape[k + 1 :]) for k in range(len(shape)))
+        tables.append((shape, strides, at))
+        at += math.prod(shape)
+    return tuple(tables), 4 * at, 4 * (at + -(-B // 4))
+
+
+def _carve_tables(buf: torch.Tensor, B: int, walk: bool) -> tuple:
+    """The tables of `decode_tables` as contiguous views of its one bool
+    buffer, in the wrapper's order: tables_ok (the buffer's bytes at its
+    offset) seventh.  One `as_strided` a table: the cheapest view to make."""
+    layout, ok_at, _ = _table_layout(B, walk)
+    words = buf.view(torch.int32)
+    tables = [words.as_strided(shape, strides, at) for shape, strides, at in layout]
+    tables.insert(6, buf[ok_at : ok_at + B])
+    return tuple(tables)
+
+
+def decode_tables(lens: torch.Tensor, *, walk: bool = False):
     """(B, 858) int32 or int64 code lengths -> (af, present, ib (B, 10, 32),
     pfx16 (B, 1, 16), sym_tbl (B, 858), stream_max (B, 10), all int32, and
-    tables_ok (B,) bool), in one launch that reads nothing back to the host.
-    Equal to `decode3.prepare_tables_v3_plain` for any lengths."""
+    tables_ok (B,) bool), and where walk is true also the walk's (aff, dD,
+    inc), each (B, 10, 32) int32: ten tables in one launch that reads
+    nothing back to the host.  The outputs are contiguous views of one
+    allocation.  Equal to `decode3.prepare_tables_v3_plain` (and
+    `decode3.derive_walk_tables_plain` of its first three) for any
+    lengths."""
     check_per_symbol(lens, "lens", "decode_tables")
     if lens.device.type == "cpu":
-        from nicetpu_torch.kernels.decode3 import prepare_tables_v3_plain
+        from nicetpu_torch.kernels.decode3 import derive_walk_tables_plain, prepare_tables_v3_plain
 
-        return prepare_tables_v3_plain(lens)
+        tables = prepare_tables_v3_plain(lens)
+        return tables + derive_walk_tables_plain(*tables[:3]) if walk else tables
     B = lens.shape[0]
     lens = lens.contiguous()
-    i32 = dict(dtype=torch.int32, device=lens.device)
-    af = torch.empty(B, C.NUM_STREAMS, TABLE_LENGTHS, **i32)
-    present = torch.empty_like(af)
-    ib = torch.empty_like(af)
-    pfx16 = torch.empty(B, 1, 16, **i32)
-    sym_tbl = torch.empty(B, NSYM, **i32)
-    stream_max = torch.empty(B, C.NUM_STREAMS, **i32)
-    tables_ok = torch.empty(B, dtype=torch.bool, device=lens.device)
+    buf = torch.empty(_table_layout(B, walk)[2], dtype=torch.bool, device=lens.device)
     launch(
-        "decode_tables", "nt_decode_tables", ptr(lens), ctypes.c_int(int(lens.dtype == torch.int64)),
-        ptr(af), ptr(present), ptr(ib), ptr(pfx16), ptr(sym_tbl), ptr(stream_max), ptr(tables_ok),
-        ctypes.c_int(B), device=lens.device,
+        "decode_tables", "nt_decode_tables", ptr(lens), ctypes.c_int(int(lens.dtype == torch.int64)), ptr(buf),
+        ctypes.c_int(int(walk)), ctypes.c_int(B), device=lens.device,
     )
-    return af, present, ib, pfx16, sym_tbl, stream_max, tables_ok
+    return _carve_tables(buf, B, walk)
 
 
 def walk_tables(af: torch.Tensor, present: torch.Tensor, ib: torch.Tensor):

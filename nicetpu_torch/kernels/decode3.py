@@ -29,10 +29,13 @@ same `WalkCfg`:
 
 uint32 words travel as int32 bit patterns (see `convert`).  Tables keep the
 JAX layouts: af/present/ib/aff/dD/inc (B, 10, 32) int32, pfx16 (B, 1, 16),
-sym_tbl (B, 858).  They are built on the device by two CUDA kernels, one
-launch each (`prepare_tables_v3` -> `cuda_ops.decode_tables`,
-`derive_walk_tables` -> `cuda_ops.walk_tables`), as JAX builds them inside
-its jitted programs; their plain versions are `prepare_tables_v3_plain` and
+sym_tbl (B, 858).  Every decode path builds all ten tables, the walk's
+with the rest, on the device in one launch a batch
+(`prepare_tables_v3(..., walk=True)` -> `cuda_ops.decode_tables`), as JAX
+builds them inside its jitted programs, and hands the walk's to every rung
+(`_decode_core_v3(..., walk_tables=)`).  `derive_walk_tables` ->
+`cuda_ops.walk_tables` derives the walk's tables from any af/present/ib in
+a launch of its own.  The plain versions are `prepare_tables_v3_plain` and
 `derive_walk_tables_plain`.
 """
 
@@ -114,11 +117,13 @@ def _deep_cap(s: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def prepare_tables_v3(lens_b: torch.Tensor):
+def prepare_tables_v3(lens_b: torch.Tensor, *, walk: bool = False):
     """(B, 858) int32 or int64 code lengths -> the decode tables, built on
     their device: (af (B, 10, 32) int32 bit patterns of the left-aligned
     first codes (0xFFFFFFFF where a length is absent), present, ib,
-    pfx16 (B, 1, 16), sym_tbl (B, 858), stream_max (B, 10), tables_ok (B,)).
+    pfx16 (B, 1, 16), sym_tbl (B, 858), stream_max (B, 10), tables_ok (B,)),
+    and where walk is true also `derive_walk_tables` of the first three
+    (aff, dD, inc), ten tables in all.
 
     Port of `prepare_tables_v3_jnp`.  tables_ok is `validate_flat_lengths`
     on the device: lengths in 1..=31 and a Kraft sum of exactly 2**32 per
@@ -126,8 +131,9 @@ def prepare_tables_v3(lens_b: torch.Tensor):
     2**32).  On a CUDA tensor one launch of the decode_tables kernel
     (`cuda_ops.decode_tables`, `csrc/decode_tables_kernels.cu`) with nothing
     read back, as JAX builds them inside its jitted round trip; on a CPU
-    tensor the plain version, `prepare_tables_v3_plain`."""
-    return cuda_ops.decode_tables(lens_b)
+    tensor the plain versions, `prepare_tables_v3_plain` and
+    `derive_walk_tables_plain`."""
+    return cuda_ops.decode_tables(lens_b, walk=walk)
 
 
 def prepare_tables_v3_plain(lens_b: torch.Tensor):
@@ -585,13 +591,13 @@ def walk_rounds(words, wbits, aff, dD, inc, pfx, *, chunk_bits: int, steps: int,
 
 
 def decode_planes_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: int,
-                     width: int, chunk_bits: int, steps: int, rounds: int, marks=None):
+                     width: int, chunk_bits: int, steps: int, rounds: int, marks=None, walk_tables=None):
     """The decode core up to the reconstruction: the walk rounds and their
     gates, the slot assembly, the value join, the records and the
     placement.  Returns (form (B, N), delta (B, 3, N), refoff (B, N),
     gates (B, 4) bool), the reconstruction's inputs; see `_decode_core_v3`."""
     B = words.shape[0]
-    aff, dD, inc = derive_walk_tables(af, present, ib)
+    aff, dD, inc = derive_walk_tables(af, present, ib) if walk_tables is None else walk_tables
     pos, sym, i12, i34, ok_consist, ok_cross = walk_rounds(
         words, wbits, aff, dD, inc, pfx, chunk_bits=chunk_bits, steps=steps, rounds=rounds,
         marks=marks)
@@ -629,7 +635,8 @@ def decode_planes_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: i
 
 
 def _decode_core_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: int,
-                    width: int, chunk_bits: int, steps: int, rounds: int, marks=None):
+                    width: int, chunk_bits: int, steps: int, rounds: int, marks=None,
+                    walk_tables=None):
     """Full device decode of a batch: `decode_planes_v3`, then the row
     reconstruction.
 
@@ -638,7 +645,10 @@ def _decode_core_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: in
     (B, 10, 32); pfx (B, 1, 16); sym_tbl (B, 858).  Returns (out (B, 3, N)
     uint8 channel-planar, ok (B,), gates (B, 4) bool) with gates =
     [consistency, crossing, coverage, backref-index].  marks: optional list
-    receiving (stage, CUDA event) pairs.
+    receiving (stage, CUDA event) pairs.  walk_tables: the walk's (aff, dD,
+    inc) of af/present/ib where the caller built them with the tables
+    (`prepare_tables_v3(..., walk=True)`), once for every rung; None
+    derives them here (`derive_walk_tables`, one launch a call).
 
     Past the walk, at most about 34 bytes a slot of the final round are
     live (`_slot_starts`); the value join, the records (in blocks of
@@ -647,7 +657,7 @@ def _decode_core_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: in
     it."""
     form, delta, refoff, gates = decode_planes_v3(
         words, wbits, af, present, ib, pfx, sym_tbl, n_pixels=n_pixels, width=width,
-        chunk_bits=chunk_bits, steps=steps, rounds=rounds, marks=marks)
+        chunk_bits=chunk_bits, steps=steps, rounds=rounds, marks=marks, walk_tables=walk_tables)
     out = recon.reconstruct_rows(form, delta, refoff, width=width)
     mark_stage(marks, "recon")
     return out.to(torch.uint8), gates.all(dim=1), gates
@@ -758,7 +768,7 @@ def verify_words_device(words_dev, totals, lengths, orig_dev, *, n_pixels: int, 
         if not skip[b]:
             validate_flat_lengths(lens_b[b])
     dev = words_dev.device
-    af, pr, ib, pfx, sym_tbl, _, _ = prepare_tables_v3(torch.from_numpy(lens_b).to(dev))
+    af, pr, ib, pfx, sym_tbl, _, _, *walk_t = prepare_tables_v3(torch.from_numpy(lens_b).to(dev), walk=True)
     tot = np.where(skip, int(totals[donor]), np.asarray(totals)).astype(np.int64)
     wi = _fit_words(words_dev, _words_cap(int(tot.max() + 7) // 8, ladder))
     wbits = torch.from_numpy(tot.astype(np.int32)).to(dev)
@@ -767,7 +777,7 @@ def verify_words_device(words_dev, totals, lengths, orig_dev, *, n_pixels: int, 
         out, ok, _ = _decode_core_v3(
             wi, wbits, af, pr, ib, pfx, sym_tbl, n_pixels=n_pixels, width=width,
             chunk_bits=cfg.chunk_bits, steps=_steps(cfg.chunk_bits, cfg.steps_div),
-            rounds=cfg.rounds,
+            rounds=cfg.rounds, walk_tables=walk_t,
         )
         return ok.cpu().numpy(), (_equal_planar(out, orig_dev).cpu().numpy(),), None
 
@@ -801,13 +811,13 @@ def _roundtrip_verify_core(flat, *, width: int, ndigits_cap: int, w_cap: int, cf
     words, lengths, totals, ovf = encode_fused_core(
         flat, width=width, ndigits_cap=ndigits_cap, w_cap=w_cap, marks=marks
     )
-    af, pr, ib, pfx, sym_tbl, _, tables_ok = prepare_tables_v3(lengths)
+    af, pr, ib, pfx, sym_tbl, _, tables_ok, *walk_t = prepare_tables_v3(lengths, walk=True)
     mark_stage(marks, "tables")
     wi = _fit_words(words, _wcap_one((32 * (w_cap - 2)) // 8, cfg))
     out, ok, _ = _decode_core_v3(
         wi, totals.to(torch.int32), af, pr, ib, pfx, sym_tbl, n_pixels=N, width=width,
         chunk_bits=cfg.chunk_bits, steps=_steps(cfg.chunk_bits, cfg.steps_div),
-        rounds=cfg.rounds, marks=marks,
+        rounds=cfg.rounds, marks=marks, walk_tables=walk_t,
     )
     eq = _equal_planar(out, flat)
     mark_stage(marks, "equality")
@@ -898,6 +908,13 @@ def prepare_batch_args(datas: list[bytes], *, device, ladder=LADDER):
     (`prepare_tables_v3`, which equals the JAX numpy batch builder).  The
     word array is sized for every rung of `ladder`.  Returns (args, (H, W)).
     A payload of MAX_DEVICE_BITS or more raises: the host decodes it."""
+    args, _, shape = _batch_args(datas, device=device, ladder=ladder)
+    return args, shape
+
+
+def _batch_args(datas: list[bytes], *, device, ladder):
+    """`prepare_batch_args` with the walk's tables, built in the same launch
+    as the rest: (args, (aff, dD, inc), (H, W))."""
     if any(payload_bits(d) >= MAX_DEVICE_BITS for d in datas):
         raise ValueError(f"a payload of {MAX_DEVICE_BITS} bits or more is decoded on the host")
     W, H, lens, payloads = _parse_batch(datas)
@@ -908,13 +925,13 @@ def prepare_batch_args(datas: list[bytes], *, device, ladder=LADDER):
         src = np.frombuffer(p + b"\0" * ((-len(p)) % 4), dtype=">u4")
         words[i, : src.shape[0]] = src
         wbits[i] = len(p) * 8
-    af, pr, ib, pfx, sym_tbl, _, _ = prepare_tables_v3(torch.from_numpy(lens).to(device))
+    af, pr, ib, pfx, sym_tbl, _, _, *walk_t = prepare_tables_v3(torch.from_numpy(lens).to(device), walk=True)
     args = (
         torch.from_numpy(words.view(np.int32)).to(device),
         torch.from_numpy(wbits).to(device),
         af, pr, ib, pfx, sym_tbl,
     )
-    return args, (H, W)
+    return args, tuple(walk_t), (H, W)
 
 
 # Peak device bytes of `_decode_core_v3`, which `decode_batch_v3` reckons
@@ -1013,16 +1030,15 @@ def decode_batch_v3(datas: list[bytes], *, device, chunk_bits: int | None = None
     sub: dict = {"retries": 0}
     decoded = {}
     if on_dev:
-        batches = [prepare_batch_args([datas[i] for i in g], device=device, ladder=ladder)[0]
-                   for g in groups]
+        batches = [_batch_args([datas[i] for i in g], device=device, ladder=ladder)[:2] for g in groups]
         W, H, _ = headers.parse_file_header(datas[0])
 
         def call(cfg):
             res = []
-            for args in batches:
+            for args, walk_t in batches:
                 out, ok, gates = _decode_core_v3(
                     *args, n_pixels=H * W, width=W, chunk_bits=cfg.chunk_bits,
-                    steps=_steps(cfg.chunk_bits, cfg.steps_div), rounds=cfg.rounds,
+                    steps=_steps(cfg.chunk_bits, cfg.steps_div), rounds=cfg.rounds, walk_tables=walk_t,
                 )
                 res.append((ok.cpu().numpy(), out.cpu().numpy(), gates.cpu().numpy()))
                 del out

@@ -158,10 +158,35 @@ def kraft():
     return rows
 
 
+def _runs(counts: dict, run: int) -> np.ndarray:
+    """Lengths in runs of `run` equal symbols, cycling over the lengths of
+    `counts` (length -> symbols) until each has its count."""
+    left, out = dict(counts), []
+    while any(left.values()):
+        for ln in left:
+            k = min(run, left[ln])
+            out += [ln] * k
+            left[ln] -= k
+    return np.asarray(out, np.int64)
+
+
+def straddle():
+    """Complete codes whose runs of equal lengths cross the 32-symbol chunk
+    boundaries of the widest streams: RGB (256 symbols) at 7, 8 and 9 bits
+    and stream 5 (343 symbols) at 8 and 9 bits, in runs of 37 and 23 (row
+    0), of 13 and 45 symbols reversed (row 1)."""
+    rows = valid(35, 2)
+    rows[0, _stream(C.SC_RGB)] = _runs({9: 100, 8: 106, 7: 50}, 37)
+    rows[0, _stream(5)] = _runs({9: 174, 8: 169}, 23)
+    rows[1, _stream(C.SC_RGB)] = _runs({7: 50, 8: 106, 9: 100}, 13)
+    rows[1, _stream(5)] = _runs({8: 169, 9: 174}, 45)[::-1]
+    return rows
+
+
 LENGTH_ROWS = {
     "valid": lambda: valid(7), "sparse": lambda: sparse(8), "make_image": make_image_rows, "soccer0": soccer0,
     "deep": deep, "single_length": single_length, "bad_values": bad_values, "past_2_32": past_2_32,
-    "kraft": kraft, "B=1": lambda: valid(31, 1), "B=33": lambda: valid(33, 33),
+    "kraft": kraft, "straddle": straddle, "B=1": lambda: valid(31, 1), "B=33": lambda: valid(33, 33),
 }
 INT64_ONLY = ("past_2_32",)
 

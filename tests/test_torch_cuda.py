@@ -338,6 +338,8 @@ def test_tokenize_refuses_what_the_kernel_does_not_take(dev):
 
 # ---------------------------------------------------------------------------
 # decode tables: the two kernels against their plain versions on the CPU
+# (all ten tables in one launch of decode_tables; walk_tables alone on any
+# tables)
 # ---------------------------------------------------------------------------
 
 TABLE_CASES = [(name, dtype) for name in LENGTH_ROWS for dtype in (torch.int32, torch.int64)
@@ -346,17 +348,23 @@ TABLE_CASES = [(name, dtype) for name in LENGTH_ROWS for dtype in (torch.int32, 
 
 @pytest.mark.parametrize("name,dtype", TABLE_CASES, ids=[f"{n}-{str(d)[6:]}" for n, d in TABLE_CASES])
 def test_decode_and_walk_tables_match_plain(dev, name, dtype):
-    """One launch each, equal to the plain versions bit for bit, tables_ok
-    on the bad rows included."""
+    """All ten tables in one launch, equal to the plain pair bit for bit,
+    tables_ok on the bad rows included; the seven alone in one launch; the
+    walk_tables kernel on the kernel's tables equal to the fused walk's."""
     lens = torch.from_numpy(LENGTH_ROWS[name]()).to(dtype)
     want = decode3.prepare_tables_v3_plain(lens)
+    want_w = decode3.derive_walk_tables_plain(*want[:3])
     cuda_ops.reset_launches()
-    got = decode3.prepare_tables_v3(lens.to(dev))
-    assert cuda_ops.LAUNCHES["decode_tables"] == 1
-    _same(tuple(g.cpu() for g in got), want)
+    got = decode3.prepare_tables_v3(lens.to(dev), walk=True)
+    assert (cuda_ops.LAUNCHES["decode_tables"], cuda_ops.LAUNCHES["walk_tables"]) == (1, 0)
+    assert len(got) == 10 and all(g.is_contiguous() for g in got)
+    _same(tuple(g.cpu() for g in got), want + want_w)
+    alone = decode3.prepare_tables_v3(lens.to(dev))
+    assert cuda_ops.LAUNCHES["decode_tables"] == 2
+    _same(tuple(g.cpu() for g in alone), want)
     got_w = decode3.derive_walk_tables(*got[:3])
     assert cuda_ops.LAUNCHES["walk_tables"] == 1
-    _same(tuple(g.cpu() for g in got_w), decode3.derive_walk_tables_plain(*want[:3]))
+    _same(got_w, got[7:])
 
 
 @pytest.mark.parametrize("name", sorted(WALK_ROWS))
@@ -369,34 +377,35 @@ def test_walk_tables_on_arbitrary_words_match_plain(dev, name):
 
 
 def test_decode_tables_read_nothing_back(dev):
-    """encode_fused_core -> prepare_tables_v3 -> derive_walk_tables under
-    set_sync_debug_mode("error"): no host sync."""
+    """encode_fused_core -> prepare_tables_v3(walk=True) under
+    set_sync_debug_mode("error"): one launch, no host sync."""
     flat = _flat([make_image(64, 64, s) for s in range(3)]).to(dev)
     kw = dict(width=64, ndigits_cap=3, w_cap=pipeline.w_cap(64 * 64))
 
     def run():
         lengths = encode2.encode_fused_core(flat, **kw)[1]
-        tables = decode3.prepare_tables_v3(lengths)
-        return lengths, tables, decode3.derive_walk_tables(*tables[:3])
+        return lengths, decode3.prepare_tables_v3(lengths, walk=True)
 
     run()  # builds the library outside the check
     torch.cuda.synchronize()
+    cuda_ops.reset_launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        lengths, tables, walk = run()
+        lengths, tables = run()
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    assert (cuda_ops.LAUNCHES["decode_tables"], cuda_ops.LAUNCHES["walk_tables"]) == (1, 0)
     want = decode3.prepare_tables_v3_plain(lengths.cpu())
-    _same(tuple(t.cpu() for t in tables), want)
-    _same(tuple(t.cpu() for t in walk), decode3.derive_walk_tables_plain(*want[:3]))
-    assert bool(tables[-1].all())
+    _same(tuple(t.cpu() for t in tables), want + decode3.derive_walk_tables_plain(*want[:3]))
+    assert bool(tables[6].all())
 
 
 def test_table_wrappers_refuse_bad_inputs_on_the_card(dev):
     lens = torch.from_numpy(LENGTH_ROWS["valid"]()).to(dev)
     for bad in (lens.float(), lens.to(torch.int16), lens[:, :857], lens[:0], lens[0]):
-        with pytest.raises((TypeError, ValueError)):
-            cuda_ops.decode_tables(bad)
+        for walk in (False, True):
+            with pytest.raises((TypeError, ValueError)):
+                cuda_ops.decode_tables(bad, walk=walk)
     af, pr, ib = decode3.prepare_tables_v3(lens)[:3]
     for bad in ((af.to(torch.int64), pr, ib), (af, pr.cpu(), ib), (af[..., :31].contiguous(), pr, ib),
                 (af, pr[:1].contiguous(), ib), (af.repeat_interleave(2, -1)[..., ::2], pr, ib)):
@@ -409,11 +418,12 @@ def test_a_cuda_tensor_never_reaches_the_plain_tables(dev, monkeypatch):
         raise AssertionError("plain version reached")
 
     lens = torch.from_numpy(LENGTH_ROWS["valid"]()).to(dev)
-    want = decode3.prepare_tables_v3(lens)
+    want = decode3.prepare_tables_v3(lens, walk=True)
     want_w = decode3.derive_walk_tables(*want[:3])
     monkeypatch.setattr(decode3, "prepare_tables_v3_plain", boom)
     monkeypatch.setattr(decode3, "derive_walk_tables_plain", boom)
-    _same(decode3.prepare_tables_v3(lens), want)
+    _same(decode3.prepare_tables_v3(lens, walk=True), want)
+    _same(decode3.prepare_tables_v3(lens), want[:7])
     _same(decode3.derive_walk_tables(*want[:3]), want_w)
 
 
@@ -592,11 +602,16 @@ def test_roundtrip_and_decode_on_the_card(dev):
     assert datas == [oracle.encode_native(im) for im in imgs]
     assert verified.all()
     assert stats["fallbacks"] == 0 and stats["overflow_fallbacks"] == 0
-    assert all(n > 0 for n in cuda_ops.LAUNCHES.values())
+    # the walk's tables come with the rest, in one launch a batch
+    assert all(n > 0 for k, n in cuda_ops.LAUNCHES.items() if k != "walk_tables")
+    assert cuda_ops.LAUNCHES["walk_tables"] == 0
     dstats = {}
+    cuda_ops.reset_launches()
     out = nicetpu_torch.decode_batch(datas, device="cuda", stats=dstats)
     assert all(np.array_equal(o, im) for o, im in zip(out, imgs))
     assert dstats["fallbacks"] == 0
+    # one launch a same-shape batch (two shapes), for both rungs
+    assert cuda_ops.LAUNCHES["decode_tables"] == 2 and cuda_ops.LAUNCHES["walk_tables"] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -689,8 +704,9 @@ def test_dryrun_multichip_on_the_card(dev, n, backend):
     res = launch.dryrun_multichip(n, backend, "cuda", timeout=300)
     for r in res:
         unlaunched = {k for k, v in r["launches"].items() if v == 0}
-        # a rank whose shard holds runs only has no real slot to join (sharded_decode)
-        assert unlaunched == (set() if r["real_slots"] else {"value_join"}), r
+        # a rank whose shard holds runs only has no real slot to join
+        # (sharded_decode); the walk's tables come with the decode tables
+        assert unlaunched == {"walk_tables"} | (set() if r["real_slots"] else {"value_join"}), r
 
 
 # ---------------------------------------------------------------------------
@@ -713,9 +729,10 @@ def test_roundtrip_hybrid_on_the_card(dev, gpu_threads, cpu_threads):
         assert [d for d, _ in out] == [oracle.encode_native(im) for im in b]
         assert all(np.array_equal(a, im) for (_, a), im in zip(out, b))
     n = stats["gpu_batches"]
-    assert {k: v for k, v in cuda_ops.LAUNCHES.items() if k != "walk"} == {
-        k: n for k in cuda_ops.LAUNCHES if k != "walk"}
+    per_batch = [k for k in cuda_ops.LAUNCHES if k not in ("walk", "walk_tables")]
+    assert {k: cuda_ops.LAUNCHES[k] for k in per_batch} == {k: n for k in per_batch}
     assert cuda_ops.LAUNCHES["walk"] == 2 * n + stats["retries"]
+    assert cuda_ops.LAUNCHES["walk_tables"] == 0
 
 
 def test_an_exception_in_a_gpu_worker_fails_the_call(dev, monkeypatch):
@@ -758,8 +775,9 @@ def test_cli_and_corpus_on_the_card(dev, tmp_path, monkeypatch):
     assert data == oracle.encode_native(img)
     assert cli.main([str(tmp_path / "out.nice"), str(tmp_path / "back.png")]) == 0
     assert np.array_equal(nicetpu_torch.imread(str(tmp_path / "back.png")), img)
-    # the CLI encodes through the two-step encode, whose Huffman tables are built on the host
-    assert [k for k, n in cuda_ops.LAUNCHES.items() if n == 0] == ["huffman_tables"]
+    # the CLI encodes through the two-step encode, whose Huffman tables are
+    # built on the host; its decode builds the walk's tables with the rest
+    assert [k for k, n in cuda_ops.LAUNCHES.items() if n == 0] == ["huffman_tables", "walk_tables"]
 
     res = corpus.encode_corpus([png, str(tmp_path / "missing.png")], str(tmp_path / "enc"))
     assert (res.encoded, res.failed) == (1, 1)

@@ -43,3 +43,20 @@ def test_decode_core_matches_jax_on_golden_files(name):
     assert ok[0] and gates[0].all()
     h, w, _ = img.shape
     np.testing.assert_array_equal(out[0].reshape(3, h, w).transpose(1, 2, 0), img)
+
+
+@pytest.mark.parametrize("name", ["gradient16x12", "mixed20x14"])
+def test_decode_core_with_the_walk_tables_given(name):
+    """The walk's tables built with the rest in one call
+    (`prepare_tables_v3(walk=True)`, as every decode path builds them once a
+    batch) and handed to the core give what the core gives when it derives
+    them itself, and what JAX's core gives."""
+    with open(os.path.join(DATA, f"{name}.nice"), "rb") as f:
+        data = f.read()
+    want = _both(data)  # the port's core without walk_tables, held to JAX's
+    args, walk, (h, w) = td3._batch_args([data], device=torch.device("cpu"), ladder=(td3.WalkCfg(2048, 32, 8, 2),))
+    assert all(torch.equal(g, x) for g, x in zip(walk, td3.derive_walk_tables_plain(*args[2:5])))
+    got = td3._decode_core_v3(*args, n_pixels=h * w, width=w, chunk_bits=2048, steps=td3._steps(2048, 8),
+                              rounds=2, walk_tables=walk)
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), x)

@@ -11,6 +11,7 @@ import torch
 
 from nicetpu.format import constants as C
 from nicetpu.hostref import oracle as joracle
+from nicetpu_torch.kernels import cuda_ops
 from nicetpu_torch.kernels import decode3 as td3
 
 from test_torch_decode_core import _both
@@ -115,3 +116,43 @@ def test_the_reckoning_covers_the_widest_rung():
     assert slots[1] > slots[0]  # the robust rung's deep step budget
     assert td3.decode_bytes(nbytes, H * W) == 4 * Wn + max(td3.SLOT_BYTES * slots[1], td3.PIXEL_BYTES * H * W)
     assert td3.decode_bytes(nbytes, 10**9) == 4 * Wn + td3.PIXEL_BYTES * 10**9
+
+
+def _spy_tables(monkeypatch) -> list:
+    """(images, walk) of every table build; a call of derive_walk_tables,
+    which would build the walk's tables again, raises."""
+    built = []
+    real = cuda_ops.decode_tables
+
+    def tables(lens, *, walk=False):
+        built.append((int(lens.shape[0]), walk))
+        return real(lens, walk=walk)
+
+    def derive(*args):
+        raise AssertionError("the walk tables were derived again")
+
+    monkeypatch.setattr(cuda_ops, "decode_tables", tables)
+    monkeypatch.setattr(td3, "derive_walk_tables", derive)
+    return built
+
+
+def test_decode_builds_the_walk_tables_once_a_device_batch(monkeypatch):
+    """Two device batches, each on both rungs: one build of all ten tables
+    a device batch, which both rungs use."""
+    built = _spy_tables(monkeypatch)
+    two = 2 * td3.decode_bytes(max(td3.payload_bits(d) // 8 for d in DATAS), H * W, LADDER)
+    stats, sizes = _decode(monkeypatch, two)
+    assert sizes == [2, 2, 2, 2] and stats["retries"] == 2
+    assert built == [(2, True), (2, True)]
+
+
+def test_the_round_trip_builds_the_walk_tables_with_the_tables(monkeypatch):
+    """The fused round trip builds all ten tables once for its fast rung,
+    and the retry of the images it did not verify once for the later
+    rungs."""
+    built = _spy_tables(monkeypatch)
+    stats: dict = {}
+    flat = torch.from_numpy(np.stack(IMGS).reshape(len(IMGS), H * W, 3))
+    _, _, verified = td3.roundtrip_verify_fused(flat, width=W, stats=stats)
+    assert stats["retries"] >= 1 and verified[0]
+    assert built == [(4, True), (4, True)]

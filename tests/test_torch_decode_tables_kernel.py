@@ -2,30 +2,38 @@
 
 The kernels themselves run only on a card (`tests/test_torch_cuda.py`).
 Here:
-  * a numpy model of each kernel's algorithm, lane by lane.  decode_tables:
-    a warp walks its stream in 32-symbol chunks, a symbol's rank among its
-    length is the running count plus the lower lanes of its chunk with that
-    length, the chunk's lowest such lane adds the group; the 32 lengths'
-    counts and their code space (64 bits) are scanned with shuffles by 1, 2,
-    4, 8 and 16 lanes; a symbol's slot is the count of shorter symbols plus
-    its rank.  walk_tables: the suffix minimum by shuffles down, the last
-    present length by a ballot, the forward fill by one shuffle;
+  * a numpy model of each kernel's schedule, lane by lane.  decode_tables
+    (all ten tables in one launch): one warp a 32-symbol chunk of a
+    stream; a lane's rank is the lower lanes of its chunk with its length,
+    the group's lowest lane stores the chunk's count; one warp a stream
+    turns the chunks' counts into offsets (an exclusive scan over the
+    stream's chunks) and scans the 32 lengths' counts and code space (64
+    bits) with shuffles by 1, 2, 4, 8 and 16 lanes; a symbol's slot is the
+    count of shorter symbols plus its chunk's offset plus its rank; the
+    walk's tables from the same warp.  walk_tables: the suffix minimum by
+    shuffles down, the last present length by a ballot, the forward fill by
+    one shuffle;
   * both models against the plain versions (`prepare_tables_v3_plain`,
     `derive_walk_tables_plain`) and against JAX's `prepare_tables_v3_jnp`
     and `derive_walk_tables`, exactly, on every row of
-    `tests/_decode_table_rows.py`.  JAX's int32 Kraft sum also accepts a
-    nonzero multiple of 2^32 (the `kraft` row's 2 * 2^32); the port rejects
-    it, as `validate_flat_lengths` does, and the test holds JAX to its own
-    rule there.  JAX runs without 64-bit types, so the int64 rows past 2^32
-    go to the model and the plain version only;
-  * the wrappers on a CPU tensor: the plain version, no launch counted, and
-    the inputs they refuse.
+    `tests/_decode_table_rows.py`, runs of equal lengths across chunk
+    boundaries included.  JAX's int32 Kraft sum also accepts a nonzero
+    multiple of 2^32 (the `kraft` row's 2 * 2^32); the port rejects it, as
+    `validate_flat_lengths` does, and the test holds JAX to its own rule
+    there.  JAX runs without 64-bit types, so the int64 rows past 2^32 go
+    to the model and the plain version only;
+  * the wrappers on a CPU tensor: the plain versions (the ten tables, and
+    the seven alone), no launch counted, and the inputs they refuse; the
+    one buffer's views; the kernel's chunk constants; `bench_decode_tables`'
+    source edits.
 
 JAX is jitted once for all length rows together and once for all walk
 rows, so that its CPU compiles stay two.
 """
 
 import functools
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +42,7 @@ import pytest
 import torch
 
 from nicetpu.kernels import decode3 as jd3
+from nicetpu_torch import bench_decode_tables
 from nicetpu_torch.format import constants as C
 from nicetpu_torch.format import huffman
 from nicetpu_torch.kernels import cuda_ops
@@ -69,61 +78,87 @@ def _highest(bits: int) -> int:
     return bits.bit_length() - 1  # 31 - __clz; -1 for no bit
 
 
-def model_stream(raw: np.ndarray):
-    """One warp's stream: (n,) int64 raw lengths -> (af, present, ib (32,),
-    order (n,), stream_max, ok)."""
-    n = len(raw)
-    in_range = bool(((raw >= 1) & (raw <= C.MAX_CODE_LEN)).all())
-    lc = np.clip(raw, 1, C.MAX_CODE_LEN).astype(np.int64)
-    run = [0] * LANES
-    rank = np.zeros(n, np.int64)
-    for p0 in range(0, n, LANES):
-        chunk = [int(x) for x in lc[p0 : p0 + LANES]]
-        for lane, ln in enumerate(chunk):  # __match_any_sync & the lower lanes
-            rank[p0 + lane] = run[ln] + sum(1 for x in chunk[:lane] if x == ln)
-        for ln in set(chunk):  # the group's lowest lane adds the group
-            run[ln] += chunk.count(ln)
-    count = run
-    assert count[0] == 0
-    space = [c << (32 - ln) for ln, c in enumerate(count)]
-    incl = _warp_scan(count)
-    space_incl = _warp_scan(space, MASK64)
-    shorter = [i - c for i, c in zip(incl, count)]
-    kraft = space_incl[-1]
-    pres = [c > 0 for c in count]
-    af = [(si - sp) & MASK32 if p else MASK32 for si, sp, p in zip(space_incl, space, pres)]
-    ib = [s if p else 0 for s, p in zip(shorter, pres)]
-    ballot = sum(1 << ln for ln, p in enumerate(pres) if p)
-    order = np.full(n, -1, np.int64)
-    for p in range(n):
-        slot = shorter[lc[p]] + rank[p]
-        assert order[slot] == -1, "two symbols in one slot"
-        order[slot] = p
-    assert (order >= 0).all()
-    return (_i32(af), np.asarray(pres, np.int32), np.asarray(ib, np.int32), order, _highest(ballot),
-            in_range and kraft == KRAFT)
+CHUNKS = [(s, p0) for s, n in enumerate(C.ALPHABET_SIZES) for p0 in range(0, n, LANES)]  # (stream, first symbol)
+
+
+def _stream_chunks(s):
+    return [c for c, (st, _) in enumerate(CHUNKS) if st == s]
 
 
 def model_decode_tables(lens: np.ndarray):
-    """(B, 858) int64 -> the seven outputs of `prepare_tables_v3`, as numpy."""
+    """(B, 858) int64 -> the ten outputs of `prepare_tables_v3(walk=True)`,
+    as numpy, by the kernel's schedule: one block an image, one warp a
+    32-symbol chunk of a stream.
+
+      1. each lane reads its one length (int64 whole), range-checks and
+         clamps it; its rank is the lower lanes of its chunk with the same
+         length (__match_any_sync); the group's lowest lane writes the
+         chunk's count of that length (s_at); a block-wide AND of the range
+         checks (__syncthreads_and);
+      2. one warp a stream, lane l length l: an exclusive scan over the
+         stream's chunks turns s_at into offsets, the totals are the counts;
+         the 64-bit warp scans give ib and af, the Kraft sum; the walk's
+         tables from the warp's af, present and ib (`model_walk_tables`);
+      3. each lane stores its symbol at ib[length] + its chunk's offset +
+         its rank; lanes 13..15 of the prefix stream zero pfx16's pad."""
     B = lens.shape[0]
     af = np.zeros((B, C.NUM_STREAMS, LANES), np.int32)
     present, ib = np.zeros_like(af), np.zeros_like(af)
-    pfx16 = np.zeros((B, 1, 16), np.int32)
-    sym_tbl = np.zeros((B, C.TOTAL_SYMBOLS), np.int32)
+    pfx16 = np.full((B, 1, 16), -1, np.int32)
+    sym_tbl = np.full((B, C.TOTAL_SYMBOLS), -1, np.int32)
     stream_max = np.zeros((B, C.NUM_STREAMS), np.int32)
     ok = np.ones(B, bool)
     for b in range(B):
-        for s in range(C.NUM_STREAMS):
-            base, n = C.STREAM_BASE[s], C.ALPHABET_SIZES[s]
-            a, p, i, order, smax, good = model_stream(lens[b, base : base + n])
-            af[b, s], present[b, s], ib[b, s] = a, p, i
-            sym_tbl[b, base : base + n] = order
-            if s == C.SC_PREFIXES:
-                pfx16[b, 0, :n] = order
-            stream_max[b, s] = smax
-            ok[b] &= good
-    return af, present, ib, pfx16, sym_tbl, stream_max, ok
+        lc = np.zeros((len(CHUNKS), LANES), np.int64)  # 0: a lane past its stream's end
+        rank = np.zeros_like(lc)
+        s_at = np.zeros((len(CHUNKS), LANES), np.int64)
+        in_range = True
+        for c, (s, p0) in enumerate(CHUNKS):  # 1
+            n, base = C.ALPHABET_SIZES[s], C.STREAM_BASE[s]
+            for lane in range(LANES):
+                if p0 + lane < n:
+                    raw = int(lens[b, base + p0 + lane])
+                    in_range &= 1 <= raw <= C.MAX_CODE_LEN
+                    lc[c, lane] = min(max(raw, 1), C.MAX_CODE_LEN)
+            for lane in range(LANES):
+                same = [x for x in range(LANES) if lc[c, x] == lc[c, lane]]
+                rank[c, lane] = sum(1 for x in same if x < lane)
+                if lc[c, lane] and same[0] == lane:
+                    s_at[c, lc[c, lane]] = len(same)
+        shorter = np.zeros((C.NUM_STREAMS, LANES), np.int64)
+        good = in_range
+        for s in range(C.NUM_STREAMS):  # 2
+            count = [0] * LANES
+            for c in _stream_chunks(s):
+                here = s_at[c].copy()
+                s_at[c] = count
+                count = [x + int(h) for x, h in zip(count, here)]
+            assert count[0] == 0
+            space = [k << (32 - ln) for ln, k in enumerate(count)]
+            incl = _warp_scan(count)
+            space_incl = _warp_scan(space, MASK64)
+            shorter[s] = [i - k for i, k in zip(incl, count)]
+            pres = [k > 0 for k in count]
+            af[b, s] = _i32([(si - sp) & MASK32 if p else MASK32 for si, sp, p in zip(space_incl, space, pres)])
+            present[b, s] = pres
+            ib[b, s] = [sh if p else 0 for sh, p in zip(shorter[s], pres)]
+            stream_max[b, s] = _highest(sum(1 << ln for ln, p in enumerate(pres) if p))
+            good &= space_incl[-1] == KRAFT
+        ok[b] = good
+        for c, (s, p0) in enumerate(CHUNKS):  # 3
+            n, base = C.ALPHABET_SIZES[s], C.STREAM_BASE[s]
+            for lane in range(LANES):
+                p = p0 + lane
+                if p < n:
+                    slot = int(shorter[s, lc[c, lane]] + s_at[c, lc[c, lane]] + rank[c, lane])
+                    assert sym_tbl[b, base + slot] == -1, "two symbols in one slot"
+                    sym_tbl[b, base + slot] = p
+                    if s == C.SC_PREFIXES:
+                        pfx16[b, 0, slot] = p
+                elif s == C.SC_PREFIXES and p < 16:
+                    pfx16[b, 0, p] = 0
+    assert (sym_tbl >= 0).all() and (pfx16 >= 0).all()
+    return (af, present, ib, pfx16, sym_tbl, stream_max, ok, *model_walk_tables(af, present, ib))
 
 
 def model_walk_tables(af, present, ib):
@@ -164,12 +199,18 @@ def _rows(name):
     return LENGTH_ROWS[name]()
 
 
+def _jax_ten(lens):
+    """JAX's `prepare_tables_v3_jnp` and `derive_walk_tables` of its tables."""
+    tables = jd3.prepare_tables_v3_jnp(lens)
+    return (*tables, *jd3.derive_walk_tables(*tables[:3]))
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_tables():
-    """name -> JAX's seven outputs for that row, from one jitted call over
-    every int32 row stacked."""
+    """name -> JAX's ten outputs for that row (`_jax_ten`), from one jitted
+    call over every int32 row stacked."""
     stacked = np.concatenate([_rows(n) for n in INT32_ROWS]).astype(np.int32)
-    outs = [np.asarray(x) for x in jax.jit(jd3.prepare_tables_v3_jnp)(jnp.asarray(stacked))]
+    outs = [np.asarray(x) for x in jax.jit(_jax_ten)(jnp.asarray(stacked))]
     cuts = np.cumsum([0] + [len(_rows(n)) for n in INT32_ROWS])
     return {n: [x[a:b] for x in outs] for n, a, b in zip(INT32_ROWS, cuts[:-1], cuts[1:])}
 
@@ -207,30 +248,101 @@ CASES = [(name, dtype) for name in LENGTH_ROWS for dtype in (torch.int32, torch.
          if dtype == torch.int64 or name not in INT64_ONLY]
 
 
-@pytest.mark.parametrize("name,dtype", CASES, ids=[f"{n}-{str(d)[6:]}" for n, d in CASES])
-def test_decode_tables_model_plain_and_jax_agree(name, dtype):
+def _plain_pair(lens):
+    """`prepare_tables_v3_plain` and `derive_walk_tables_plain` of its tables."""
+    tables = td3.prepare_tables_v3_plain(lens)
+    return tables + td3.derive_walk_tables_plain(*tables[:3])
+
+
+def _hold_to_jax(name, got):
+    """The ten tables against JAX's on an int32 row: equal but for
+    tables_ok where JAX's int32 Kraft sum wraps (it accepts in-range
+    lengths whose every stream sums to a multiple of 2^32; the port asks
+    for exactly 2^32)."""
     lens = _rows(name)
-    model = model_decode_tables(lens)
-    plain = td3.prepare_tables_v3_plain(torch.from_numpy(lens).to(dtype))
-    for g, w in zip(plain, model):
-        _eq(g, w)
-    if name in INT64_ONLY:
-        return
     jax_out = _jax_tables()[name]
-    for g, w in zip(model[:-1], jax_out[:-1]):
-        _eq(g, w)
-    # JAX's int32 Kraft sum wraps: it accepts in-range lengths whose every
-    # stream sums to a multiple of 2^32; the port asks for exactly 2^32
+    for k, (g, w) in enumerate(zip(got, jax_out)):
+        if k != 6:
+            _eq(g, w)
     in_range = ((lens >= 1) & (lens <= C.MAX_CODE_LEN)).all(axis=1)
     wraps_to_zero = np.asarray([all(k % KRAFT == 0 for k in row) for row in kraft_sums(lens)])
-    _eq(jax_out[-1], in_range & wraps_to_zero)
+    _eq(jax_out[6], in_range & wraps_to_zero)
+
+
+@pytest.mark.parametrize("name,dtype", CASES, ids=[f"{n}-{str(d)[6:]}" for n, d in CASES])
+def test_decode_tables_model_plain_and_jax_agree(name, dtype):
+    """The kernel's schedule (all ten tables) against the plain pair and JAX's."""
+    lens = _rows(name)
+    model = model_decode_tables(lens)
+    plain = _plain_pair(torch.from_numpy(lens).to(dtype))
+    assert len(model) == len(plain) == 10
+    for g, w in zip(plain, model):
+        _eq(g, w)
+    if name not in INT64_ONLY:
+        _hold_to_jax(name, model)
+
+
+@pytest.mark.parametrize("name,dtype", CASES, ids=[f"{n}-{str(d)[6:]}" for n, d in CASES])
+def test_fused_wrapper_on_the_cpu_equals_the_plain_pair_and_jax(name, dtype):
+    """`prepare_tables_v3(walk=True)` on a CPU tensor: the seven tables and
+    the walk's three, bit for bit, and no launch counted."""
+    lens = torch.from_numpy(_rows(name)).to(dtype)
+    before = dict(cuda_ops.LAUNCHES)
+    got = td3.prepare_tables_v3(lens, walk=True)
+    assert cuda_ops.LAUNCHES == before
+    want = _plain_pair(lens)
+    assert len(got) == 10 and [g.dtype for g in got] == [w.dtype for w in want]
+    for g, w in zip(got, want):
+        _eq(g, w)
+    for g, w in zip(td3.prepare_tables_v3(lens), want[:7]):  # the seven alone
+        _eq(g, w)
+    if name not in INT64_ONLY:
+        _hold_to_jax(name, got)
+
+
+@pytest.mark.parametrize("B,walk", [(1, True), (3, False), (5, True), (8, True), (33, False)])
+def test_one_buffer_carves_into_the_ten_tables(B, walk):
+    """The wrapper's one allocation, filled as the kernel fills it (af,
+    present, ib, pfx16, sym_tbl, stream_max, [aff, dD, inc,] as int32 words,
+    then tables_ok's bytes), gives back the tables as contiguous views."""
+    want = _plain_pair(torch.from_numpy(valid(B, B)))[: 10 if walk else 7]
+    ints = [t for k, t in enumerate(want) if k != 6]
+    layout, ok_at, nbytes = cuda_ops._table_layout(B, walk)
+    assert [shape for shape, _, _ in layout] == [tuple(t.shape) for t in ints]
+    assert ok_at == 4 * sum(t.numel() for t in ints) and nbytes % 4 == 0 and ok_at + B <= nbytes < ok_at + B + 4
+    buf = torch.zeros(nbytes, dtype=torch.bool)
+    buf.view(torch.int32)[: ok_at // 4] = torch.cat([t.flatten() for t in ints])
+    buf[ok_at : ok_at + B] = want[6]
+    got = cuda_ops._carve_tables(buf, B, walk)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype and g.is_contiguous()
+        assert g.untyped_storage().data_ptr() == buf.untyped_storage().data_ptr()
+        _eq(g, w)
+
+
+def test_kernel_chunks_match_the_streams():
+    """The kernel's chunk tables (`kFirstChunk`, `kChunkStream`) and stream
+    sizes and bases, read from its source, are the model's."""
+    path = os.path.join(os.path.dirname(td3.__file__), "..", "csrc", "decode_tables_kernels.cu")
+    with open(path) as f:
+        src = f.read()
+
+    def table(name):
+        body = re.search(rf"__constant__ int {name}\[[^]]*\] = {{([^}}]*)}}", src).group(1)
+        return [int(x) for x in body.replace("\n", " ").split(",")]
+
+    assert table("kSizes") == list(C.ALPHABET_SIZES) and table("kBase") == list(C.STREAM_BASE)
+    assert table("kChunkStream") == [s for s, _ in CHUNKS]
+    assert table("kFirstChunk") == [_stream_chunks(s)[0] for s in range(C.NUM_STREAMS)] + [len(CHUNKS)]
+    assert f"kChunks = {len(CHUNKS)};" in src
 
 
 def test_rows_reach_every_case():
     """What the rows must hold for the kernel's edges to be tested."""
     lens = {name: _rows(name) for name in LENGTH_ROWS}
-    ok = {name: model_decode_tables(x)[-1].tolist() for name, x in lens.items()}
-    for name in ("valid", "sparse", "make_image", "soccer0", "deep", "B=1", "B=33"):
+    ok = {name: model_decode_tables(x)[6].tolist() for name, x in lens.items()}
+    for name in ("valid", "sparse", "make_image", "soccer0", "deep", "straddle", "B=1", "B=33"):
         assert all(ok[name]), name
     assert ok["single_length"] == [True, False, False]
     assert ok["bad_values"] == ok["past_2_32"] == ok["kraft"] == [False] * 3
@@ -242,6 +354,15 @@ def test_rows_reach_every_case():
     assert [min(r) < KRAFT for r in sums] == [True, False, False]
     assert max(sums[1]) > KRAFT and max(sums[1]) % KRAFT and max(sums[2]) == 2 * KRAFT
     assert len(lens["B=1"]) == 1 and len(lens["B=33"]) == 33
+    # straddle: in both rows, RGB's and stream 5's runs of equal lengths
+    # cross chunk boundaries, and most chunks hold two lengths or more
+    for s in (C.SC_RGB, 5):
+        cut = slice(C.STREAM_BASE[s], C.STREAM_BASE[s] + C.ALPHABET_SIZES[s])
+        for row in lens["straddle"][:, cut]:
+            crossing = [p for p in range(LANES, len(row), LANES) if row[p - 1] == row[p]]
+            assert len(crossing) >= 3, (s, crossing)
+            mixed = [len(set(row[p : p + LANES])) >= 2 for p in range(0, len(row), LANES)]
+            assert 2 * sum(mixed) > len(mixed), (s, mixed)
     # the make_image and soccer0 rows are real encodes' headers
     for name in ("make_image", "soccer0"):
         for row in lens[name]:
@@ -328,3 +449,23 @@ BAD_WALK = {
 def test_walk_tables_refuses_what_the_kernel_does_not_take(bad):
     with pytest.raises((TypeError, ValueError)):
         cuda_ops.walk_tables(*BAD_WALK[bad](*_walk_words()))
+
+
+@pytest.mark.parametrize("variant", sorted(bench_decode_tables.VARIANTS))
+def test_bench_variants_still_apply(variant):
+    """`bench_decode_tables` edits copies of the kernel's source: each edit
+    still applies exactly once, and only `committed` is the source."""
+    with open(os.path.join(os.path.dirname(td3.__file__), "..", "csrc", "decode_tables_kernels.cu")) as f:
+        committed = f.read()
+    assert (bench_decode_tables.variant_source(variant) == committed) == (variant == "committed")
+
+
+def test_bench_decode_tables_needs_a_card_and_calls_the_ten_tables(monkeypatch, capsys):
+    """The bench exits 1 without a card, printing no result; on this tree
+    its tables call is `prepare_tables_v3(walk=True)`, the ten tables."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert bench_decode_tables.main(["--host-only"]) == 1
+    assert capsys.readouterr().out == ""
+    lens = torch.from_numpy(_rows("valid"))
+    for g, w in zip(bench_decode_tables.tables_call()(lens), _plain_pair(lens)):
+        _eq(g, w)
