@@ -24,6 +24,7 @@ from nicetpu_torch.format import headers
 from nicetpu_torch.hostref import oracle
 from nicetpu_torch.kernels import decode3, encode2
 from nicetpu_torch.spec import codec as spec_codec
+from nicetpu_torch.utils.profiling import span
 
 MAX_BATCH = 8  # images per device batch; bounds device memory per call
 
@@ -138,10 +139,11 @@ def encode_batch(imgs: list[np.ndarray], *, device=None, config=None,
         for k in ("overflow_fallbacks", "retokenized", "slot_mode"):
             stats.setdefault(k, 0)
     out: list[bytes | None] = [None] * len(imgs)
-    for chunk in _batches([im.shape for im in imgs]):
-        datas = encode2.encode_batch(np.stack([imgs[i] for i in chunk]), device=dev, stats=stats)
-        for i, d in zip(chunk, datas):
-            out[i] = d
+    with span("api.encode_batch"):
+        for chunk in _batches([im.shape for im in imgs]):
+            datas = encode2.encode_batch(np.stack([imgs[i] for i in chunk]), device=dev, stats=stats)
+            for i, d in zip(chunk, datas):
+                out[i] = d
     return out
 
 
@@ -170,15 +172,16 @@ def decode_batch(datas: list[bytes], *, device=None, config=None, chunk_bits: in
         stats.setdefault("retries", 0)
         stats.setdefault("fallbacks", 0)
     out: list[np.ndarray | None] = [None] * len(datas)
-    for chunk in _batches([headers.parse_file_header(d)[:2] for d in datas]):
-        sub: dict = {}
-        arrs = decode3.decode_batch_v3([datas[i] for i in chunk], device=dev,
-                                       chunk_bits=chunk_bits, stats=sub)
-        for i, a in zip(chunk, arrs):
-            out[i] = a
-        if stats is not None:
-            stats["retries"] += sub["retries"]
-            stats["fallbacks"] += sub["fallbacks"]
+    with span("api.decode_batch"):
+        for chunk in _batches([headers.parse_file_header(d)[:2] for d in datas]):
+            sub: dict = {}
+            arrs = decode3.decode_batch_v3([datas[i] for i in chunk], device=dev,
+                                           chunk_bits=chunk_bits, stats=sub)
+            for i, a in zip(chunk, arrs):
+                out[i] = a
+            if stats is not None:
+                stats["retries"] += sub["retries"]
+                stats["fallbacks"] += sub["fallbacks"]
     return out
 
 
@@ -194,23 +197,26 @@ def roundtrip_batch(imgs: list[np.ndarray], *, device="cuda",
 
     stats: optional dict; receives "device" and accumulates "retries"
     (images retried on the robust rung), "fallbacks" (images proven on the
-    host) and "overflow_fallbacks" (images encoded by the host codec)."""
+    host), "overflow_fallbacks" (images encoded by the host codec) and
+    "overflow_decoded" (images decoded on the device although their encode
+    had overflowed)."""
     dev = _resolve_device(device)
     imgs = [_to_rgb(im) for im in imgs]
     if stats is not None:
         stats["device"] = str(dev)
-        for k in ("retries", "fallbacks", "overflow_fallbacks"):
+        for k in pipeline.ROUNDTRIP_STATS:
             stats.setdefault(k, 0)
     datas: list[bytes | None] = [None] * len(imgs)
     verified = np.zeros(len(imgs), bool)
-    for chunk in _batches([im.shape for im in imgs]):
-        batch = [imgs[i] for i in chunk]
-        out, ok = pipeline.roundtrip_batch_resident(
-            pipeline.upload_batch(batch, dev), batch, stats=stats
-        )
-        for j, i in enumerate(chunk):
-            datas[i] = out[j]
-            verified[i] = ok[j]
+    with span("api.roundtrip_batch"):
+        for chunk in _batches([im.shape for im in imgs]):
+            batch = [imgs[i] for i in chunk]
+            out, ok = pipeline.roundtrip_batch_resident(
+                pipeline.upload_batch(batch, dev), batch, stats=stats
+            )
+            for j, i in enumerate(chunk):
+                datas[i] = out[j]
+                verified[i] = ok[j]
     return datas, verified
 
 

@@ -54,7 +54,8 @@ from nicetpu_torch.format import headers
 from nicetpu_torch.format.huffman import validate_flat_lengths
 from nicetpu_torch.kernels import cuda_ops, recon
 from nicetpu_torch.kernels.decode_dev import F_ADD1, F_CONST, F_HALF, SLOT_STREAM, _const_offsets, _sel
-from nicetpu_torch.kernels.encode2 import encode_fused_core, mark_stage
+from nicetpu_torch.kernels.encode2 import encode_fused_core
+from nicetpu_torch.utils.profiling import span
 
 # ---------------------------------------------------------------------------
 # Walk geometry
@@ -572,11 +573,11 @@ def walk_rounds(words, wbits, aff, dD, inc, pfx, *, chunk_bits: int, steps: int,
 
     e = starts.expand(B, nch).contiguous()
     for r in range(rounds - 1):
-        ex = run(e, False)[4]
-        e = torch.cat([torch.zeros_like(ex[:, :1]), ex[:, :-1]], dim=1)
-        mark_stage(marks, f"walk_round{r + 1}")
-    pos, sym, i12, i34, ex2 = run(e, True)
-    mark_stage(marks, f"walk_round{rounds}")
+        with span(f"decode3.walk_round{r + 1}", marks):
+            ex = run(e, False)[4]
+            e = torch.cat([torch.zeros_like(ex[:, :1]), ex[:, :-1]], dim=1)
+    with span(f"decode3.walk_round{rounds}", marks):
+        pos, sym, i12, i34, ex2 = run(e, True)
 
     # induction from the bit-0 anchor: every final exit still inside the
     # payload equals the next chunk's entry, and every walked chunk crossed
@@ -603,34 +604,34 @@ def decode_planes_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: i
         marks=marks)
     S = pos.shape[1] * steps
     N = n_pixels
-    pos, sym, i12, i34 = (r.view(B, S) for r in (pos, sym, i12, i34))
-    valid = (pos >= 0) & (pos < wbits.to(torch.int32)[:, None])
-    del pos
-    start, real, ok_cov = _slot_starts(valid, sym, N)
-    del valid
-    # only the real pixels' slots go on, per image, with a hole's symbol
-    # and the spare column N past each image's count
-    sym, i12, i34, start, live = _compact(real, (sym, i12, i34, start), (C.PREFIX_RUN_BASE, 0, 0, N))
-    del real
-    mark_stage(marks, "assemble")
-    bins = _payload_bins(sym, i12, i34)
-    del i12, i34
-    syms = cuda_ops.value_join(bins, sym_tbl.contiguous())
-    del bins
-    mark_stage(marks, "value_join")
-    ok_ref = ~(live & (sym == C.PREFIX_BACK_REF) & (syms[0] >= C.NUM_BACK_REF)).any(dim=1)
-    rec = torch.empty_like(sym)
-    dst = torch.empty_like(start)
-    cols = max(1, RECORD_BLOCK // B)
-    for a in range(0, sym.shape[1], cols):  # bounds slot_records' temporaries
-        c = (slice(None), slice(a, a + cols))
-        rec[c], dst[c] = slot_records(live[c], sym[c], *(p[c] for p in syms), start[c], live[c], N, width)
-    del sym, syms, start, live
-    base = _place(rec, dst, N)
-    del rec, dst
-    form, delta, refoff = _unpack(base, N, width)
-    del base
-    mark_stage(marks, "records+place")
+    with span("decode3.assemble", marks):
+        pos, sym, i12, i34 = (r.view(B, S) for r in (pos, sym, i12, i34))
+        valid = (pos >= 0) & (pos < wbits.to(torch.int32)[:, None])
+        del pos
+        start, real, ok_cov = _slot_starts(valid, sym, N)
+        del valid
+        # only the real pixels' slots go on, per image, with a hole's symbol
+        # and the spare column N past each image's count
+        sym, i12, i34, start, live = _compact(real, (sym, i12, i34, start), (C.PREFIX_RUN_BASE, 0, 0, N))
+        del real
+    with span("decode3.value_join", marks):
+        bins = _payload_bins(sym, i12, i34)
+        del i12, i34
+        syms = cuda_ops.value_join(bins, sym_tbl.contiguous())
+        del bins
+    with span("decode3.records+place", marks):
+        ok_ref = ~(live & (sym == C.PREFIX_BACK_REF) & (syms[0] >= C.NUM_BACK_REF)).any(dim=1)
+        rec = torch.empty_like(sym)
+        dst = torch.empty_like(start)
+        cols = max(1, RECORD_BLOCK // B)
+        for a in range(0, sym.shape[1], cols):  # bounds slot_records' temporaries
+            c = (slice(None), slice(a, a + cols))
+            rec[c], dst[c] = slot_records(live[c], sym[c], *(p[c] for p in syms), start[c], live[c], N, width)
+        del sym, syms, start, live
+        base = _place(rec, dst, N)
+        del rec, dst
+        form, delta, refoff = _unpack(base, N, width)
+        del base
     return form, delta, refoff, torch.stack([ok_consist, ok_cross, ok_cov, ok_ref], dim=1)
 
 
@@ -658,8 +659,8 @@ def _decode_core_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: in
     form, delta, refoff, gates = decode_planes_v3(
         words, wbits, af, present, ib, pfx, sym_tbl, n_pixels=n_pixels, width=width,
         chunk_bits=chunk_bits, steps=steps, rounds=rounds, marks=marks, walk_tables=walk_tables)
-    out = recon.reconstruct_rows(form, delta, refoff, width=width)
-    mark_stage(marks, "recon")
+    with span("decode3.recon", marks):
+        out = recon.reconstruct_rows(form, delta, refoff, width=width)
     return out.to(torch.uint8), gates.all(dim=1), gates
 
 
@@ -687,14 +688,15 @@ def run_ladder(call, n: int, *, ladder=LADDER, skip=None, stats=None):
         ok_new = np.asarray(ok) & ~skip
         if gates is not None:
             gates_last = np.asarray(gates)
-        if merged is None:
-            merged = [np.array(a) for a in aux]
-            ok_np = ok_new
-        else:
-            upd = ok_new & ~ok_np
-            for m, a in zip(merged, aux):
-                m[upd] = np.asarray(a)[upd]
-            ok_np = ok_np | ok_new
+        with span("decode3.ladder_merge"):
+            if merged is None:
+                merged = [np.array(a) for a in aux]
+                ok_np = ok_new
+            else:
+                upd = ok_new & ~ok_np
+                for m, a in zip(merged, aux):
+                    m[upd] = np.asarray(a)[upd]
+                ok_np = ok_np | ok_new
         if (ok_np | skip).all():
             break
         retries += 1
@@ -741,7 +743,14 @@ def _raise_if_consistent_but_wrong(ok_np, eq_np) -> None:
 
 
 def _equal_planar(out, flat) -> torch.Tensor:
-    """(B,) bool: decoded (B, 3, N) equals the (B, N, 3) original."""
+    """(B,) bool: decoded (B, 3, N) equals the (B, N, 3) original.
+
+    The hook that hands out a round trip's decoded planes: the benchmark's
+    round-trip check (`benchmark/calls/roundtrip_batch.py`) replaces this
+    module attribute with a wrapper that reads `out`.  So every rung that
+    verifies a batch (`_roundtrip_verify_core`, `verify_words_device`) calls
+    it by this name, through the module's globals, with the rung's decoded
+    (B, 3, N) planes; keep the name and that call."""
     return (out == flat.transpose(1, 2)).flatten(1).all(dim=1)
 
 
@@ -761,29 +770,33 @@ def verify_words_device(words_dev, totals, lengths, orig_dev, *, n_pixels: int, 
             stats["fallbacks"] = B
             stats["retries"] = 0
         return np.zeros(B, bool)
-    donor = int(np.argmin(skip))
-    src_rows = np.where(skip, donor, np.arange(B))
-    lens_b = np.asarray(lengths, dtype=np.int64)[src_rows]
-    for b in range(B):
-        if not skip[b]:
-            validate_flat_lengths(lens_b[b])
-    dev = words_dev.device
-    af, pr, ib, pfx, sym_tbl, _, _, *walk_t = prepare_tables_v3(torch.from_numpy(lens_b).to(dev), walk=True)
-    tot = np.where(skip, int(totals[donor]), np.asarray(totals)).astype(np.int64)
-    wi = _fit_words(words_dev, _words_cap(int(tot.max() + 7) // 8, ladder))
-    wbits = torch.from_numpy(tot.astype(np.int32)).to(dev)
+    with span("decode3.verify_words_device"):
+        donor = int(np.argmin(skip))
+        src_rows = np.where(skip, donor, np.arange(B))
+        lens_b = np.asarray(lengths, dtype=np.int64)[src_rows]
+        for b in range(B):
+            if not skip[b]:
+                validate_flat_lengths(lens_b[b])
+        dev = words_dev.device
+        af, pr, ib, pfx, sym_tbl, _, _, *walk_t = prepare_tables_v3(torch.from_numpy(lens_b).to(dev), walk=True)
+        tot = np.where(skip, int(totals[donor]), np.asarray(totals)).astype(np.int64)
+        wi = _fit_words(words_dev, _words_cap(int(tot.max() + 7) // 8, ladder))
+        wbits = torch.from_numpy(tot.astype(np.int32)).to(dev)
 
-    def call(cfg):
-        out, ok, _ = _decode_core_v3(
-            wi, wbits, af, pr, ib, pfx, sym_tbl, n_pixels=n_pixels, width=width,
-            chunk_bits=cfg.chunk_bits, steps=_steps(cfg.chunk_bits, cfg.steps_div),
-            rounds=cfg.rounds, walk_tables=walk_t,
-        )
-        return ok.cpu().numpy(), (_equal_planar(out, orig_dev).cpu().numpy(),), None
+        def call(cfg):
+            with span("decode3.rung"):
+                out, ok, _ = _decode_core_v3(
+                    wi, wbits, af, pr, ib, pfx, sym_tbl, n_pixels=n_pixels, width=width,
+                    chunk_bits=cfg.chunk_bits, steps=_steps(cfg.chunk_bits, cfg.steps_div),
+                    rounds=cfg.rounds, walk_tables=walk_t,
+                )
+                with span("decode3.sync"):
+                    ok = ok.cpu().numpy()
+                return ok, (_equal_planar(out, orig_dev).cpu().numpy(),), None
 
-    ok_np, (eq_np,) = run_ladder(call, B, ladder=ladder, skip=skip, stats=stats)
-    _raise_if_consistent_but_wrong(ok_np, eq_np)
-    return ok_np
+        ok_np, (eq_np,) = run_ladder(call, B, ladder=ladder, skip=skip, stats=stats)
+        _raise_if_consistent_but_wrong(ok_np, eq_np)
+        return ok_np
 
 
 # ---------------------------------------------------------------------------
@@ -811,16 +824,16 @@ def _roundtrip_verify_core(flat, *, width: int, ndigits_cap: int, w_cap: int, cf
     words, lengths, totals, ovf = encode_fused_core(
         flat, width=width, ndigits_cap=ndigits_cap, w_cap=w_cap, marks=marks
     )
-    af, pr, ib, pfx, sym_tbl, _, tables_ok, *walk_t = prepare_tables_v3(lengths, walk=True)
-    mark_stage(marks, "tables")
+    with span("decode3.tables", marks):
+        af, pr, ib, pfx, sym_tbl, _, tables_ok, *walk_t = prepare_tables_v3(lengths, walk=True)
     wi = _fit_words(words, _wcap_one((32 * (w_cap - 2)) // 8, cfg))
     out, ok, _ = _decode_core_v3(
         wi, totals.to(torch.int32), af, pr, ib, pfx, sym_tbl, n_pixels=N, width=width,
         chunk_bits=cfg.chunk_bits, steps=_steps(cfg.chunk_bits, cfg.steps_div),
         rounds=cfg.rounds, marks=marks, walk_tables=walk_t,
     )
-    eq = _equal_planar(out, flat)
-    mark_stage(marks, "equality")
+    with span("decode3.equality", marks):
+        eq = _equal_planar(out, flat)
     okf = ok & tables_ok & ~ovf & (totals < MAX_DEVICE_BITS)
     small2 = torch.cat(
         [lengths, totals.to(torch.int32)[:, None]]
@@ -847,25 +860,27 @@ def roundtrip_verify_fused(flat_dev, *, width: int, w_cap: int | None = None, st
     B, N, _ = (int(x) for x in flat_dev.shape)
     if w_cap is None:
         w_cap = roundtrip_cap_words(N)
-    words, small2_d = _roundtrip_verify_core(
-        flat_dev, width=width, ndigits_cap=3, w_cap=w_cap, cfg=LADDER[0], marks=marks
-    )
-    small2 = small2_d.cpu().numpy()
-    small = small2[:, :860]
-    okf = small2[:, 860].astype(bool)
-    eq = small2[:, 861].astype(bool)
-    _raise_if_consistent_but_wrong(okf, eq)
-    verified = okf & eq
-    ovf = small[:, 859].astype(bool)
-    retry = ~verified & ~ovf & (small[:, 858] < MAX_DEVICE_BITS)
-    if stats is not None:
-        stats["retries"] = int(retry.sum())
-    if retry.any():
-        verified = verified | verify_words_device(
-            words, small[:, 858], small[:, :858], flat_dev, skip=~retry, n_pixels=N,
-            width=width, ladder=LADDER[1:],
+    with span("decode3.roundtrip_verify_fused"):
+        words, small2_d = _roundtrip_verify_core(
+            flat_dev, width=width, ndigits_cap=3, w_cap=w_cap, cfg=LADDER[0], marks=marks
         )
-        mark_stage(marks, "robust_retry")
+        with span("decode3.sync"):
+            small2 = small2_d.cpu().numpy()
+        small = small2[:, :860]
+        okf = small2[:, 860].astype(bool)
+        eq = small2[:, 861].astype(bool)
+        _raise_if_consistent_but_wrong(okf, eq)
+        verified = okf & eq
+        ovf = small[:, 859].astype(bool)
+        retry = ~verified & ~ovf & (small[:, 858] < MAX_DEVICE_BITS)
+        if stats is not None:
+            stats["retries"] = int(retry.sum())
+        if retry.any():
+            with span("decode3.robust_retry", marks):
+                verified = verified | verify_words_device(
+                    words, small[:, 858], small[:, :858], flat_dev, skip=~retry, n_pixels=N,
+                    width=width, ladder=LADDER[1:],
+                )
     if stats is not None:
         stats["fallbacks"] = int((~verified).sum())
         stats["ok"] = [bool(x) for x in verified]
@@ -915,23 +930,24 @@ def prepare_batch_args(datas: list[bytes], *, device, ladder=LADDER):
 def _batch_args(datas: list[bytes], *, device, ladder):
     """`prepare_batch_args` with the walk's tables, built in the same launch
     as the rest: (args, (aff, dD, inc), (H, W))."""
-    if any(payload_bits(d) >= MAX_DEVICE_BITS for d in datas):
-        raise ValueError(f"a payload of {MAX_DEVICE_BITS} bits or more is decoded on the host")
-    W, H, lens, payloads = _parse_batch(datas)
-    Wn = _words_cap(max(len(p) for p in payloads), ladder)
-    words = np.zeros((len(datas), Wn), dtype=np.uint32)
-    wbits = np.zeros(len(datas), dtype=np.int32)
-    for i, p in enumerate(payloads):
-        src = np.frombuffer(p + b"\0" * ((-len(p)) % 4), dtype=">u4")
-        words[i, : src.shape[0]] = src
-        wbits[i] = len(p) * 8
-    af, pr, ib, pfx, sym_tbl, _, _, *walk_t = prepare_tables_v3(torch.from_numpy(lens).to(device), walk=True)
-    args = (
-        torch.from_numpy(words.view(np.int32)).to(device),
-        torch.from_numpy(wbits).to(device),
-        af, pr, ib, pfx, sym_tbl,
-    )
-    return args, tuple(walk_t), (H, W)
+    with span("decode3.batch_args"):
+        if any(payload_bits(d) >= MAX_DEVICE_BITS for d in datas):
+            raise ValueError(f"a payload of {MAX_DEVICE_BITS} bits or more is decoded on the host")
+        W, H, lens, payloads = _parse_batch(datas)
+        Wn = _words_cap(max(len(p) for p in payloads), ladder)
+        words = np.zeros((len(datas), Wn), dtype=np.uint32)
+        wbits = np.zeros(len(datas), dtype=np.int32)
+        for i, p in enumerate(payloads):
+            src = np.frombuffer(p + b"\0" * ((-len(p)) % 4), dtype=">u4")
+            words[i, : src.shape[0]] = src
+            wbits[i] = len(p) * 8
+        af, pr, ib, pfx, sym_tbl, _, _, *walk_t = prepare_tables_v3(torch.from_numpy(lens).to(device), walk=True)
+        args = (
+            torch.from_numpy(words.view(np.int32)).to(device),
+            torch.from_numpy(wbits).to(device),
+            af, pr, ib, pfx, sym_tbl,
+        )
+        return args, tuple(walk_t), (H, W)
 
 
 # Peak device bytes of `_decode_core_v3`, which `decode_batch_v3` reckons
@@ -962,9 +978,10 @@ def device_budget(device) -> int | None:
     memory and of the allocator's cached free blocks; None on the CPU."""
     if device.type != "cuda":
         return None
-    free = torch.cuda.mem_get_info(device)[0]
-    cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
-    return int(BUDGET_SHARE * (free + cached))
+    with span("decode3.device_budget"):
+        free = torch.cuda.mem_get_info(device)[0]
+        cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+        return int(BUDGET_SHARE * (free + cached))
 
 
 def device_groups(datas: list[bytes], *, device, ladder=LADDER):
@@ -973,34 +990,35 @@ def device_groups(datas: list[bytes], *, device, ladder=LADDER):
     Returns (groups, to_host): lists of stream indices, and {index: reason}
     for the streams the host decodes: a payload of MAX_DEVICE_BITS or more,
     or one that does not fit the budget alone."""
-    shapes = {headers.parse_file_header(d)[:2] for d in datas}
-    if len(shapes) != 1:
-        raise ValueError("batch decode requires same-shape streams")
-    W, H = shapes.pop()
-    budget = device_budget(device)
-    to_host: dict = {}
-    groups: list = []
-    cur: list = []
-    longest = 0  # payload bytes of the longest stream in cur
-    for i, d in enumerate(datas):
-        nbytes = payload_bits(d) // 8
-        if 8 * nbytes >= MAX_DEVICE_BITS:
-            to_host[i] = f"a payload of {8 * nbytes} bits, past MAX_DEVICE_BITS ({MAX_DEVICE_BITS})"
-            continue
-        if budget is not None:
-            alone = decode_bytes(nbytes, H * W, ladder)
-            if alone > budget:
-                to_host[i] = (f"its decode needs {alone / 2**30:.2f} GiB of device memory "
-                              f"(reckoned), {budget / 2**30:.2f} GiB are free")
+    with span("decode3.device_groups"):
+        shapes = {headers.parse_file_header(d)[:2] for d in datas}
+        if len(shapes) != 1:
+            raise ValueError("batch decode requires same-shape streams")
+        W, H = shapes.pop()
+        budget = device_budget(device)
+        to_host: dict = {}
+        groups: list = []
+        cur: list = []
+        longest = 0  # payload bytes of the longest stream in cur
+        for i, d in enumerate(datas):
+            nbytes = payload_bits(d) // 8
+            if 8 * nbytes >= MAX_DEVICE_BITS:
+                to_host[i] = f"a payload of {8 * nbytes} bits, past MAX_DEVICE_BITS ({MAX_DEVICE_BITS})"
                 continue
-            if cur and (len(cur) + 1) * decode_bytes(max(longest, nbytes), H * W, ladder) > budget:
-                groups.append(cur)
-                cur, longest = [], 0
-        cur.append(i)
-        longest = max(longest, nbytes)
-    if cur:
-        groups.append(cur)
-    return groups, to_host
+            if budget is not None:
+                alone = decode_bytes(nbytes, H * W, ladder)
+                if alone > budget:
+                    to_host[i] = (f"its decode needs {alone / 2**30:.2f} GiB of device memory "
+                                  f"(reckoned), {budget / 2**30:.2f} GiB are free")
+                    continue
+                if cur and (len(cur) + 1) * decode_bytes(max(longest, nbytes), H * W, ladder) > budget:
+                    groups.append(cur)
+                    cur, longest = [], 0
+            cur.append(i)
+            longest = max(longest, nbytes)
+        if cur:
+            groups.append(cur)
+        return groups, to_host
 
 
 def decode_batch_v3(datas: list[bytes], *, device, chunk_bits: int | None = None,
@@ -1034,23 +1052,33 @@ def decode_batch_v3(datas: list[bytes], *, device, chunk_bits: int | None = None
         W, H, _ = headers.parse_file_header(datas[0])
 
         def call(cfg):
-            res = []
-            for args, walk_t in batches:
-                out, ok, gates = _decode_core_v3(
-                    *args, n_pixels=H * W, width=W, chunk_bits=cfg.chunk_bits,
-                    steps=_steps(cfg.chunk_bits, cfg.steps_div), rounds=cfg.rounds, walk_tables=walk_t,
-                )
-                res.append((ok.cpu().numpy(), out.cpu().numpy(), gates.cpu().numpy()))
-                del out
-            ok, out, gates = (np.concatenate(r) for r in zip(*res))
-            return ok, (out,), gates
+            with span("decode3.rung"):
+                res = []
+                for args, walk_t in batches:
+                    out, ok, gates = _decode_core_v3(
+                        *args, n_pixels=H * W, width=W, chunk_bits=cfg.chunk_bits,
+                        steps=_steps(cfg.chunk_bits, cfg.steps_div), rounds=cfg.rounds, walk_tables=walk_t,
+                    )
+                    with span("decode3.sync"):
+                        ok = ok.cpu().numpy()
+                    with span("decode3.fetch"):
+                        res.append((ok, out.cpu().numpy(), gates.cpu().numpy()))
+                    del out
+                with span("decode3.fetch"):
+                    ok, out, gates = (np.concatenate(r) for r in zip(*res))
+                return ok, (out,), gates
 
         ok_np, (out_np,) = run_ladder(call, len(on_dev), ladder=ladder, stats=sub)
-        decoded = {i: out_np[j].reshape(3, H, W).transpose(1, 2, 0)
-                   for j, i in enumerate(on_dev) if ok_np[j]}
+        with span("decode3.to_arrays"):
+            decoded = {i: out_np[j].reshape(3, H, W).transpose(1, 2, 0)
+                       for j, i in enumerate(on_dev) if ok_np[j]}
     if stats is not None:
         stats.update(sub)
         stats["fallbacks"] = len(datas) - len(decoded)
         if to_host:
             stats["to_host"] = [{"stream": i, "why": why} for i, why in sorted(to_host.items())]
-    return [decoded[i] if i in decoded else oracle.decode_native(d) for i, d in enumerate(datas)]
+    missing = [i for i in range(len(datas)) if i not in decoded]
+    if missing:
+        with span("decode3.host_decode"):
+            decoded.update((i, oracle.decode_native(datas[i])) for i in missing)
+    return [decoded[i] for i in range(len(datas))]

@@ -36,6 +36,7 @@ from nicetpu_torch.kernels import cuda_ops
 from nicetpu_torch.kernels.bitpack import words_to_payload
 from nicetpu_torch.kernels.huffman_dev import build_tables_device
 from nicetpu_torch.kernels.tokenize import tokenize_bins
+from nicetpu_torch.utils.profiling import mark_stage, span
 
 INVALID_BIN = 1023  # >= 858 means "no token"
 GROUP = 8  # pixels folded into one record
@@ -70,28 +71,28 @@ def _fold_place_grouped_batched(aob3, code3, *, w_cap: int, marks=None):
         code3 = F.pad(code3, (0, 0, 0, pad))
     Mg = aob3.shape[1] // GROUP
     capw = GROUP_CAPW
-    rec, k = cuda_ops.fold_records(
-        aob3.reshape(B, Mg, GROUP * S), code3.reshape(B, Mg, GROUP * S)
-    )  # rec (B, capw, Mg) int32 bit patterns; k (B, Mg) int32
-    overflow = (k > 32 * capw).any(dim=1)
-    mark_stage(marks, "fold")
+    with span("encode2.fold", marks):
+        rec, k = cuda_ops.fold_records(
+            aob3.reshape(B, Mg, GROUP * S), code3.reshape(B, Mg, GROUP * S)
+        )  # rec (B, capw, Mg) int32 bit patterns; k (B, Mg) int32
+        overflow = (k > 32 * capw).any(dim=1)
 
-    incl = torch.cumsum(k, dim=1, dtype=torch.int64)
-    totals = incl[:, -1]
-    offs = incl - k
-    w = offs >> 5
-    r = offs & 31
-    recu = from_int32_bits(rec)
-    zero = torch.zeros_like(offs)
-    words = torch.zeros(B, w_cap, dtype=torch.int64, device=k.device)
-    for j in range(capw + 1):
-        cur = recu[:, j] if j < capw else zero
-        prev = recu[:, j - 1] if j > 0 else zero
-        val = (cur >> r) | torch.where(r > 0, (prev << (32 - r)) & MASK32, 0)
-        idx = w + j
-        keep = idx < w_cap
-        words.scatter_add_(1, torch.where(keep, idx, 0), torch.where(keep, val, 0))
-    mark_stage(marks, "place")
+    with span("encode2.place", marks):
+        incl = torch.cumsum(k, dim=1, dtype=torch.int64)
+        totals = incl[:, -1]
+        offs = incl - k
+        w = offs >> 5
+        r = offs & 31
+        recu = from_int32_bits(rec)
+        zero = torch.zeros_like(offs)
+        words = torch.zeros(B, w_cap, dtype=torch.int64, device=k.device)
+        for j in range(capw + 1):
+            cur = recu[:, j] if j < capw else zero
+            prev = recu[:, j - 1] if j > 0 else zero
+            val = (cur >> r) | torch.where(r > 0, (prev << (32 - r)) & MASK32, 0)
+            idx = w + j
+            keep = idx < w_cap
+            words.scatter_add_(1, torch.where(keep, idx, 0), torch.where(keep, val, 0))
     return to_int32_bits(words & MASK32), totals, overflow
 
 
@@ -106,14 +107,14 @@ def encode_fused_core(imgs_flat, *, width: int, ndigits_cap: int, w_cap: int, ma
     marks: optional list; when given, a CUDA event is recorded after each
     stage and appended as (stage name, event).
     """
-    bins, run_ovf = _tokenize_core(imgs_flat, width=width, ndigits_cap=ndigits_cap)
-    mark_stage(marks, "tokenize")
-    counts = cuda_ops.histogram(bins)
-    mark_stage(marks, "histogram")
-    lengths, codes, len_ovf = build_tables_device(counts)
-    mark_stage(marks, "huffman_build")
-    aob, code = cuda_ops.table_join(bins, lengths, codes)
-    mark_stage(marks, "join")
+    with span("encode2.tokenize", marks):
+        bins, run_ovf = _tokenize_core(imgs_flat, width=width, ndigits_cap=ndigits_cap)
+    with span("encode2.histogram", marks):
+        counts = cuda_ops.histogram(bins)
+    with span("encode2.huffman_build", marks):
+        lengths, codes, len_ovf = build_tables_device(counts)
+    with span("encode2.join", marks):
+        aob, code = cuda_ops.table_join(bins, lengths, codes)
 
     B, M = aob.shape
     slots = M // imgs_flat.shape[1]
@@ -153,15 +154,6 @@ def encode_fused(imgs_flat, *, width: int, ndigits_cap: int, w_cap: int, marks=N
         [lengths, totals.to(torch.int32)[:, None], ovf.to(torch.int32)[:, None]], dim=1
     )
     return words, small
-
-
-def mark_stage(marks, name: str) -> None:
-    """Append (name, CUDA event recorded now on the current stream) to
-    `marks` when it is a list; do nothing when it is None."""
-    if marks is not None:
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
 
 
 # ---------------------------------------------------------------------------
@@ -225,15 +217,15 @@ def pack_compact(bins, aob_tbl, code_tbl, *, w_cap: int, slots: int, mode: str =
     (B,) int64, overflow (B,) bool)."""
     if mode not in ("fold", "slots"):
         raise ValueError(f"unknown pack mode {mode!r}: use 'fold' or 'slots'")
-    aob, code = cuda_ops.table_join(bins, aob_tbl, code_tbl)
-    mark_stage(marks, "join")
+    with span("encode2.join", marks):
+        aob, code = cuda_ops.table_join(bins, aob_tbl, code_tbl)
     B, M = aob.shape
     if mode == "fold":
         return _fold_place_grouped_batched(
             aob.view(B, M // slots, slots), code.view(B, M // slots, slots), w_cap=w_cap, marks=marks
         )
-    placed = [_place(aob[b], code[b], w_cap=w_cap) for b in range(B)]
-    mark_stage(marks, "place")
+    with span("encode2.place", marks):
+        placed = [_place(aob[b], code[b], w_cap=w_cap) for b in range(B)]
     words = torch.stack([p[0] for p in placed])
     totals = torch.stack([p[1] for p in placed])
     return words, totals, torch.zeros(B, dtype=torch.bool, device=aob.device)
@@ -262,6 +254,15 @@ def _add(stats: dict | None, key: str, n: int) -> None:
         stats[key] = stats.get(key, 0) + n
 
 
+def _tokenize_counts(flat: torch.Tensor, *, width: int, ndigits_cap: int, marks=None):
+    """`tokenize_compact` and one fetch of its (B, 859) stats: (bins on the
+    device, int64 numpy stats)."""
+    with span("encode2.tokenize+histogram", marks):
+        bins, st = tokenize_compact(flat, width=width, ndigits_cap=ndigits_cap)
+    with span("encode2.counts_to_host", marks):
+        return bins, st.cpu().numpy().astype(np.int64)
+
+
 def encode_resident(flat: torch.Tensor, *, width: int, stats: dict | None = None, marks=None):
     """The two-step encode of a resident (B, N, 3) uint8 batch, up to the
     packed words.
@@ -274,35 +275,32 @@ def encode_resident(flat: torch.Tensor, *, width: int, stats: dict | None = None
     Raises RuntimeError where a device total differs from the bits the host
     tables say the payload needs."""
     B, N, _ = flat.shape
-    bins, st = tokenize_compact(flat, width=width, ndigits_cap=3)
-    mark_stage(marks, "tokenize+histogram")
-    counts = st.cpu().numpy().astype(np.int64)
-    mark_stage(marks, "counts_to_host")
-    if counts[:, -1].any():
-        del bins, st
-        bins, st = tokenize_compact(flat, width=width, ndigits_cap=C.MAX_RUN_DIGITS)
-        mark_stage(marks, "tokenize+histogram")
-        counts = st.cpu().numpy().astype(np.int64)
-        mark_stage(marks, "counts_to_host")
-        _add(stats, "retokenized", B)
-    counts = counts[:, :-1]
-    tables = [build_tables_host(c) for c in counts]
-    lengths = np.stack([t[0] for t in tables]).astype(np.int32)
-    codes = np.stack([t[1] for t in tables])
-    needed_bits = (counts * lengths.astype(np.int64)).sum(axis=1)
-    mark_stage(marks, "host_tables")
+    with span("encode2.encode_resident"):
+        bins, counts = _tokenize_counts(flat, width=width, ndigits_cap=3, marks=marks)
+        if counts[:, -1].any():
+            del bins
+            bins, counts = _tokenize_counts(flat, width=width, ndigits_cap=C.MAX_RUN_DIGITS, marks=marks)
+            _add(stats, "retokenized", B)
+        counts = counts[:, :-1]
+        with span("encode2.host_tables", marks):
+            with span("encode2.build_tables_host"):
+                tables = [build_tables_host(c) for c in counts]
+            lengths = np.stack([t[0] for t in tables]).astype(np.int32)
+            codes = np.stack([t[1] for t in tables])
+            needed_bits = (counts * lengths.astype(np.int64)).sum(axis=1)
 
-    w_cap = payload_capacity(needed_bits, N)
-    slots = bins.shape[1] // N
-    aob_tbl, code_tbl = tables_from_numpy(lengths, codes, flat.device)
-    mark_stage(marks, "tables_to_device")
-    words, totals, ovf = pack_compact(bins, aob_tbl, code_tbl, w_cap=w_cap, slots=slots, marks=marks)
-    if bool(ovf.any()):
-        del words, totals
-        words, totals, _ = pack_compact(bins, aob_tbl, code_tbl, w_cap=w_cap, slots=slots,
-                                        mode="slots", marks=marks)
-        _add(stats, "slot_mode", 1)
-    totals = totals.cpu().numpy()
+        w_cap = payload_capacity(needed_bits, N)
+        slots = bins.shape[1] // N
+        with span("encode2.tables_to_device", marks):
+            aob_tbl, code_tbl = tables_from_numpy(lengths, codes, flat.device)
+        words, totals, ovf = pack_compact(bins, aob_tbl, code_tbl, w_cap=w_cap, slots=slots, marks=marks)
+        if bool(ovf.any()):
+            del words, totals
+            words, totals, _ = pack_compact(bins, aob_tbl, code_tbl, w_cap=w_cap, slots=slots,
+                                            mode="slots", marks=marks)
+            _add(stats, "slot_mode", 1)
+        with span("encode2.sync"):
+            totals = totals.cpu().numpy()
     bad = np.flatnonzero(totals != needed_bits)
     if bad.size:
         b = int(bad[0])
@@ -326,29 +324,32 @@ def encode_batch(imgs: np.ndarray, *, device="cuda", stats: dict | None = None, 
     B, H, W, _ = imgs.shape
     if W < C.MIN_WIDTH:
         raise ValueError(f"width must be >= {C.MIN_WIDTH} (SURVEY A.8.7)")
-    mark_stage(marks, "start")
-    flat = torch.from_numpy(np.ascontiguousarray(imgs).reshape(B, H * W, 3)).to(device)
-    mark_stage(marks, "upload")
-    words_d, totals, lengths = encode_resident(flat, width=W, stats=stats, marks=marks)
-    del flat
-    out = assemble(words_d, totals, lengths, H, W)
-    mark_stage(marks, "fetch+assembly")
-    return out
+    with span("encode2.encode_batch"):
+        mark_stage(marks, "start")
+        with span("encode2.upload", marks):
+            flat = torch.from_numpy(np.ascontiguousarray(imgs).reshape(B, H * W, 3)).to(device)
+        words_d, totals, lengths = encode_resident(flat, width=W, stats=stats, marks=marks)
+        del flat
+        with span("encode2.fetch+assembly", marks):
+            return assemble(words_d, totals, lengths, H, W)
 
 
 def assemble(words_d: torch.Tensor, totals: np.ndarray, lengths: np.ndarray, height: int,
              width: int) -> list[bytes]:
     """`.nice` byte strings of a batch from `encode_resident`'s outputs: one
     fetch of the words the payloads need, then headers and payload bytes."""
-    # words_to_payload reads at most total // 32 + 2 words of an image
-    words = words_to_numpy(words_d[:, : int(totals.max()) // 32 + 2].contiguous())
-    file_hdr = headers.pack_file_header(width, height, 3)
-    return [
-        file_hdr
-        + headers.pack_stream_headers(lengths[b].astype(np.uint8))
-        + words_to_payload(words[b], int(totals[b]))
-        for b in range(len(totals))
-    ]
+    with span("encode2.assemble"):
+        with span("encode2.fetch"):
+            # words_to_payload reads at most total // 32 + 2 words of an image
+            words = words_to_numpy(words_d[:, : int(totals.max()) // 32 + 2].contiguous())
+        with span("encode2.bytes"):
+            file_hdr = headers.pack_file_header(width, height, 3)
+            return [
+                file_hdr
+                + headers.pack_stream_headers(lengths[b].astype(np.uint8))
+                + words_to_payload(words[b], int(totals[b]))
+                for b in range(len(totals))
+            ]
 
 
 def encode_v2(img: np.ndarray, *, device="cuda") -> bytes:

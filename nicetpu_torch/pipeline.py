@@ -44,7 +44,8 @@ from nicetpu_torch.convert import words_to_numpy
 from nicetpu_torch.hostref import oracle
 from nicetpu_torch.kernels import decode3
 from nicetpu_torch.kernels.bitpack import words_to_payload
-from nicetpu_torch.kernels.encode2 import encode_fused, mark_stage
+from nicetpu_torch.kernels.encode2 import encode_fused
+from nicetpu_torch.utils.profiling import mark_stage, span
 
 # Payload capacity: 28 bits/pixel covers photos and mild expansion; noisier
 # images take the native fallback (cap overflow flag).
@@ -68,8 +69,8 @@ def encode_batch_fused(
     if any(im.shape != shape for im in imgs):
         raise ValueError("encode_batch_fused needs same-shape images")
     mark_stage(marks, "start")
-    flat = upload_batch(imgs, device)
-    mark_stage(marks, "upload")
+    with span("pipeline.upload", marks):
+        flat = upload_batch(imgs, device)
     return encode_batch_resident(flat, imgs, stats=stats, marks=marks)
 
 
@@ -85,9 +86,10 @@ def encode_batch_resident(flat_dev, imgs, *, return_device: bool = False,
     if W < C.MIN_WIDTH:
         raise ValueError(f"width must be >= {C.MIN_WIDTH} (SURVEY A.8.7)")
     words_d, small_d = encode_fused(flat_dev, width=W, ndigits_cap=3, w_cap=w_cap(H * W), marks=marks)
-    small = small_d.cpu().numpy()  # (B, 860): [lengths(858), total_bits, ovf]
-    datas = _assemble_payloads(words_d, small, imgs, stats)
-    mark_stage(marks, "fetch+assembly")
+    with span("pipeline.fetch+assembly", marks):
+        with span("pipeline.sync"):
+            small = small_d.cpu().numpy()  # (B, 860): [lengths(858), total_bits, ovf]
+        datas = _assemble_payloads(words_d, small, imgs, stats)
     return (datas, words_d, small) if return_device else datas
 
 
@@ -105,31 +107,36 @@ def _assemble_payloads(words_d: torch.Tensor, small: np.ndarray, imgs, stats) ->
     H, W, _ = imgs[0].shape
     totals = small[:, 858].astype(np.int64)
     ovf = small[:, 859].astype(bool)
-    kmax = int(totals[~ovf].max()) // 32 + 2 if (~ovf).any() else 0
-    kmax = min(kmax, int(words_d.shape[1]))
-    words = words_to_numpy(words_d[:, :kmax].contiguous()) if kmax else None
+    with span("pipeline.assemble_payloads"):
+        with span("pipeline.fetch"):
+            kmax = int(totals[~ovf].max()) // 32 + 2 if (~ovf).any() else 0
+            kmax = min(kmax, int(words_d.shape[1]))
+            words = words_to_numpy(words_d[:, :kmax].contiguous()) if kmax else None
 
-    out: list[bytes] = []
-    file_hdr = headers.pack_file_header(W, H, 3)
-    for b in range(small.shape[0]):
-        if ovf[b]:
-            if stats is not None:
-                stats["overflow_fallbacks"] = stats.get("overflow_fallbacks", 0) + 1
-            out.append(oracle.encode_native(imgs[b]))
-            continue
-        out.append(
-            file_hdr
-            + headers.pack_stream_headers(small[b, :858].astype(np.uint8))
-            + words_to_payload(words[b], int(totals[b]))
-        )
-    return out
+        out: list[bytes] = []
+        with span("pipeline.bytes"):
+            file_hdr = headers.pack_file_header(W, H, 3)
+            for b in range(small.shape[0]):
+                if ovf[b]:
+                    if stats is not None:
+                        stats["overflow_fallbacks"] = stats.get("overflow_fallbacks", 0) + 1
+                    with span("pipeline.host_encode"):
+                        out.append(oracle.encode_native(imgs[b]))
+                    continue
+                out.append(
+                    file_hdr
+                    + headers.pack_stream_headers(small[b, :858].astype(np.uint8))
+                    + words_to_payload(words[b], int(totals[b]))
+                )
+        return out
 
 
 def upload_batch(imgs: Sequence[np.ndarray], device) -> torch.Tensor:
     """Same-shape (H, W, 3) uint8 images -> one (B, N, 3) tensor on `device`."""
-    H, W, _ = imgs[0].shape
-    host = np.stack([np.ascontiguousarray(im).reshape(H * W, 3) for im in imgs])
-    return torch.from_numpy(host).to(device)
+    with span("pipeline.upload_batch"):
+        H, W, _ = imgs[0].shape
+        host = np.stack([np.ascontiguousarray(im).reshape(H * W, 3) for im in imgs])
+        return torch.from_numpy(host).to(device)
 
 
 def roundtrip_batch_resident(flat_dev, imgs, *, stats: dict | None = None, marks=None):
@@ -145,23 +152,30 @@ def roundtrip_batch_resident(flat_dev, imgs, *, stats: dict | None = None, marks
     (counted in `overflow_fallbacks`), any other unverified image in
     `fallbacks`, and every unverified blob is decoded by the host codec and
     compared with its image; a mismatch raises.  stats accumulates
-    "retries", "fallbacks" and "overflow_fallbacks"."""
+    "retries", "fallbacks", "overflow_fallbacks" and "overflow_decoded"
+    (images the device decoded although their encode had overflowed: the
+    fused round trip decodes the whole batch)."""
     H, W, _ = imgs[0].shape
     if W < C.MIN_WIDTH:
         raise ValueError(f"width must be >= {C.MIN_WIDTH} (SURVEY A.8.7)")
-    dstats: dict = {}
-    words_d, small, verified = decode3.roundtrip_verify_fused(
-        flat_dev, width=W, stats=dstats, marks=marks
-    )
-    datas = _assemble_payloads(words_d, small, imgs, stats)
-    mark_stage(marks, "fetch+assembly")
-    for b in np.flatnonzero(~verified):
-        if not np.array_equal(oracle.decode_native(datas[b]), imgs[b]):
-            raise RuntimeError(f"image {b} of the batch does not round-trip on the host")
+    with span("pipeline.roundtrip_batch_resident"):
+        dstats: dict = {}
+        words_d, small, verified = decode3.roundtrip_verify_fused(
+            flat_dev, width=W, stats=dstats, marks=marks
+        )
+        with span("pipeline.fetch+assembly", marks):
+            datas = _assemble_payloads(words_d, small, imgs, stats)
+        unverified = np.flatnonzero(~verified)
+        if unverified.size:
+            with span("pipeline.host_verify"):
+                for b in unverified:
+                    if not np.array_equal(oracle.decode_native(datas[b]), imgs[b]):
+                        raise RuntimeError(f"image {b} of the batch does not round-trip on the host")
     if stats is not None:
-        stats["retries"] = stats.get("retries", 0) + dstats["retries"]
         ovf = small[:, 859].astype(bool)
+        stats["retries"] = stats.get("retries", 0) + dstats["retries"]
         stats["fallbacks"] = stats.get("fallbacks", 0) + int((~verified & ~ovf).sum())
+        stats["overflow_decoded"] = stats.get("overflow_decoded", 0) + int(ovf.sum())
     return datas, verified
 
 
@@ -169,7 +183,7 @@ def roundtrip_batch_resident(flat_dev, imgs, *, stats: dict | None = None, marks
 # schedulers
 # ---------------------------------------------------------------------------
 
-ROUNDTRIP_STATS = ("retries", "fallbacks", "overflow_fallbacks")  # of roundtrip_batch_resident
+ROUNDTRIP_STATS = ("retries", "fallbacks", "overflow_fallbacks", "overflow_decoded")  # of roundtrip_batch_resident
 HYBRID_STATS = ("gpu_batches", "cpu_batches") + ROUNDTRIP_STATS
 _worker = threading.local()  # .streams: {device: the thread's own CUDA stream}
 

@@ -787,3 +787,39 @@ def test_cli_and_corpus_on_the_card(dev, tmp_path, monkeypatch):
     assert cuda_ops.LAUNCHES["histogram"] == before + 1
     assert stats == corpus.stats_from_bitstream(data, device="cpu")
     assert nicetpu_torch.encode(img, config=RuntimeConfig(backend="native")) == data
+
+
+@pytest.mark.parametrize("entry", ["decode_batch", "roundtrip_batch"])
+def test_spans_stay_off_the_device_timeline(dev, monkeypatch, entry):
+    """A profiled call records the program's spans as host ranges ("nt:"):
+    none of them reaches the device's timeline, and the call makes as many
+    device events as with the spans switched off."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nicetpu_torch.utils import profiling
+
+    imgs = [_smooth(48, 64, s) for s in range(3)]
+    args = [oracle.encode_native(im) for im in imgs] if entry == "decode_batch" else imgs
+    fn = getattr(nicetpu_torch, entry)
+    fn(args, device="cuda")
+
+    def profiled():
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(args, device="cuda")
+            torch.cuda.synchronize()
+        events = prof.events()
+        device = [e.name for e in events if e.device_type == DeviceType.CUDA]
+        host = {e.name for e in events if e.device_type != DeviceType.CUDA}
+        return device, host, profiling.spans(t0)
+
+    on, host_on, spans_on = profiled()
+    monkeypatch.setattr(profiling, "_profiler_enabled", lambda: False)
+    off, host_off, spans_off = profiled()
+    assert f"nt:api.{entry}" in host_on and not any(n.startswith("nt:") for n in host_off)
+    assert spans_on.spans and not spans_off.spans
+    assert not [n for n in on if n.startswith("nt:")]
+    assert len(on) == len(off) > 0

@@ -102,7 +102,8 @@ def test_roundtrip_batch_entry_point_on_the_cpu():
     datas, verified = nicetpu_torch.roundtrip_batch(imgs, device="cpu", stats=stats)
     assert datas == [joracle.encode_native(im) for im in imgs]
     assert verified.tolist() == [True, True, True, False, False]
-    assert stats == {"device": "cpu", "retries": 2, "fallbacks": 1, "overflow_fallbacks": 1}
+    assert stats == {"device": "cpu", "retries": 2, "fallbacks": 1, "overflow_fallbacks": 1,
+                     "overflow_decoded": 1}
 
 
 def _golden():
