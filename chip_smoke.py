@@ -9,7 +9,7 @@ Phases, one printed line or block each; any failure exits nonzero:
   0. the card's name and power limit (nvidia-smi); exit 1 without CUDA;
   1. build the CUDA kernels from csrc/ with nvcc (one process per source),
      print the build time and the register report;
-  2. hold each of the ten kernels against its plain PyTorch version on the
+  2. hold each of the eleven kernels against its plain PyTorch version on the
      card (exact equality) and time kernel, plain version and, where one
      PyTorch call computes the same function, that call (CUDA events).
      Encode kernels take seeded bins at the main path's shapes; the Huffman
@@ -56,6 +56,12 @@ Phases, one printed line or block each; any failure exits nonzero:
      real photo's stream at the robust rung: the top-left 512x512 of
      soccer0 from the committed corpus, mostly run digits (every walk
      round, the value join, and the reconstruction on its first 16 rows);
+     the slot assembly kernels (cuda_ops.slot_assemble, three kernels and
+     one read of the counts a call) take the final walk records of eight
+     768x512 images at the fast and the robust rung and the records of
+     tests/_slot_rows.py, each exact against slot_assemble_plain, timed
+     beside the plain version and the bare torch cumsum/cummax/nonzero chain,
+     with each kernel's device time from torch.profiler;
   3. encode 64 512x512 RGB8 images in 8 batches of 8 through
      nicetpu_torch.encode_batch(device=dev.type), the two-step encode: every
      blob equals the native encoder's, none falls back, every encode kernel
@@ -209,6 +215,7 @@ def _load_rows(name: str):
 
 _rows = _load_rows("_huffman_rows")
 _table_rows = _load_rows("_decode_table_rows")
+_slot_rows = _load_rows("_slot_rows")
 _bounds, _deep, _heavy, _random, _sparse, _ties, _zero = (_rows._bounds, _rows._deep, _rows._heavy, _rows._random,
                                                          _rows._sparse, _rows._ties, _rows._zero)
 
@@ -223,6 +230,7 @@ SOURCES = {
     "tokenize": "nicetpu_torch/csrc/tokenize_kernels.cu",
     "decode_tables": "nicetpu_torch/csrc/decode_tables_kernels.cu",
     "walk_tables": "nicetpu_torch/csrc/decode_tables_kernels.cu",
+    "slot_assemble": "nicetpu_torch/csrc/slot_assemble_kernels.cu",
 }
 REPLACES = {
     "histogram": "nicetpu/kernels/pallas_ops.py:100",
@@ -240,10 +248,15 @@ REPLACES = {
                      "Pallas)",
     "walk_tables": "nicetpu/kernels/decode3.py:180 derive_walk_tables on any tables (jnp inside the jitted decode "
                    "core :943, jitted at :1044; not Pallas); on the decode paths through decode_tables",
+    "slot_assemble": "nicetpu/kernels/decode3.py:651 _cumsum_walk and :667 _cummax_walk (jnp in-layout scans "
+                     "inside the jitted decode core; not Pallas); in the port torch's cumsum, cummax and nonzero "
+                     "of decode3._slot_starts and _compact before",
 }
 # what a batch of the round trip launches: every kernel but walk_tables,
 # whose tables come with the decode tables
 PATH_KERNELS = tuple(k for k in REPLACES if k != "walk_tables")
+# the sharded decode assembles its slots with its own carried torch scans
+SHARDED_KERNELS = tuple(k for k in PATH_KERNELS if k != "slot_assemble")
 # the two-step encode (api.encode, the CLI) builds its Huffman tables on the host
 HOST_TABLE_KERNELS = tuple(k for k in PATH_KERNELS if k != "huffman_tables")
 # main path shapes: 8 images of 512x512, 8 token slots per pixel, 8 pixels a group
@@ -885,6 +898,87 @@ def phase_decode_kernels(dev) -> dict:
     return out
 
 
+SLOT_IMAGES = 8  # the Kodak cell's batch (api.MAX_BATCH) of 768x512 images
+SLOT_KERNELS = ("slot_summary_kernel", "slot_scan_kernel", "slot_compact_kernel")
+
+
+def slot_library_chain(valid, sym):
+    """The torch calls the slot kernels replace, bare: the int32 digit
+    count, the running maximum, the int64 coverage sum and the nonzero."""
+    kk = torch.cumsum(valid, dim=1, dtype=torch.int32)
+    cd = torch.cummax(torch.where(sym < C.PREFIX_RUN_BASE, kk, -1), dim=1).values
+    start = torch.cumsum(cd.to(torch.int64), dim=1)
+    return torch.nonzero((start & 1).bool().view(-1))
+
+
+def slot_device_ms(fn, reps: int = 10) -> dict:
+    """Device ms a call of each slot kernel (torch.profiler), after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = {k: 0.0 for k in SLOT_KERNELS}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for k in SLOT_KERNELS:
+                if k in e.name:
+                    us[k] += e.time_range.end - e.time_range.start
+    return {k: v / 1e3 / reps for k, v in us.items()}
+
+
+def slot_assemble_kernel(dev) -> dict:
+    """The slot assembly kernels against slot_assemble_plain: the final
+    walk records of eight 768x512 images at each rung (the Kodak cell's
+    batch and shape), then the adversarial records of tests/_slot_rows.py;
+    timed at both rungs (the fast rung's row is the record's)."""
+    imgs = [make_image(512, 768, 300 + s) for s in range(SLOT_IMAGES)]
+    datas = [oracle.encode_native(im) for im in imgs]
+    (words, wbits, af, pr, ib, pfx, _), (H, W) = decode3.prepare_batch_args(datas, device=dev)
+    aff, dD, inc = decode3.derive_walk_tables(af, pr, ib)
+    out = {}
+    for cfg in decode3.LADDER:
+        steps = decode3._steps(cfg.chunk_bits, cfg.steps_div)
+        pos, sym, i12, i34, ok1, ok2 = decode3.walk_rounds(words, wbits, aff, dD, inc, pfx, chunk_bits=cfg.chunk_bits,
+                                                           steps=steps, rounds=cfg.rounds)
+        wb = wbits.to(torch.int32)
+        N = H * W
+        before = cuda_ops.LAUNCHES["slot_assemble"]
+        res = compare(
+            f"slot_assemble at {tuple(cfg)}", lambda: cuda_ops.slot_assemble(pos, sym, i12, i34, wb, n_pixels=N),
+            lambda: decode3.slot_assemble_plain(pos, sym, i12, i34, wb, N),
+            lambda: slot_library_chain((pos >= 0).view(pos.shape[0], -1), sym.view(pos.shape[0], -1)),
+            note=f" ({pos.shape[0]} x {pos.shape[1]} chunks x {steps} steps; library: the bare torch chain)")
+        check(cuda_ops.LAUNCHES["slot_assemble"] > before, "slot_assemble was not counted")
+        got = cuda_ops.slot_assemble(pos, sym, i12, i34, wb, n_pixels=N)
+        real = int(got[4].sum())
+        # least bytes: pos and sym read once, i12 and i34 of the real slots, the (B, K) outputs written once
+        res.update(bound(nbytes(pos, sym) + 8 * real + nbytes(*got[:5]), 0))
+        res["device_ms"] = slot_device_ms(lambda: cuda_ops.slot_assemble(pos, sym, i12, i34, wb, n_pixels=N))
+        res["slots"], res["real"], res["gates_ok"] = pos.numel(), real, bool(got[5].all() & ok1.all() & ok2.all())
+        print(f"[kernel] slot_assemble at {tuple(cfg)}: {pos.numel()} slots, {real} real, K {got[0].shape[1]}, "
+              f"bound {res['bound_ms']:.4f} ms by {res['bound_by']}; device ms a kernel {res['device_ms']}; "
+              f"gates {res['gates_ok']}", flush=True)
+        out[cfg] = res
+        del pos, sym, i12, i34, got
+    for case in _slot_rows.CASES:
+        for B_, steps in ((1, 256), (8, 1376)):
+            rows = _slot_rows.records(case, B_, 37, steps, seed=steps)
+            ts = [torch.from_numpy(a).to(dev) for a in rows[:5]]
+            got = cuda_ops.slot_assemble(*ts, n_pixels=rows[5])
+            want = decode3.slot_assemble_plain(*ts, rows[5])
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"slot_assemble disagrees with its plain version on the {case} records at {B_} x {steps}")
+    print(f"[kernel] slot_assemble equals its plain version on the records {_slot_rows.CASES} at 1 x 256 and "
+          f"8 x 1376", flush=True)
+    fast, robust = (out[c] for c in decode3.LADDER)
+    return {"slot_assemble": {**fast, "robust_rung": robust}}
+
+
 REAL_CROP = 512  # side of phase 2's soccer0 crop (the plain walk takes it in seconds)
 REAL_CHECK_ROWS = 16  # rows of that crop for the reconstruction's plain comparison
 
@@ -1340,7 +1434,7 @@ def phase_sharded(dev, big, big_ref, imgs, blobs) -> dict:
         check(r["raster_equal"], f"rank {r['rank']}: the sharded decode differs from the image")
         check(r["encode_stats"]["overflow_fallbacks"] == 0 and r["decode_stats"]["fallbacks"] == 0,
               f"rank {r['rank']}: sharded fallbacks {r['encode_stats']} {r['decode_stats']}")
-        check(all(r["launches"][k] >= 1 for k in PATH_KERNELS) and r["launches"]["walk_tables"] == 0,
+        check(all(r["launches"][k] >= 1 for k in SHARDED_KERNELS) and r["launches"]["walk_tables"] == 0,
               f"rank {r['rank']} did not launch every kernel on the sharded path, or walk_tables: {r['launches']}")
         check(r["batch_equal"] and r["batch_stats"] == {"retries": 0, "fallbacks": 0},
               f"rank {r['rank']}: decode_batch_sharded differs or fell back: {r['batch_stats']}")
@@ -1350,7 +1444,7 @@ def phase_sharded(dev, big, big_ref, imgs, blobs) -> dict:
     rank0_launches = res[0]["launches"]
     left = SHARDED_TIMEOUT - (time.perf_counter() - t_phase)
     res = launch.dryrun_multichip(1, "nccl", "cuda", timeout=left)
-    check(all(res[0]["launches"][k] >= 1 for k in PATH_KERNELS), f"the NCCL dry run skipped a kernel: {res}")
+    check(all(res[0]["launches"][k] >= 1 for k in SHARDED_KERNELS), f"the NCCL dry run skipped a kernel: {res}")
     print(f"[sharded] dryrun_multichip(1, 'nccl', 'cuda'): exact, launches={res[0]['launches']}; "
           f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
     return rank0_launches
@@ -1535,7 +1629,7 @@ def phase_single_large(dev) -> None:
 
 S11 = 5 + C.MAX_RUN_DIGITS  # token slots a pixel at the 11-digit layout
 ENCODE_KERNELS = ("tokenize", "histogram", "table_join", "fold_records")
-DECODE_KERNELS = ("decode_tables", "walk", "value_join", "reconstruct_rows")
+DECODE_KERNELS = ("decode_tables", "walk", "slot_assemble", "value_join", "reconstruct_rows")
 FUSED_ENCODE_KERNELS = ENCODE_KERNELS + ("huffman_tables",)  # tables built on the device
 
 
@@ -1734,6 +1828,7 @@ def main() -> int:
 
     kernels = phase_encode_kernels(dev)
     kernels.update(phase_decode_kernels(dev))
+    kernels.update(slot_assemble_kernel(dev))
     phase_decode_kernels_real(dev)
 
     imgs = [make_image(512, 512, s) for s in range(64)]

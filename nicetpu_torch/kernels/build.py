@@ -102,6 +102,8 @@ def load() -> ctypes.CDLL:
                                  i32, i32, vp],
             "nt_decode_tables": [vp, i32, vp, i32, i32, i32, vp],
             "nt_walk_tables": [vp, vp, vp, vp, vp, vp, i32, i32, vp],
+            "nt_slot_scan": [vp, vp, vp, vp, i32, i32, i32, i64, i32, i32, vp],
+            "nt_slot_compact": [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i64, i64, i32, i32, vp],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)

@@ -10,7 +10,9 @@ dispatched by `tokenize.tokenize_bins`) and the decode tables
 (`csrc/decode_tables_kernels.cu`, the counterparts of JAX's jnp
 `prepare_tables_v3_jnp` and `derive_walk_tables`; dispatched by
 `decode3.prepare_tables_v3`, which builds all ten tables in one launch,
-and `decode3.derive_walk_tables` for arbitrary tables).  `LAUNCHES`
+and `decode3.derive_walk_tables` for arbitrary tables) and the decode
+core's slot assembly (`csrc/slot_assemble_kernels.cu`, the counterpart of
+JAX's in-layout scans `_cumsum_walk` and `_cummax_walk`).  `LAUNCHES`
 also counts the walk (`decode3.walk`) and the row reconstruction
 (`recon.reconstruct_rows`).
 Each kernel has
@@ -22,7 +24,8 @@ Each kernel has
     against the CUDA kernel on the card;
   * a launch count in `LAUNCHES`, raised by one at each kernel launch only
     (the tokenizer's once a call of its one launch; the sharded path's
-    `first_change` before it is not counted).
+    `first_change` before it is not counted; the slot assembly's once a
+    call of its three).
 
 Tensors carrying uint32 values (codes, records) are int32 bit patterns.
 """
@@ -46,7 +49,7 @@ FOLD_CAPW = 10  # words per group record (320 bits), as kCapw in the kernel
 LAUNCHES = {
     "histogram": 0, "table_join": 0, "fold_records": 0,
     "walk": 0, "value_join": 0, "reconstruct_rows": 0, "huffman_tables": 0, "tokenize": 0,
-    "decode_tables": 0, "walk_tables": 0,
+    "decode_tables": 0, "walk_tables": 0, "slot_assemble": 0,
 }
 _LAUNCHES_LOCK = threading.Lock()  # worker threads launch concurrently; the counts stay exact
 
@@ -465,3 +468,64 @@ def walk_tables(af: torch.Tensor, present: torch.Tensor, ib: torch.Tensor):
         ctypes.c_int(B), device=af.device,
     )
     return aff, dD, inc
+
+
+# ---------------------------------------------------------------------------
+# slot assembly (replaces decode3.py _slot_starts and _compact, torch scans
+# standing for JAX's in-layout _cumsum_walk and _cummax_walk; the plain
+# version is decode3.slot_assemble_plain)
+# ---------------------------------------------------------------------------
+
+SLOT_SUMMARY_INTS = 16  # a chunk's summary in the kernels' scratch, as kSumInts
+SLOT_CARRY_INTS = 4  # a chunk's carry, as kCarryInts
+
+
+def slot_assemble(pos, sym, i12, i34, wbits, *, n_pixels: int):
+    """The decode core's slot assembly: the walk's final-round records (B,
+    nch, steps) int32 and wbits (B,) int32 -> (sym, i12, i34 (B, K) int32,
+    start (B, K) int64, live (B, K) bool, ok_cov (B,) bool): each image's
+    real slots (prefixes whose pixel start is below n_pixels) in order, K
+    the largest count of any image (at least 1), a hole's symbol, 0, 0 and
+    n_pixels past each count; ok_cov: the coverage reaches n_pixels.  Equal
+    to `decode3.slot_assemble_plain` for any records.
+
+    On a card (`csrc/slot_assemble_kernels.cu`): one call launches the
+    chunk summaries and the per-image scan, counted once in
+    `LAUNCHES["slot_assemble"]`; one read of the (B,) real counts sizes K
+    (the call's only host sync); a second call compacts.  Scratch is 80
+    bytes a chunk, nothing a slot.  A view that is not contiguous is copied
+    first."""
+    ts = {"pos": pos, "sym": sym, "i12": i12, "i34": i34}
+    for name, t in ts.items():
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
+            raise TypeError(f"{name} must be an int32 torch.Tensor")
+        if t.dim() != 3 or t.numel() == 0 or t.shape != pos.shape:
+            raise ValueError(f"{name} must be non-empty (B, nch, steps) like pos, got {tuple(t.shape)}")
+    B, nch, steps = pos.shape
+    if not isinstance(wbits, torch.Tensor) or wbits.dtype != torch.int32 or tuple(wbits.shape) != (B,):
+        raise ValueError(f"wbits must be a ({B},) int32 tensor")
+    same_device(pos, sym, i12, i34, wbits)
+    if pos.device.type == "cpu":
+        from nicetpu_torch.kernels.decode3 import slot_assemble_plain
+
+        return slot_assemble_plain(pos, sym, i12, i34, wbits, n_pixels)
+    if pos.device.type != "cuda":
+        raise ValueError(f"pos is on unsupported device {pos.device}")
+    if B > 65535 or steps >= 2**23 or nch * steps >= 2**31 or n_pixels < 1:
+        raise ValueError(f"slot_assemble of {B} x {nch} x {steps} slots over {n_pixels} pixels is out of range")
+    pos, sym, i12, i34, wbits = (t.contiguous() for t in (pos, sym, i12, i34, wbits))
+    vec = int(steps % 4 == 0 and pos.data_ptr() % 16 == 0 and sym.data_ptr() % 16 == 0)
+    dev = pos.device
+    at = B * nch * (SLOT_SUMMARY_INTS + SLOT_CARRY_INTS)
+    scratch = torch.empty(at + B + -(-B // 4), dtype=torch.int32, device=dev)
+    N = ctypes.c_longlong(n_pixels)
+    launch("slot_assemble", "nt_slot_scan", ptr(pos), ptr(sym), ptr(wbits), ptr(scratch), ctypes.c_int(B),
+           ctypes.c_int(nch), ctypes.c_int(steps), N, ctypes.c_int(vec), device=dev)
+    K = max(1, max(scratch[at : at + B].tolist()))
+    out = [torch.empty(B, K, dtype=torch.int32, device=dev) for _ in range(3)]
+    start = torch.empty(B, K, dtype=torch.int64, device=dev)
+    live = torch.empty(B, K, dtype=torch.bool, device=dev)
+    launch(None, "nt_slot_compact", ptr(pos), ptr(sym), ptr(i12), ptr(i34), ptr(wbits), ptr(scratch),
+           *(ptr(t) for t in out), ptr(start), ptr(live), ctypes.c_int(B), ctypes.c_int(nch), ctypes.c_int(steps),
+           N, ctypes.c_longlong(K), ctypes.c_int(vec), device=dev)
+    return (*out, start, live, scratch[at + B :].view(torch.bool)[:B])

@@ -14,15 +14,22 @@ same `WalkCfg`:
    at bit 0; if the final exits reproduce their entries, induction from the
    anchor proves every entry true.  Any miss clears `ok` and the caller
    retries on the next ladder rung or decodes on the host.
-2. **Assembly** (torch ops): the walk writes its records in serial order,
-   (B, chunks, steps), so run values and pixel starts come from plain
-   `torch.cumsum` / `torch.cummax` along one axis.  The TPU's (R, 128)
-   record tiling, `make_word_blocks` and the in-layout scans are not ported.
-   The decode core frees each slot temporary once it is used, sums in
-   place and keeps only each image's real pixels' slots after the coverage
-   sums (`_slot_starts`, `_compact`), so that one card decodes every stream
-   it accepts; `decode_batch_v3` sizes its device batches from that
-   reckoning (`decode_bytes`) against the card's free memory.
+2. **Assembly** (`cuda_ops.slot_assemble`, CUDA kernels in
+   `csrc/slot_assemble_kernels.cu`): the walk writes its records in serial
+   order, (B, chunks, steps), and the kernels scan them in that tiling, as
+   JAX's in-layout `_cumsum_walk` / `_cummax_walk` do: a warp summarises
+   each chunk (its prefixes, its leading run digits, its coverage from the
+   first prefix on), one block an image scans the (B, chunks) summaries
+   (digit ordinals carried in, int64 coverage offsets, prefix ranks,
+   `ok_cov`, the real counts), and a warp a chunk writes each image's real
+   pixels' slots at their ranks into (B, K) arrays, K read back once.  No
+   (B, S) temporary is made: scratch is 80 bytes a chunk.  The plain version
+   `slot_assemble_plain` (`_slot_starts`, `_compact`: torch scans over (B,
+   S)) runs on the CPU.  The TPU's (R, 128) record tiling and
+   `make_word_blocks` are not ported.  Keeping only the real slots lets
+   one card decode every stream it accepts; `decode_batch_v3` sizes its
+   device batches from that reckoning (`decode_bytes`) against the card's
+   free memory.
 3. **Value join** (`cuda_ops.value_join`): canonical index -> symbol.
 4. **Placement** (one scatter of packed records) and the **row
    reconstruction** (`recon.reconstruct_rows`).
@@ -413,11 +420,12 @@ def assemble_v3(pos, sym, p1, p2, p3, p4, n_pixels: int, width: int, wbits):
 
 
 def _slot_starts(valid, sym, n_pixels: int):
-    """`assemble_v3`'s run values and pixel starts, for the decode core:
-    (B, S) valid slots and symbols -> (start (B, S) int64, real (B, S) bool,
-    ok_cov (B,)).  Each temporary is freed once the next step has used it
-    and the sums run in place: at most about 34 bytes a slot are live with
-    the walk's sym/i12/i34 (the running maximum of the digit counts)."""
+    """`assemble_v3`'s run values and pixel starts, for
+    `slot_assemble_plain`: (B, S) valid slots and symbols -> (start (B, S)
+    int64, real (B, S) bool, ok_cov (B,)).  Each temporary is freed once
+    the next step has used it and the sums run in place: at most about 34
+    bytes a slot are live with the walk's sym/i12/i34 (the running maximum
+    of the digit counts)."""
     N = n_pixels
     is_pfx = valid & (sym < C.PREFIX_RUN_BASE)
     dig_ok = valid & (sym >= C.PREFIX_RUN_BASE)
@@ -442,6 +450,19 @@ def _slot_starts(valid, sym, n_pixels: int):
     start.sub_(cov)
     del cov
     return start, is_pfx.logical_and_(start < N), ok_cov
+
+
+def slot_assemble_plain(pos, sym, i12, i34, wbits, n_pixels: int):
+    """The plain version of `cuda_ops.slot_assemble`: the walk's records
+    (B, nch, steps) and wbits (B,) -> (sym, i12, i34, start, live, ok_cov),
+    each image's real slots compacted in order (`_slot_starts`, then
+    `_compact`)."""
+    B = pos.shape[0]
+    pos, sym, i12, i34 = (r.reshape(B, -1) for r in (pos, sym, i12, i34))
+    valid = (pos >= 0) & (pos < wbits.to(torch.int32)[:, None])
+    start, real, ok_cov = _slot_starts(valid, sym, n_pixels)
+    del valid
+    return (*_compact(real, (sym, i12, i34, start), (C.PREFIX_RUN_BASE, 0, 0, n_pixels)), ok_cov)
 
 
 def _compact(real, arrays, fills):
@@ -602,18 +623,13 @@ def decode_planes_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: i
     pos, sym, i12, i34, ok_consist, ok_cross = walk_rounds(
         words, wbits, aff, dD, inc, pfx, chunk_bits=chunk_bits, steps=steps, rounds=rounds,
         marks=marks)
-    S = pos.shape[1] * steps
     N = n_pixels
     with span("decode3.assemble", marks):
-        pos, sym, i12, i34 = (r.view(B, S) for r in (pos, sym, i12, i34))
-        valid = (pos >= 0) & (pos < wbits.to(torch.int32)[:, None])
-        del pos
-        start, real, ok_cov = _slot_starts(valid, sym, N)
-        del valid
         # only the real pixels' slots go on, per image, with a hole's symbol
         # and the spare column N past each image's count
-        sym, i12, i34, start, live = _compact(real, (sym, i12, i34, start), (C.PREFIX_RUN_BASE, 0, 0, N))
-        del real
+        sym, i12, i34, start, live, ok_cov = cuda_ops.slot_assemble(pos, sym, i12, i34, wbits.to(torch.int32),
+                                                                    n_pixels=N)
+        del pos
     with span("decode3.value_join", marks):
         bins = _payload_bins(sym, i12, i34)
         del i12, i34
@@ -651,11 +667,11 @@ def _decode_core_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: in
     (`prepare_tables_v3(..., walk=True)`), once for every rung; None
     derives them here (`derive_walk_tables`, one launch a call).
 
-    Past the walk, at most about 34 bytes a slot of the final round are
-    live (`_slot_starts`); the value join, the records (in blocks of
-    RECORD_BLOCK slots) and the placement see only the real pixels' slots
-    (`_compact`), and every array is freed once the next step has used
-    it."""
+    Past the walk, the final round's records (16 bytes a slot) and the
+    compacted real slots (21 bytes a column) are live
+    (`cuda_ops.slot_assemble`); the value join, the records (in blocks of
+    RECORD_BLOCK slots) and the placement see only the real pixels' slots,
+    and every array is freed once the next step has used it."""
     form, delta, refoff, gates = decode_planes_v3(
         words, wbits, af, present, ib, pfx, sym_tbl, n_pixels=n_pixels, width=width,
         chunk_bits=chunk_bits, steps=steps, rounds=rounds, marks=marks, walk_tables=walk_tables)
@@ -952,11 +968,13 @@ def _batch_args(datas: list[bytes], *, device, ladder):
 
 # Peak device bytes of `_decode_core_v3`, which `decode_batch_v3` reckons
 # before it decodes.  Its two phases follow each other: the slot phase
-# (the digit attachment of `_slot_starts` beside the walk's records: 35.4
-# bytes a slot of the robust rung at 527 M slots on an H100) and the pixel
-# phase (value join, records and placement of the compacted slots, at most
-# one a pixel: 77 bytes a pixel at the fast rung over 134 M pixels); each
-# constant keeps a margin over its measurement.
+# (the walk's records, 16 bytes a slot, and `cuda_ops.slot_assemble`'s
+# compacted columns, 21 bytes each, at most one a slot; 35.4 bytes a slot
+# of the robust rung at 527 M slots on an H100 when torch's scans
+# assembled the slots) and the pixel phase (value join, records and
+# placement of the compacted slots, at most one a pixel: 77 bytes a pixel
+# at the fast rung over 134 M pixels); each constant keeps a margin over
+# its measurement.
 SLOT_BYTES = 40
 PIXEL_BYTES = 84
 BUDGET_SHARE = 0.9  # of the card's free memory that a decode may reckon on

@@ -23,6 +23,7 @@ from nicetpu_torch.kernels import tokenize as tok
 
 from _decode_table_rows import INT64_ONLY, LENGTH_ROWS, WALK_ROWS
 from _huffman_rows import _bounds, _deep, _heavy, _random, _sparse, _ties, _zero
+from _slot_rows import CASES as SLOT_CASES, records as slot_records
 
 pytestmark = pytest.mark.cuda
 
@@ -566,6 +567,93 @@ def test_value_join_matches_plain(dev, K, B, M):
     assert cuda_ops.LAUNCHES["value_join"] == before + 1
 
 
+def _slot_call(rows, dev, view=None):
+    """slot_assemble on the card against slot_assemble_plain on the CPU's
+    copy; returns the kernel's outputs.  One counted launch a call."""
+    pos, sym, i12, i34, wbits, N = rows
+    cpu = [torch.from_numpy(a) for a in (pos, sym, i12, i34, wbits)]
+    ts = [t.to(dev) for t in cpu]
+    if view is not None:
+        cpu[:4] = [view(t) for t in cpu[:4]]
+        ts[:4] = [view(t) for t in ts[:4]]
+    want = decode3.slot_assemble_plain(*cpu, N)
+    before = cuda_ops.LAUNCHES["slot_assemble"]
+    got = cuda_ops.slot_assemble(*ts, n_pixels=N)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["slot_assemble"] == before + 1
+    assert len(got) == len(want) == 6
+    for g, w, name in zip(got, want, ("sym", "i12", "i34", "start", "live", "ok_cov")):
+        assert g.device.type == "cuda" and g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g.cpu(), w), name
+    return got
+
+
+@pytest.mark.parametrize("case", SLOT_CASES)
+@pytest.mark.parametrize("B,steps", [(1, 256), (8, 256), (1, 1376), (8, 1376)])
+def test_slot_assemble_matches_plain(dev, case, B, steps):
+    """Random and adversarial walk records at both rungs' steps: every
+    output equal, K included."""
+    _slot_call(slot_records(case, B, 37, steps, seed=B * steps), dev)
+
+
+@pytest.mark.parametrize("steps", [256, 13])
+def test_slot_assemble_on_views(dev, steps):
+    """A transposed (not contiguous) view, copied by the wrapper, and a
+    contiguous one starting one element in (no 16-byte loads), and a ragged
+    step count (scalar loads)."""
+    pos, sym, i12, i34, wbits, N = slot_records("walk", 2, 20, steps, seed=steps)
+    swapped = [np.ascontiguousarray(a.transpose(0, 2, 1)) for a in (pos, sym, i12, i34)]
+    _slot_call((*swapped, wbits, N), dev, view=lambda t: t.transpose(1, 2))
+    _slot_call((pos, sym, i12, i34, wbits, N), dev,
+               view=lambda t: torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape))
+
+
+def test_slot_assemble_across_scan_tiles(dev):
+    """More chunks an image than a tile of the per-image pass (512), digit
+    chains over prefix-free chunks across its boundary, N inside a chunk."""
+    pos, sym, i12, i34, wbits, _ = slot_records("chains", 2, 1300, 256, seed=4)
+    sym[:, 500:530] = C.PREFIX_RUN_BASE + 3
+    for N in (10**12, int(2.5e6), 700_001):
+        _slot_call((pos, sym, i12, i34, wbits, N), dev)
+
+
+@pytest.mark.parametrize("steps", [256, 1376])
+def test_slot_assemble_memory_within_slot_bytes(dev, steps):
+    """The call's peak, with the records it reads, stays within SLOT_BYTES
+    a slot: scratch a chunk, no (B, S) temporary."""
+    pos, sym, i12, i34, wbits, _ = slot_records("walk", 8, 400, steps, seed=1)
+    sym %= C.PREFIX_RUN_BASE  # prefixes only: every valid slot is real, K near its largest
+    ts = [torch.from_numpy(a).to(dev) for a in (pos, sym, i12, i34, wbits)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = cuda_ops.slot_assemble(*ts, n_pixels=10**12)
+    torch.cuda.synchronize()
+    slots = ts[0].numel()
+    assert int(out[4].sum()) > slots // 2
+    records_bytes = 16 * slots
+    assert torch.cuda.max_memory_allocated() - base + records_bytes <= decode3.SLOT_BYTES * slots
+
+
+def test_decode_core_runs_the_kernel_and_no_torch_scan(dev):
+    """api.decode_batch assembles its slots through the kernels, once a
+    rung and device batch, with no torch nonzero, cummax or cumsum."""
+    from torch.profiler import ProfilerActivity, profile
+
+    imgs = [_smooth(48, 64, s) for s in range(3)]
+    datas = [oracle.encode_native(im) for im in imgs]
+    nicetpu_torch.decode_batch(datas, device="cuda")
+    cuda_ops.reset_launches()
+    stats = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = nicetpu_torch.decode_batch(datas, device="cuda", stats=stats)
+        torch.cuda.synchronize()
+    assert all(np.array_equal(o, im) for o, im in zip(out, imgs))
+    assert cuda_ops.LAUNCHES["slot_assemble"] == 1 + stats["retries"] > 0
+    names = {e.key for e in prof.key_averages()}
+    assert not names & {"aten::nonzero", "aten::cummax", "aten::cumsum"}, names
+
+
 def _recon_inputs(B, H, W, seed):
     rng = np.random.default_rng(seed)
     N = H * W
@@ -705,8 +793,9 @@ def test_dryrun_multichip_on_the_card(dev, n, backend):
     for r in res:
         unlaunched = {k for k, v in r["launches"].items() if v == 0}
         # a rank whose shard holds runs only has no real slot to join
-        # (sharded_decode); the walk's tables come with the decode tables
-        assert unlaunched == {"walk_tables"} | (set() if r["real_slots"] else {"value_join"}), r
+        # (sharded_decode); the walk's tables come with the decode tables;
+        # the sharded decode assembles its slots with its own carried scans
+        assert unlaunched == {"walk_tables", "slot_assemble"} | (set() if r["real_slots"] else {"value_join"}), r
 
 
 # ---------------------------------------------------------------------------
