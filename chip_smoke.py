@@ -1427,7 +1427,7 @@ def phase_sharded(dev, big, big_ref, imgs, blobs) -> dict:
     for r in res:
         stages = {f"{side}.{k}": round(v * 1e3, 1) for side in ("encode", "decode")
                   for k, v in r[f"{side}_stats"]["stages"].items()}
-        print(f"[sharded] rank {r['rank']}: stage ms (host clock, device synchronized) "
+        print(f"[sharded] rank {r['rank']}: stage ms (host clock, no device wait) "
               f"{json.dumps(stages)}; launches={r['launches']}")
     for r in res:
         check(r["bytes_equal"], f"rank {r['rank']}: sharded bytes differ from hostref.encode_native")

@@ -11,6 +11,10 @@ NICETPU_BACKEND > "cuda"):
     "spec"    (a backend only) the port's numpy reference codec,
               `spec.codec`, image by image.
 No backend answers for another: a host codec runs only when it is named.
+
+`ShardGroup` (from `dist.group`) is the sharded path: a persistent group of
+ranks, one a card, that encodes, decodes and round-trips one raster a call
+across them.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 
 from nicetpu_torch import pipeline
 from nicetpu_torch.config import BACKENDS, HOST_CODECS, RuntimeConfig
+from nicetpu_torch.dist.group import ShardGroup  # noqa: F401  (the api's sharded path)
 from nicetpu_torch.format import headers
 from nicetpu_torch.hostref import oracle
 from nicetpu_torch.kernels import decode3, encode2

@@ -88,13 +88,22 @@ class Comm:
         dist.gather(x, None, dst=self._global(0), group=self.group)
         return None
 
+    def scatter_root(self, t: torch.Tensor | None, shape: tuple, dtype: torch.dtype,
+                     device: torch.device) -> torch.Tensor:
+        """Rank 0's t, (size, *shape), cut along its first axis: piece r on
+        rank r, on `device`; t is None on the other ranks."""
+        out = torch.empty(shape, dtype=dtype, device=self.device)
+        parts = list(self._on(t).unbind(0)) if self.rank == 0 else None
+        dist.scatter(out, parts, src=self._global(0), group=self.group)
+        return out.to(device)
+
     def broadcast_bytes(self, data: bytes | None) -> bytes:
-        """Rank 0's bytes on every rank."""
+        """Rank 0's bytes on every rank (rank 0 keeps its own object)."""
         n = torch.tensor([len(data) if self.rank == 0 else 0], dtype=torch.int64, device=self.device)
         dist.broadcast(n, self._global(0), group=self.group)
         buf = torch.empty(int(n.item()), dtype=torch.uint8, device=self.device)
         if self.rank == 0:
             buf.copy_(torch.frombuffer(bytearray(data), dtype=torch.uint8))
         dist.broadcast(buf, self._global(0), group=self.group)
-        return buf.cpu().numpy().tobytes()
+        return data if self.rank == 0 else buf.cpu().numpy().tobytes()
 

@@ -14,6 +14,8 @@ counterpart: every rank already holds its own shard.)
 
 from __future__ import annotations
 
+import datetime
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -27,20 +29,22 @@ BACKENDS = ("nccl", "gloo")
 
 
 def initialize_distributed(*, backend: str = "nccl", init_method: str, world_size: int, rank: int,
-                           device: int | None = None) -> Comm:
+                           device: int | None = None, timeout: float | None = None) -> Comm:
     """`torch.distributed.init_process_group` with an explicit backend and
     rendezvous (for example init_method="tcp://localhost:29500").  Under
     NCCL the rank's CUDA device is set first (`device`, else rank modulo the
     device count); NCCL without CUDA, or a build without NCCL, raises.
-    Returns the default group's `Comm`."""
+    timeout: seconds the rendezvous and each collective may wait (torch's
+    default where None).  Returns the default group's `Comm`."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}: use one of {BACKENDS}")
     if backend == "nccl":
         if not dist.is_nccl_available() or not torch.cuda.is_available():
             raise RuntimeError("backend 'nccl' needs CUDA and a PyTorch built with NCCL")
         torch.cuda.set_device(device if device is not None else rank % torch.cuda.device_count())
+    kw = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
     dist.init_process_group(backend=backend, init_method=init_method, world_size=world_size,
-                            rank=rank)
+                            rank=rank, **kw)
     return Comm()
 
 

@@ -19,7 +19,12 @@ contiguous row blocks, one a rank.  Each rank:
      `encode2._fold_place_grouped_batched`.
 The shards' words, trimmed to the longest shard's, go to rank 0, which
 concatenates them at their global bit offsets (`stitch_payload`, the
-ordered gather) and assembles the bytes.
+ordered gather) and assembles the bytes.  `encode_block` is the device half
+from a rank's block already on its device (as `ShardGroup` scatters it),
+`gather_stitch` the ordered gather and the stitch.  Each stage is a span
+"dist.<stage>" (`profiling.StageSpans`: upload, halo, first_changes,
+tokenize, histogram_psum, tables, pack, gather_words, stitch,
+bytes_broadcast), timed without a device sync.
 
 Divergences from the JAX package, on purpose: the word capacity a shard
 (2 * n_local + 64, JAX's) is not asserted; totals are int64; and any
@@ -42,7 +47,7 @@ from nicetpu_torch.kernels import cuda_ops
 from nicetpu_torch.kernels.encode2 import _fold_place_grouped_batched, total_bits_overflow
 from nicetpu_torch.kernels.huffman_dev import build_tables_device
 from nicetpu_torch.kernels.tokenize import first_change, halo_pixels, tokenize_bins
-from nicetpu_torch.utils.profiling import MarkedStageTimer
+from nicetpu_torch.utils.profiling import StageSpans
 
 
 def stitch_payload(shard_words: np.ndarray, shard_bits: np.ndarray, n_dev: int) -> tuple[bytes, int]:
@@ -75,70 +80,98 @@ def stitch_payload(shard_words: np.ndarray, shard_bits: np.ndarray, n_dev: int) 
     return out.astype(np.uint32).astype(">u4").tobytes(), total_bits
 
 
+def splits(height: int, width: int, n: int) -> bool:
+    """Whether a raster splits into row blocks of at least 4 rows over n
+    ranks (the halo of 4 rows must come from one previous rank), at least
+    MIN_WIDTH wide."""
+    return width >= C.MIN_WIDTH and height % n == 0 and height // n >= 4
+
+
 def rows_per_rank(height: int, width: int, n: int) -> int:
-    """Rows of each rank's block; raises where the raster cannot be split
-    (the halo of 4 rows must come from one previous rank)."""
+    """Rows of each rank's block; raises where the raster cannot be split."""
     if width < C.MIN_WIDTH:
         raise ValueError(f"width must be >= {C.MIN_WIDTH} (SURVEY A.8.7)")
-    if height % n or height // n < 4:
+    if not splits(height, width, n):
         raise ValueError(f"height {height} must split into blocks of >= 4 rows over {n} ranks")
     return height // n
 
 
-def _tokenize_block(x, comm: Comm, *, width: int, n_local: int):
+def _tokenize_block(x, comm: Comm, *, width: int, n_local: int, stages: StageSpans):
     """x (n_local, 3) uint8, this rank's rows -> flat bins (1, n_local * S)
     with 858 holes, and the run-digit overflow flag (1,)."""
     N = comm.size * n_local
     halo = halo_pixels(width)
-    # the previous rank's last 4 rows (zeros on rank 0, whose halo reads the
-    # cascade masks by position)
-    x_ext = torch.cat([comm.ppermute(x[n_local - halo :]), x], dim=0)[None]
+    with stages.stage("halo"):
+        # the previous rank's last 4 rows (zeros on rank 0, whose halo reads
+        # the cascade masks by position)
+        x_ext = torch.cat([comm.ppermute(x[n_local - halo :]), x], dim=0)[None]
     kw = dict(halo=halo, g0=comm.rank * n_local, n_total=N)
-    # every shard's first change (N if it is all run); the run of this
-    # shard's last change ends at the first change of a later shard
-    firsts = comm.all_gather(first_change(x_ext, **kw))[:, 0]
-    return tokenize_bins(x_ext, width=width, ndigits_cap=C.MAX_RUN_DIGITS, invalid_bin=C.TOTAL_SYMBOLS,
-                         tail=firsts[comm.rank + 1 :], **kw)
+    with stages.stage("first_changes"):
+        # every shard's first change (N if it is all run); the run of this
+        # shard's last change ends at the first change of a later shard
+        firsts = comm.all_gather(first_change(x_ext, **kw))[:, 0]
+    with stages.stage("tokenize"):
+        return tokenize_bins(x_ext, width=width, ndigits_cap=C.MAX_RUN_DIGITS,
+                             invalid_bin=C.TOTAL_SYMBOLS, tail=firsts[comm.rank + 1 :], **kw)
 
 
-def encode_shards(img: np.ndarray, comm: Comm, device: torch.device, stats=None):
-    """The device half on one rank: tokenize, count, tables, pack.
+def encode_block(x: torch.Tensor, comm: Comm, *, width: int, stages: StageSpans):
+    """The device half on one rank, from its row block x (n_local, 3) uint8
+    on its device: tokenize, count, tables, pack.
 
     Returns (words (k_max,) int32 bit patterns of this shard's payload, the
     shard bit totals (n,) int64 numpy, the flat code lengths (858,) numpy),
     or None on every rank where any rank overflowed."""
-    H, W, _ = img.shape
-    rows = rows_per_rank(H, W, comm.size)
-    n_local = rows * W
-    clock = MarkedStageTimer(stats, device)
-    block = np.ascontiguousarray(img[comm.rank * rows : (comm.rank + 1) * rows]).reshape(n_local, 3)
-    x = torch.from_numpy(block).to(device)
-    bins, run_ovf = _tokenize_block(x, comm, width=W, n_local=n_local)
-    clock.mark("tokenize")
-    counts = comm.psum(cuda_ops.histogram(bins).to(torch.int64))
-    clock.mark("histogram")
-    lengths, codes, len_ovf = build_tables_device(counts)
-    clock.mark("huffman_build")
-
-    S = bins.shape[1] // n_local
-    aob, code = cuda_ops.table_join(bins, lengths, codes)
-    w_cap = 2 * n_local + 64  # JAX's capacity, flagged here instead of asserted
-    words, totals, fold_ovf = _fold_place_grouped_batched(
-        aob.view(1, n_local, S), code.view(1, n_local, S), w_cap=w_cap
-    )
-    ovf = run_ovf | len_ovf | fold_ovf | (totals > 32 * (w_cap - 2)) | total_bits_overflow(totals)
-    # one all-gather of [bits, overflow, needed bits]: the code lengths
-    # times the summed counts, which the stitched total must equal
-    needed = (counts * lengths.to(torch.int64)).sum()
-    small = comm.all_gather(torch.stack([totals[0], ovf[0].to(torch.int64), needed]))
-    clock.mark("pack")
-    if bool(small[:, 1].any()):
-        return None
-    bits = small[:, 0].cpu().numpy()
+    n_local = x.shape[0]
+    bins, run_ovf = _tokenize_block(x, comm, width=width, n_local=n_local, stages=stages)
+    with stages.stage("histogram_psum"):
+        counts = comm.psum(cuda_ops.histogram(bins).to(torch.int64))
+    with stages.stage("tables"):
+        lengths, codes, len_ovf = build_tables_device(counts)
+    with stages.stage("pack"):
+        S = bins.shape[1] // n_local
+        aob, code = cuda_ops.table_join(bins, lengths, codes)
+        w_cap = 2 * n_local + 64  # JAX's capacity, flagged here instead of asserted
+        words, totals, fold_ovf = _fold_place_grouped_batched(
+            aob.view(1, n_local, S), code.view(1, n_local, S), w_cap=w_cap
+        )
+        ovf = run_ovf | len_ovf | fold_ovf | (totals > 32 * (w_cap - 2)) | total_bits_overflow(totals)
+        # one all-gather of [bits, overflow, needed bits]: the code lengths
+        # times the summed counts, which the stitched total must equal
+        needed = (counts * lengths.to(torch.int64)).sum()
+        small = comm.all_gather(torch.stack([totals[0], ovf[0].to(torch.int64), needed]))
+        if bool(small[:, 1].any()):
+            return None
+        bits = small[:, 0].cpu().numpy()
     if int(bits.sum()) != int(small[0, 2]):
         raise RuntimeError(f"stitched payload of {int(bits.sum())} bits, tables need {int(small[0, 2])}")
     k_max = int(min(w_cap, (int(bits.max()) + 31) // 32 + 1))
     return words[0, :k_max].contiguous(), bits, lengths[0].cpu().numpy()
+
+
+def encode_shards(img: np.ndarray, comm: Comm, device: torch.device, stages: StageSpans):
+    """`encode_block` on this rank's rows of a full host raster."""
+    H, W, _ = img.shape
+    rows = rows_per_rank(H, W, comm.size)
+    with stages.stage("upload"):
+        block = np.ascontiguousarray(img[comm.rank * rows : (comm.rank + 1) * rows]).reshape(rows * W, 3)
+        x = torch.from_numpy(block).to(device)
+    return encode_block(x, comm, width=W, stages=stages)
+
+
+def gather_stitch(shard, comm: Comm, *, height: int, width: int, stages: StageSpans) -> bytes | None:
+    """The ordered gather of `encode_block`'s result to rank 0, bounded by
+    k_max words a shard, and the stitch there: the `.nice` bytes on rank 0,
+    None elsewhere."""
+    words, bits, lengths = shard
+    with stages.stage("gather_words"):
+        shards = comm.gather_root(words)
+        w_np = None if shards is None else shards.cpu().numpy().view(np.uint32).reshape(-1)
+    with stages.stage("stitch"):
+        if w_np is None:
+            return None
+        payload, total_bits = stitch_payload(w_np, bits, comm.size)
+        return _file_bytes(width, height, lengths, payload, total_bits)
 
 
 def _file_bytes(W: int, H: int, lengths: np.ndarray, payload: bytes, total_bits: int) -> bytes:
@@ -163,22 +196,16 @@ def encode_across(img: np.ndarray, comm: Comm, device: torch.device, *, everywhe
     H, W, _ = img.shape
     if stats is not None:
         stats.setdefault("overflow_fallbacks", 0)
-    res = encode_shards(img, comm, device, stats)
-    if res is None:
+    stages = StageSpans("dist", stats)
+    shard = encode_shards(img, comm, device, stages)
+    if shard is None:
         if stats is not None:
             stats["overflow_fallbacks"] += 1
         return oracle.encode_native(img) if everywhere or comm.rank == 0 else None
-    words, bits, lengths = res
-    clock = MarkedStageTimer(stats, device)
-    shards = comm.gather_root(words)  # the ordered gather, bounded by k_max a shard
-    data = None
-    if comm.rank == 0:
-        w_np = shards.cpu().numpy().view(np.uint32).reshape(-1)
-        payload, total_bits = stitch_payload(w_np, bits, comm.size)
-        data = _file_bytes(W, H, lengths, payload, total_bits)
+    data = gather_stitch(shard, comm, height=H, width=W, stages=stages)
     if everywhere:
-        data = comm.broadcast_bytes(data)
-    clock.mark("stitch")
+        with stages.stage("bytes_broadcast"):
+            data = comm.broadcast_bytes(data)
     return data
 
 
@@ -190,5 +217,6 @@ def encode_sharded(img: np.ndarray, *, device="cuda", group=None, stats: dict | 
     device: "cuda" (the rank's current CUDA device; raises without CUDA) or
     "cpu" (the kernels' plain versions).  stats: optional dict; receives
     "overflow_fallbacks" (1 when the raster went to the host encoder) and
-    "stages" (host-clock seconds per stage of this rank)."""
+    "stages" (this rank's host seconds per stage, the spans "dist.<stage>";
+    nothing waits for the device)."""
     return encode_across(img, Comm(group), _resolve_device(device), everywhere=True, stats=stats)

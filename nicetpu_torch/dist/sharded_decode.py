@@ -25,6 +25,11 @@ Counterpart of `nicetpu/dist/sharded_decode.py`, in two shardings:
   same-shape batch with `decode3.decode_batch_v3` and its ladder; the
   arrays are gathered in order.  No collectives run inside the decode.
 
+`decode_block` is one rank's part; its stages are spans "dist.<stage>"
+(`profiling.StageSpans`: decode_tables, walk, assembly, records_all_gather,
+place, carry_wait, recon, then gather_blocks in `decode_across`), timed
+without a device sync.
+
 Nothing falls back quietly: a raster whose gates fail, or whose geometry
 cannot be split (H % n, fewer than 4 rows a rank, W < MIN_WIDTH, a shard of
 more than `decode3.MAX_DEVICE_BITS` bits), is decoded
@@ -42,12 +47,13 @@ import torch
 
 from nicetpu_torch.api import _resolve_device
 from nicetpu_torch.dist.comm import Comm
+from nicetpu_torch.dist.sharded import splits
 from nicetpu_torch.format import constants as C
 from nicetpu_torch.format import headers
 from nicetpu_torch.format.huffman import validate_flat_lengths
 from nicetpu_torch.hostref import oracle
 from nicetpu_torch.kernels import cuda_ops, decode3, recon
-from nicetpu_torch.utils.profiling import MarkedStageTimer
+from nicetpu_torch.utils.profiling import StageSpans
 
 SHARD_ALIGN = 8  # chunks a rank rounds up to: the JAX walk's block on its jnp path
 
@@ -112,7 +118,7 @@ def walk_gates(e, ex2, prev_exit, wbits: int, *, base: int, chunk_bits: int, fir
     return torch.stack([ok_in & first_ok, (crossed | (e >= wbits)).all()])
 
 
-def _walk_shard(words, wbits: int, tables, comm: Comm, *, nlc: int, cfg, steps: int, clock):
+def _walk_shard(words, wbits: int, tables, comm: Comm, *, nlc: int, cfg, steps: int):
     """The speculative rounds over this rank's chunks, entries moving forward
     across the shard boundary between rounds.  Returns the final round's
     records (pos relative to the shard's first bit), its entries e and exits
@@ -128,132 +134,144 @@ def _walk_shard(words, wbits: int, tables, comm: Comm, *, nlc: int, cfg, steps: 
         e = torch.cat([comm.ppermute(ex[:, -1:]), ex[:, :-1]], dim=1)
     recs, ex2 = shard_walk(words, e, tables, wbits, **kw)
     prev_exit = comm.ppermute(ex2[:, -1:])[0, 0]
-    clock.mark("walk_rounds")
     return recs, e[0], ex2[0], prev_exit, base
 
 
-def _decode_block(data: bytes, comm: Comm, device: torch.device, cfg, stats):
+def shardable(data: bytes, n: int, cfg: decode3.WalkCfg) -> bool:
+    """Whether the raster of `data` splits over n ranks (`sharded.splits`),
+    each shard within what the walk can hold."""
+    W, H, _ = headers.parse_file_header(data)
+    nlc, _ = shard_geometry(decode3.payload_bits(data), n, cfg)
+    return splits(H, W, n) and nlc * cfg.chunk_bits <= decode3.MAX_DEVICE_BITS
+
+
+def decode_block(data: bytes, comm: Comm, device: torch.device, cfg, stages: StageSpans, stats=None):
     """This rank's (3, n_local) uint8 row block, or None on every rank where
     the gates failed.  Global quantities (positions, digit and coverage
     counts) are int64; each slot-space temporary is dropped once the next
     step has consumed it, and only the real pixels' slots reach the value
     join and the records, so that a 16384x16384 raster's shards fit four
-    ranks on one card."""
+    ranks on one card.  stats, where given, receives "gates", "real_slots"
+    and accumulates "records_bytes" (the bytes of the records all-gather
+    that this rank receives)."""
     W, H, _ = headers.parse_file_header(data)
     n, rank = comm.size, comm.rank
     N = H * W
     n_local = (H // n) * W
-    clock = MarkedStageTimer(stats, device)
-    flat_lengths = headers.parse_stream_headers(data[C.FILE_HEADER_BYTES :])
-    validate_flat_lengths(flat_lengths)
-    lens = torch.from_numpy(flat_lengths.astype(np.int64)[None]).to(device)
-    _, _, _, pfx, sym_tbl, _, _, aff, dD, inc = decode3.prepare_tables_v3(lens, walk=True)
-    wbits = decode3.payload_bits(data)
-    nlc, steps = shard_geometry(wbits, n, cfg)
-    payload = memoryview(data)[C.FILE_HEADER_BYTES + C.STREAM_HEADERS_BYTES : len(data) - 4]
-    words = torch.from_numpy(shard_words(payload, rank, nlc, cfg.chunk_bits).view(np.int32))
-    words = words[None].to(device)
-    clock.mark("tables")
+    with stages.stage("decode_tables"):
+        flat_lengths = headers.parse_stream_headers(data[C.FILE_HEADER_BYTES :])
+        validate_flat_lengths(flat_lengths)
+        lens = torch.from_numpy(flat_lengths.astype(np.int64)[None]).to(device)
+        _, _, _, pfx, sym_tbl, _, _, aff, dD, inc = decode3.prepare_tables_v3(lens, walk=True)
+        wbits = decode3.payload_bits(data)
+        nlc, steps = shard_geometry(wbits, n, cfg)
+        payload = memoryview(data)[C.FILE_HEADER_BYTES + C.STREAM_HEADERS_BYTES : len(data) - 4]
+        words = torch.from_numpy(shard_words(payload, rank, nlc, cfg.chunk_bits).view(np.int32))
+        words = words[None].to(device)
 
-    recs, e, ex2, prev_exit, base = _walk_shard(
-        words, wbits, (aff, dD, inc, pfx.contiguous()), comm, nlc=nlc, cfg=cfg, steps=steps, clock=clock
-    )
-    del words
-    ok_walk = walk_gates(e, ex2, prev_exit, wbits, base=base, chunk_bits=cfg.chunk_bits,
-                         first=rank == 0)
+    with stages.stage("walk"):
+        recs, e, ex2, prev_exit, base = _walk_shard(
+            words, wbits, (aff, dD, inc, pfx.contiguous()), comm, nlc=nlc, cfg=cfg, steps=steps
+        )
+        del words
+        ok_walk = walk_gates(e, ex2, prev_exit, wbits, base=base, chunk_bits=cfg.chunk_bits,
+                             first=rank == 0)
 
-    # slot-space assembly with cross-shard offsets (int64)
-    pos, sym, i12, i34 = (r.reshape(-1) for r in recs)
-    del recs
-    valid = (pos >= 0) & (pos < min(max(wbits - base, -1), nlc * cfg.chunk_bits))
-    del pos
-    is_pfx = valid & (sym < C.PREFIX_RUN_BASE)
-    is_dig = valid & (sym >= C.PREFIX_RUN_BASE)
-    del valid
-    cd = torch.cumsum(is_dig, dim=0, dtype=torch.int64)
-    m_loc = torch.where(is_pfx, cd, -1).max()
-    # one all-gather: [consistency, crossing, digits, last prefix's digit count]
-    g1 = comm.all_gather(torch.cat([ok_walk.to(torch.int64), torch.stack([cd[-1], m_loc])]))
-    offs_cd = torch.cumsum(g1[:, 2], dim=0) - g1[:, 2]
-    allm = torch.where(g1[:, 3] >= 0, g1[:, 3] + offs_cd, -1)
-    prevm = int(allm[:rank].max()) if rank > 0 else -1
-    cd += offs_cd[rank]
-    cd_base = torch.cummax(torch.where(is_pfx, cd, -1), dim=0).values.clamp_(min=prevm)
-    dig_ok = is_dig & (cd_base >= 0)
-    kk = cd.sub_(cd_base).sub_(1)  # digits since the last prefix, minus one
-    del cd, cd_base, is_dig
-    dig_ok &= (kk >= 0) & (kk < C.MAX_RUN_DIGITS)
-    first_digit = kk == 0
-    shift = kk.clamp_(0, C.MAX_RUN_DIGITS - 1)
-    dv = (sym - C.PREFIX_RUN_BASE).to(torch.int64)
-    dv.masked_fill_((shift == C.MAX_RUN_DIGITS - 1) & (dv > 1), 1)
-    cov = dv.bitwise_left_shift_(shift.mul_(3)).add_(first_digit)
-    del kk, shift, first_digit
-    cov.masked_fill_(~dig_ok, 0).add_(is_pfx).clamp_(max=N)
-    del dig_ok
-    start = torch.cumsum(cov, dim=0)
-    g2 = comm.all_gather(start[-1:])[:, 0]
-    start.sub_(cov).add_(g2[:rank].sum())  # the coverage of the ranks before
-    del cov
-    keep = torch.nonzero(is_pfx & (start < N)).reshape(-1)  # the real pixels' slots
-    del is_pfx
-    sym, i12, i34, start = sym[keep], i12[keep], i34[keep], start[keep]
-    del keep
-    if stats is not None:
-        stats["real_slots"] = sym.numel()
+    with stages.stage("assembly"):
+        # slot-space assembly with cross-shard offsets (int64)
+        pos, sym, i12, i34 = (r.reshape(-1) for r in recs)
+        del recs
+        valid = (pos >= 0) & (pos < min(max(wbits - base, -1), nlc * cfg.chunk_bits))
+        del pos
+        is_pfx = valid & (sym < C.PREFIX_RUN_BASE)
+        is_dig = valid & (sym >= C.PREFIX_RUN_BASE)
+        del valid
+        cd = torch.cumsum(is_dig, dim=0, dtype=torch.int64)
+        m_loc = torch.where(is_pfx, cd, -1).max()
+        # one all-gather: [consistency, crossing, digits, last prefix's digit count]
+        g1 = comm.all_gather(torch.cat([ok_walk.to(torch.int64), torch.stack([cd[-1], m_loc])]))
+        offs_cd = torch.cumsum(g1[:, 2], dim=0) - g1[:, 2]
+        allm = torch.where(g1[:, 3] >= 0, g1[:, 3] + offs_cd, -1)
+        prevm = int(allm[:rank].max()) if rank > 0 else -1
+        cd += offs_cd[rank]
+        cd_base = torch.cummax(torch.where(is_pfx, cd, -1), dim=0).values.clamp_(min=prevm)
+        dig_ok = is_dig & (cd_base >= 0)
+        kk = cd.sub_(cd_base).sub_(1)  # digits since the last prefix, minus one
+        del cd, cd_base, is_dig
+        dig_ok &= (kk >= 0) & (kk < C.MAX_RUN_DIGITS)
+        first_digit = kk == 0
+        shift = kk.clamp_(0, C.MAX_RUN_DIGITS - 1)
+        dv = (sym - C.PREFIX_RUN_BASE).to(torch.int64)
+        dv.masked_fill_((shift == C.MAX_RUN_DIGITS - 1) & (dv > 1), 1)
+        cov = dv.bitwise_left_shift_(shift.mul_(3)).add_(first_digit)
+        del kk, shift, first_digit
+        cov.masked_fill_(~dig_ok, 0).add_(is_pfx).clamp_(max=N)
+        del dig_ok
+        start = torch.cumsum(cov, dim=0)
+        g2 = comm.all_gather(start[-1:])[:, 0]
+        start.sub_(cov).add_(g2[:rank].sum())  # the coverage of the ranks before
+        del cov
+        keep = torch.nonzero(is_pfx & (start < N)).reshape(-1)  # the real pixels' slots
+        del is_pfx
+        sym, i12, i34, start = sym[keep], i12[keep], i34[keep], start[keep]
+        del keep
+        if stats is not None:
+            stats["real_slots"] = sym.numel()
 
-    # payload symbols and packed placement records of the real slots
-    bins = decode3._payload_bins(sym[None], i12[None], i34[None])
-    del i12, i34
-    if sym.numel():
-        syms = cuda_ops.value_join(bins, sym_tbl.contiguous())[:, 0]
-    else:  # a shard of runs only: no real slot
-        syms = bins[:, 0]
-    del bins
-    rec = torch.empty_like(sym)
-    dst = torch.empty_like(start)
-    for a in range(0, sym.numel(), decode3.RECORD_BLOCK):  # bounds slot_records' temporaries
-        cut = slice(a, a + decode3.RECORD_BLOCK)
-        real = torch.ones_like(sym[cut], dtype=torch.bool)
-        rec[cut], dst[cut] = decode3.slot_records(real, sym[cut], *syms[:, cut], start[cut], real, N, W)
-    ok_ref = ~((sym == C.PREFIX_BACK_REF) & (syms[0] >= C.NUM_BACK_REF)).any()
-    del sym, syms, start
-    g3 = comm.all_gather(torch.stack([ok_ref.to(torch.int64), torch.tensor(rec.numel(), device=device)]))
-    clock.mark("assembly")
-    gates = {"consistency": bool(g1[:, 0].all()), "crossing": bool(g1[:, 1].all()),
-             "coverage": int(g2.sum()) >= N, "backref": bool(g3[:, 0].all())}
+        # payload symbols and packed placement records of the real slots
+        bins = decode3._payload_bins(sym[None], i12[None], i34[None])
+        del i12, i34
+        if sym.numel():
+            syms = cuda_ops.value_join(bins, sym_tbl.contiguous())[:, 0]
+        else:  # a shard of runs only: no real slot
+            syms = bins[:, 0]
+        del bins
+        rec = torch.empty_like(sym)
+        dst = torch.empty_like(start)
+        for a in range(0, sym.numel(), decode3.RECORD_BLOCK):  # bounds slot_records' temporaries
+            cut = slice(a, a + decode3.RECORD_BLOCK)
+            real = torch.ones_like(sym[cut], dtype=torch.bool)
+            rec[cut], dst[cut] = decode3.slot_records(real, sym[cut], *syms[:, cut], start[cut], real, N, W)
+        ok_ref = ~((sym == C.PREFIX_BACK_REF) & (syms[0] >= C.NUM_BACK_REF)).any()
+        del sym, syms, start
+        g3 = comm.all_gather(torch.stack([ok_ref.to(torch.int64), torch.tensor(rec.numel(), device=device)]))
+        gates = {"consistency": bool(g1[:, 0].all()), "crossing": bool(g1[:, 1].all()),
+                 "coverage": int(g2.sum()) >= N, "backref": bool(g3[:, 0].all())}
     if stats is not None:
         stats["gates"] = gates
     if not all(gates.values()):
         return None
 
-    # the records of real pixels, all-gathered; this rank keeps its rows
-    k_max = max(1, int(g3[:, 1].max()))
-    mine = torch.full((2, k_max), N, dtype=torch.int32, device=device)
-    mine[0, : rec.numel()] = rec
-    mine[1, : rec.numel()] = dst.to(torch.int32)
-    del rec, dst
-    allrec = comm.all_gather(mine)
-    del mine
-    clock.mark("records_all_gather")
-    # each rank's records lie in pixel order (padding N last): this rank's
-    # rows are one run of each
-    lo = rank * n_local
-    bounds = torch.tensor([[lo, lo + n_local]], dtype=torch.int32, device=device).expand(n, 2)
-    cuts = torch.searchsorted(allrec[:, 1].contiguous(), bounds.contiguous()).tolist()
-    rec_o = torch.cat([allrec[r, 0, a:b] for r, (a, b) in enumerate(cuts)])
-    dst_o = torch.cat([allrec[r, 1, a:b] for r, (a, b) in enumerate(cuts)]) - lo
-    del allrec
-    form, delta, refoff = decode3.place_and_unpack(rec_o[None], dst_o[None], n_local, W)
-    del rec_o, dst_o
+    with stages.stage("records_all_gather"):
+        # the records of real pixels, all-gathered; this rank keeps its rows
+        k_max = max(1, int(g3[:, 1].max()))
+        mine = torch.full((2, k_max), N, dtype=torch.int32, device=device)
+        mine[0, : rec.numel()] = rec
+        mine[1, : rec.numel()] = dst.to(torch.int32)
+        del rec, dst
+        allrec = comm.all_gather(mine)
+        del mine
+        if stats is not None:
+            stats["records_bytes"] = stats.get("records_bytes", 0) + allrec.numel() * allrec.element_size()
+    with stages.stage("place"):
+        # each rank's records lie in pixel order (padding N last): this rank's
+        # rows are one run of each
+        lo = rank * n_local
+        bounds = torch.tensor([[lo, lo + n_local]], dtype=torch.int32, device=device).expand(n, 2)
+        cuts = torch.searchsorted(allrec[:, 1].contiguous(), bounds.contiguous()).tolist()
+        rec_o = torch.cat([allrec[r, 0, a:b] for r, (a, b) in enumerate(cuts)])
+        dst_o = torch.cat([allrec[r, 1, a:b] for r, (a, b) in enumerate(cuts)]) - lo
+        del allrec
+        form, delta, refoff = decode3.place_and_unpack(rec_o[None], dst_o[None], n_local, W)
+        del rec_o, dst_o
 
     # the carry pipeline: the four rows above from rank d - 1, one kernel
     # run, the last four rows on to rank d + 1
-    carry = comm.recv_prev(torch.zeros(1, 3, 4 * W, dtype=torch.int32, device=device))
-    clock.mark("carry_wait")
-    out, tail = recon.reconstruct_rows(form, delta, refoff, width=W, prev4=carry.contiguous())
-    clock.mark("recon")
-    comm.send_next(tail)
+    with stages.stage("carry_wait"):
+        carry = comm.recv_prev(torch.zeros(1, 3, 4 * W, dtype=torch.int32, device=device))
+    with stages.stage("recon"):
+        out, tail = recon.reconstruct_rows(form, delta, refoff, width=W, prev4=carry.contiguous())
+        comm.send_next(tail)
     return out[0].to(torch.uint8)
 
 
@@ -268,21 +286,18 @@ def decode_across(data: bytes, comm: Comm, device: torch.device, *, everywhere: 
     if stats is not None:
         stats.setdefault("fallbacks", 0)
     cfg = cfg or decode3.LADDER[-1]
-    nlc, _ = shard_geometry(decode3.payload_bits(data), comm.size, cfg)
-    unshardable = (H % comm.size != 0 or H // comm.size < 4 or W < C.MIN_WIDTH
-                   or nlc * cfg.chunk_bits > decode3.MAX_DEVICE_BITS)  # a shard the walk cannot hold
-    block = None if unshardable else _decode_block(data, comm, device, cfg, stats)
+    stages = StageSpans("dist", stats)
+    block = decode_block(data, comm, device, cfg, stages, stats) if shardable(data, comm.size, cfg) else None
     if block is None:
         if stats is not None:
             stats["fallbacks"] += 1
         return oracle.decode_native(data) if everywhere or comm.rank == 0 else None
-    clock = MarkedStageTimer(stats, device)
-    blocks = comm.all_gather(block) if everywhere else comm.gather_root(block)
-    clock.mark("stitch")
-    if blocks is None:
-        return None
-    planar = blocks.permute(1, 0, 2).reshape(3, H, W)
-    return planar.permute(1, 2, 0).cpu().numpy()
+    with stages.stage("gather_blocks"):
+        blocks = comm.all_gather(block) if everywhere else comm.gather_root(block)
+        if blocks is None:
+            return None
+        planar = blocks.permute(1, 0, 2).reshape(3, H, W)
+        return planar.permute(1, 2, 0).cpu().numpy()
 
 
 def decode_sharded(data: bytes, *, device="cuda", group=None, cfg: decode3.WalkCfg | None = None,
@@ -297,8 +312,9 @@ def decode_sharded(data: bytes, *, device="cuda", group=None, cfg: decode3.WalkC
     receives "fallbacks" (1 when the host decoder served the raster),
     "gates" (the four gates over all ranks, where the walk ran),
     "real_slots" (this rank's slots of real pixels, 0 on a shard of runs
-    only, which launches no value join) and "stages" (host-clock seconds per
-    stage of this rank)."""
+    only, which launches no value join), "records_bytes" and "stages" (this
+    rank's host seconds per stage, the spans "dist.<stage>"; nothing waits
+    for the device)."""
     return decode_across(data, Comm(group), _resolve_device(device), everywhere=True, cfg=cfg,
                          stats=stats)
 

@@ -3,8 +3,9 @@
 `StageTimer` (the port's copy of `nicetpu.utils.profiling.StageTimer`) is a
 structured stage timer on the host's wall clock: named stages, their
 milliseconds, the total and the MB/s derived from a byte count.
-`MarkedStageTimer` drives the same timer by marks and waits for the device
-at each, for the per-rank stages of the sharded codec.
+`StageSpans` names the per-rank stages of the sharded codec as spans,
+with their host seconds in a caller's `stats` and their ends in `marks`;
+it never waits for the device.
 
 `mark_stage` and `span` time the single-device paths.  A caller that passes
 a `marks=` list receives (stage, CUDA event) pairs, one where each stage
@@ -63,30 +64,6 @@ class StageTimer:
         if nbytes and total > 0:
             out["MB/s"] = round(nbytes / 1e6 / total, 2)
         return json.dumps(out)
-
-
-class MarkedStageTimer(StageTimer):
-    """A StageTimer driven by marks: mark(name) adds the seconds since the
-    previous mark to stage `name`.  Each mark first waits for `device`, so
-    that a stage holds its own device work.  The stages are kept in
-    stats["stages"]; with stats None, marking does nothing."""
-
-    def __init__(self, stats: dict | None, device) -> None:
-        super().__init__()
-        self.on = stats is not None
-        if self.on:
-            self.stages = stats.setdefault("stages", {})
-        self.device = device
-        self.t = time.perf_counter()
-
-    def mark(self, name: str) -> None:
-        if not self.on:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.stages[name] = self.stages.get(name, 0.0) + now - self.t
-        self.t = now
 
 
 def mark_stage(marks, name: str) -> None:
@@ -215,3 +192,29 @@ def spans(since: float = 0.0) -> Report:
         total[name] = total.get(name, 0.0) + 1e3 * (end - start)
     out = [Span(*r, self_ms=1e3 * (r[2] - r[1] - covered.get(r[3], 0.0))) for r in rows]
     return Report(out, total)
+
+
+class StageSpans:
+    """The stages of one call on one rank: `stage(name)` is a context
+    manager, the span "<layer>.<name>" (see `span`), whose end is marked in
+    `marks` where that is a list and whose host seconds are added to
+    stats["stages"][name] where stats is a dict.  Nothing waits for the
+    device, so a stage's host time holds its issue and whatever wait its
+    own code makes; its device time is read from the marks."""
+
+    def __init__(self, layer: str, stats: dict | None = None, marks=None) -> None:
+        self.layer, self.marks = layer, marks
+        self.stages = None if stats is None else stats.setdefault("stages", {})
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        t0 = 0.0 if self.stages is None else time.perf_counter()
+        with span(f"{self.layer}.{name}", self.marks):
+            yield
+        if self.stages is not None:
+            self.stages[name] = self.stages.get(name, 0.0) + time.perf_counter() - t0
+
+
+def enabled() -> bool:
+    """Whether spans record in this thread now."""
+    return bool(_recording or _profiler_enabled())

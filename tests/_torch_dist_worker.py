@@ -81,3 +81,25 @@ def fail_on_rank_1(comm):
 def sleep(comm, seconds):
     time.sleep(seconds)
     return comm.rank
+
+
+def group_fail_on_rank_1(call):
+    """A shard group rank function: rank 1 raises, the others wait for it
+    in a collective."""
+    if call.comm.rank == 1:
+        raise ValueError("rank 1 fails on purpose")
+    call.comm.all_gather(torch.zeros(1))
+    return call.comm.rank
+
+
+def group_sleep_on_rank_1(call, seconds):
+    """A shard group rank function: rank 1 sleeps, rank 0 returns."""
+    if call.comm.rank == 1:
+        time.sleep(seconds)
+    return call.comm.rank
+
+
+def sleep_group_rank(call):
+    """A shard group rank function: every rank meets in one collective."""
+    call.comm.all_gather(torch.zeros(1))
+    return call.comm.rank

@@ -798,6 +798,30 @@ def test_dryrun_multichip_on_the_card(dev, n, backend):
         assert unlaunched == {"walk_tables", "slot_assemble"} | (set() if r["real_slots"] else {"value_join"}), r
 
 
+@pytest.mark.parametrize("every_card", [False, True], ids=["one-card", "every-card"])
+def test_shard_group_on_the_card(dev, every_card):
+    """The persistent shard group on the cards: one NCCL rank on cuda:0,
+    and one a card over every card there is.  Bytes equal hostref's, the
+    cards' proof and pixels exact, and every rank's stages timed by its
+    CUDA events."""
+    n = torch.cuda.device_count() if every_card else 1
+    img = launch.dryrun_image(8)
+    img[20:37] = img[19, -1]  # a run across the shard edges
+    with nicetpu_torch.api.ShardGroup(n, device="cuda", timeout=300) as g:
+        for _ in range(2):
+            stats: dict = {}
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks = [("call_start", ev)]
+            data, verified, out = g.roundtrip(img, stats=stats, keep_decoded=True, marks=marks)
+            assert data == oracle.encode_native(img) and verified is True
+            np.testing.assert_array_equal(out, img)
+            assert stats["host_served"] == 0 and len(stats["ranks"]) == n
+            assert {"upload", "scatter", "walk", "carry_wait", "verify"} <= {m[0] for m in marks}
+            for r in stats["ranks"]:
+                assert r["peak_device_bytes"] > 0 and r["stage_ms"]["recon"] >= 0
+
+
 # ---------------------------------------------------------------------------
 # the schedulers, the CLI and the corpus on the card
 # ---------------------------------------------------------------------------
