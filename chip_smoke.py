@@ -9,7 +9,7 @@ Phases, one printed line or block each; any failure exits nonzero:
   0. the card's name and power limit (nvidia-smi); exit 1 without CUDA;
   1. build the CUDA kernels from csrc/ with nvcc (one process per source),
      print the build time and the register report;
-  2. hold each of the eleven kernels against its plain PyTorch version on the
+  2. hold each of the twelve kernels against its plain PyTorch version on the
      card (exact equality) and time kernel, plain version and, where one
      PyTorch call computes the same function, that call (CUDA events).
      Encode kernels take seeded bins at the main path's shapes; the Huffman
@@ -61,7 +61,14 @@ Phases, one printed line or block each; any failure exits nonzero:
      768x512 images at the fast and the robust rung and the records of
      tests/_slot_rows.py, each exact against slot_assemble_plain, timed
      beside the plain version and the bare torch cumsum/cummax/nonzero chain,
-     with each kernel's device time from torch.profiler;
+     with each kernel's device time from torch.profiler; the stitch kernel
+     (cuda_ops.stitch_file) takes the shard layouts of tests/_stitch_rows.py
+     at every header length, then four shards of 14.3 M words (a 16384^2
+     raster's over four ranks), each exact against its plain version, timed
+     beside its bound, the plain version (host numpy, with the words' copy
+     down) and one call as rank 0 makes it (the kernel, one copy of the
+     file down through a pinned staging buffer, the bytes; and the same
+     through pageable memory);
   3. encode 64 512x512 RGB8 images in 8 batches of 8 through
      nicetpu_torch.encode_batch(device=dev.type), the two-step encode: every
      blob equals the native encoder's, none falls back, every encode kernel
@@ -194,6 +201,7 @@ from nicetpu_torch.bench import card_line, make_image
 from nicetpu_torch.config import RuntimeConfig
 from nicetpu_torch.convert import from_int32_bits, tables_from_numpy
 from nicetpu_torch.dist import launch, sharded_decode
+from nicetpu_torch.dist.comm import PinnedStaging
 from nicetpu_torch.format import constants as C
 from nicetpu_torch.hostref import oracle
 from nicetpu_torch.format.huffman import build_tables_host
@@ -216,6 +224,7 @@ def _load_rows(name: str):
 _rows = _load_rows("_huffman_rows")
 _table_rows = _load_rows("_decode_table_rows")
 _slot_rows = _load_rows("_slot_rows")
+_stitch_rows = _load_rows("_stitch_rows")
 _bounds, _deep, _heavy, _random, _sparse, _ties, _zero = (_rows._bounds, _rows._deep, _rows._heavy, _rows._random,
                                                          _rows._sparse, _rows._ties, _rows._zero)
 
@@ -231,6 +240,7 @@ SOURCES = {
     "decode_tables": "nicetpu_torch/csrc/decode_tables_kernels.cu",
     "walk_tables": "nicetpu_torch/csrc/decode_tables_kernels.cu",
     "slot_assemble": "nicetpu_torch/csrc/slot_assemble_kernels.cu",
+    "stitch": "nicetpu_torch/csrc/stitch_kernels.cu",
 }
 REPLACES = {
     "histogram": "nicetpu/kernels/pallas_ops.py:100",
@@ -251,10 +261,12 @@ REPLACES = {
     "slot_assemble": "nicetpu/kernels/decode3.py:651 _cumsum_walk and :667 _cummax_walk (jnp in-layout scans "
                      "inside the jitted decode core; not Pallas); in the port torch's cumsum, cummax and nonzero "
                      "of decode3._slot_starts and _compact before",
+    "stitch": "none: nicetpu/dist/sharded.py stitch_payload is host numpy, and so was the port's rank 0 stitch "
+              "before (stitch_payload, then the file's bytes)",
 }
 # what a batch of the round trip launches: every kernel but walk_tables,
-# whose tables come with the decode tables
-PATH_KERNELS = tuple(k for k in REPLACES if k != "walk_tables")
+# whose tables come with the decode tables, and the sharded encode's stitch
+PATH_KERNELS = tuple(k for k in REPLACES if k not in ("walk_tables", "stitch"))
 # the sharded decode assembles its slots with its own carried torch scans
 SHARDED_KERNELS = tuple(k for k in PATH_KERNELS if k != "slot_assemble")
 # the two-step encode (api.encode, the CLI) builds its Huffman tables on the host
@@ -979,6 +991,66 @@ def slot_assemble_kernel(dev) -> dict:
     return {"slot_assemble": {**fast, "robust_rung": robust}}
 
 
+STITCH_WORDS = 14_300_000  # words a shard of a 16384^2 raster over four ranks (raster16k-sharded4)
+STITCH_SHARDS = 4
+
+
+def stitch_kernel(dev) -> dict:
+    """The stitch kernel against its plain version on the shard layouts of
+    tests/_stitch_rows.py at every header length, then at the four-card
+    cell's size: STITCH_SHARDS shards of STITCH_WORDS words, seeded totals
+    near their capacity, a real file's 770-byte header length.  Timed
+    beside its bound (the words the totals need read once, the file written
+    once), the plain version on the host (with the words' copy down, as
+    rank 0 stitched before) and one call as rank 0 makes it now (the
+    kernel, one copy of the file down through the pinned staging buffer,
+    the bytes), beside the same call through pageable memory."""
+    for case, (bits, k) in _stitch_rows.CASES.items():
+        for hlen in _stitch_rows.HEADER_LENGTHS:
+            words, head = _stitch_rows.shards(bits, k, seed=hlen), _stitch_rows.header(hlen)
+            got = cuda_ops.stitch_file(words.to(dev), bits, head)
+            check(torch.equal(got.cpu(), cuda_ops.stitch_file(words, bits, head)),
+                  f"stitch disagrees with its plain version on {case} with a {hlen}-byte header")
+    print(f"[kernel] stitch equals its plain version on {list(_stitch_rows.CASES)} with headers of "
+          f"{_stitch_rows.HEADER_LENGTHS} bytes", flush=True)
+    bits = _stitch_rows.random_bits(STITCH_SHARDS, STITCH_WORDS, seed=2)
+    words = _stitch_rows.shards(bits, STITCH_WORDS, seed=2)
+    head = _stitch_rows.header(770)
+    wd = words.to(dev)
+    before = cuda_ops.LAUNCHES["stitch"]
+    got = cuda_ops.stitch_file(wd, bits, head)
+    torch.cuda.synchronize()
+    check(cuda_ops.LAUNCHES["stitch"] == before + 1, "stitch was not counted")
+    check(torch.equal(got.cpu(), cuda_ops.stitch_file(words, bits, head)),
+          "stitch disagrees with its plain version at the four-card cell's size")
+    res = {"max_abs_err": 0, "ms": cuda_ms(lambda: cuda_ops.stitch_file(wd, bits, head), 20),
+           "library_ms": None}
+    plain = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        cuda_ops.stitch_file(wd.cpu(), bits, head)
+        plain.append(1e3 * (time.perf_counter() - t0))
+    staging = PinnedStaging()
+    calls = {"call_ms": staging.to_bytes, "pageable_call_ms": lambda f: f.cpu().numpy().tobytes()}
+    for key, down in calls.items():
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            down(cuda_ops.stitch_file(wd, bits, head))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        res[key] = min(ms)
+    staging.release()
+    res["plain_ms"] = min(plain)
+    res.update(bound(4 * int(sum(-(-int(b) // 32) for b in bits)) + got.numel(), 0))
+    print(f"[kernel] stitch at {STITCH_SHARDS} x {STITCH_WORDS} words ({int(bits.sum())} bits, a "
+          f"{got.numel()}-byte file): kernel {res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms by "
+          f"{res['bound_by']}; plain (host, words copied down) {res['plain_ms']:.1f} ms; rank 0's call "
+          f"(kernel, one copy down through the pinned buffer, bytes) {res['call_ms']:.1f} ms, through "
+          f"pageable memory {res['pageable_call_ms']:.1f} ms", flush=True)
+    return {"stitch": res}
+
+
 REAL_CROP = 512  # side of phase 2's soccer0 crop (the plain walk takes it in seconds)
 REAL_CHECK_ROWS = 16  # rows of that crop for the reconstruction's plain comparison
 
@@ -1436,6 +1508,8 @@ def phase_sharded(dev, big, big_ref, imgs, blobs) -> dict:
               f"rank {r['rank']}: sharded fallbacks {r['encode_stats']} {r['decode_stats']}")
         check(all(r["launches"][k] >= 1 for k in SHARDED_KERNELS) and r["launches"]["walk_tables"] == 0,
               f"rank {r['rank']} did not launch every kernel on the sharded path, or walk_tables: {r['launches']}")
+        check(r["launches"]["stitch"] == (r["rank"] == 0),
+              f"rank {r['rank']}: the stitch ran {r['launches']['stitch']} times (rank 0 alone stitches, once)")
         check(r["batch_equal"] and r["batch_stats"] == {"retries": 0, "fallbacks": 0},
               f"rank {r['rank']}: decode_batch_sharded differs or fell back: {r['batch_stats']}")
     print(f"[sharded] every rank: bytes equal hostref.encode_native, raster exact, 0 fallbacks, "
@@ -1444,7 +1518,8 @@ def phase_sharded(dev, big, big_ref, imgs, blobs) -> dict:
     rank0_launches = res[0]["launches"]
     left = SHARDED_TIMEOUT - (time.perf_counter() - t_phase)
     res = launch.dryrun_multichip(1, "nccl", "cuda", timeout=left)
-    check(all(res[0]["launches"][k] >= 1 for k in SHARDED_KERNELS), f"the NCCL dry run skipped a kernel: {res}")
+    check(all(res[0]["launches"][k] >= 1 for k in SHARDED_KERNELS + ("stitch",)),
+          f"the NCCL dry run skipped a kernel: {res}")
     print(f"[sharded] dryrun_multichip(1, 'nccl', 'cuda'): exact, launches={res[0]['launches']}; "
           f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
     return rank0_launches
@@ -1829,6 +1904,7 @@ def main() -> int:
     kernels = phase_encode_kernels(dev)
     kernels.update(phase_decode_kernels(dev))
     kernels.update(slot_assemble_kernel(dev))
+    kernels.update(stitch_kernel(dev))
     phase_decode_kernels_real(dev)
 
     imgs = [make_image(512, 512, s) for s in range(64)]

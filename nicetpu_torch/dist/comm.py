@@ -6,12 +6,38 @@ process of a `torch.distributed` group, and `Comm` holds that group and the
 device its collectives run on: the rank's CUDA device under NCCL, the CPU
 under gloo, where tensors are staged through host memory.  Every method
 takes and returns tensors on the caller's device and moves them as needed.
+A `Comm` also holds the rank's pinned staging buffer (`PinnedStaging`),
+through which a file on the card comes to the host as bytes.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+
+class PinnedStaging:
+    """A page-locked host buffer reused across calls, through which a 1-D
+    uint8 tensor on a card comes to the host as `bytes`: one copy down at
+    the link's rate into pages that stay mapped, then the bytes object.  The
+    buffer is sized by the largest tensor so far and freed by `release`."""
+
+    def __init__(self) -> None:
+        self.buf: torch.Tensor | None = None
+
+    def to_bytes(self, t: torch.Tensor) -> bytes:
+        if t.device.type != "cuda":
+            return t.numpy().tobytes()
+        n = t.numel()
+        if self.buf is None or self.buf.numel() < n:
+            self.buf = None  # the old buffer goes before the larger one is pinned
+            self.buf = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+        view = self.buf[:n]
+        view.copy_(t)  # waits for the copy
+        return view.numpy().tobytes()
+
+    def release(self) -> None:
+        self.buf = None
 
 
 class Comm:
@@ -30,6 +56,7 @@ class Comm:
             self.device = torch.device("cpu")
         else:
             raise ValueError(f"unsupported backend {backend!r}: use 'nccl' or 'gloo'")
+        self.staging = PinnedStaging()
 
     def _global(self, r: int) -> int:
         return dist.get_global_rank(self.group, r)
@@ -97,13 +124,16 @@ class Comm:
         dist.scatter(out, parts, src=self._global(0), group=self.group)
         return out.to(device)
 
-    def broadcast_bytes(self, data: bytes | None) -> bytes:
-        """Rank 0's bytes on every rank (rank 0 keeps its own object)."""
-        n = torch.tensor([len(data) if self.rank == 0 else 0], dtype=torch.int64, device=self.device)
-        dist.broadcast(n, self._global(0), group=self.group)
-        buf = torch.empty(int(n.item()), dtype=torch.uint8, device=self.device)
+    def broadcast_bytes(self, data: bytes | None, file: torch.Tensor | None = None) -> bytes:
+        """Rank 0's bytes on every rank (rank 0 keeps its own object).  Where
+        rank 0 holds them as a 1-D uint8 tensor too (`file`, the stitch's,
+        on its card under NCCL), that tensor is sent and the bytes are not
+        uploaded again."""
         if self.rank == 0:
-            buf.copy_(torch.frombuffer(bytearray(data), dtype=torch.uint8))
+            buf = self._on(file if file is not None else torch.frombuffer(bytearray(data), dtype=torch.uint8))
+        n = torch.tensor([buf.numel() if self.rank == 0 else 0], dtype=torch.int64, device=self.device)
+        dist.broadcast(n, self._global(0), group=self.group)
+        if self.rank != 0:
+            buf = torch.empty(int(n.item()), dtype=torch.uint8, device=self.device)
         dist.broadcast(buf, self._global(0), group=self.group)
-        return data if self.rank == 0 else buf.cpu().numpy().tobytes()
-
+        return data if self.rank == 0 else self.staging.to_bytes(buf)

@@ -13,7 +13,8 @@ and scatters its row blocks over the group's collectives ("scatter",
 no rank receives a copy of the whole raster.  The round trip then runs the
 sharded encode (`sharded.encode_block`: halo, first changes, summed
 histogram, device tables, pack), the ordered gather to rank 0 and the
-stitch there (`sharded.gather_stitch`), the broadcast of the stitched bytes,
+stitch there (`sharded.gather_stitch`: one kernel writes the file on card
+0, counted in "device_stitches"), the broadcast of that file tensor,
 the sharded decode (`sharded_decode.decode_block` at the robust rung
 `decode3.LADDER[-1]`: walk, assembly, records all-gather, carry pipeline),
 and each rank's comparison of its decoded block
@@ -64,7 +65,7 @@ DEFAULT_TIMEOUT = 600.0  # seconds the set-up, a call and each collective may ta
 CLOSE_WAIT = 30.0  # seconds a helper is given to leave on close before it is killed
 PARENT_POLL = 0.5  # seconds between a helper's checks that rank 0's process lives
 COUNTERS = ("rasters", "fallbacks", "overflow_fallbacks", "host_served", "scattered_bytes",
-            "records_bytes")
+            "records_bytes", "device_stitches")
 CFG = decode3.LADDER[-1]  # the sharded decode's walk: the robust rung
 WHOLE_ON_HOST = {"rasters": 1, "fallbacks": 1, "host_served": 1}  # a raster that does not split
 
@@ -177,13 +178,14 @@ def _helper_main(rank: int, n: int, port: int, device: str, conn, parent: int,
 
 
 class _State:
-    """What the group's finalizer holds: its processes and pipes, and the
-    reason it closed (None while open)."""
+    """What the group's finalizer holds: its processes and pipes, rank 0's
+    pinned staging buffer, and the reason it closed (None while open)."""
 
     def __init__(self, backend: str) -> None:
         self.backend = backend
         self.procs: list = []
         self.conns: list = []
+        self.staging = None  # rank 0's Comm.staging
         self.joined = False  # this process is rank 0 of a process group
         self.closed: str | None = None
         self.lock = threading.Lock()
@@ -229,6 +231,8 @@ def _shutdown(state: _State) -> None:
         p.join()
     for conn in state.conns:
         conn.close()
+    if state.staging is not None:
+        state.staging.release()
     if state.joined:
         import torch.distributed as dist
 
@@ -332,6 +336,7 @@ class ShardGroup:
                                                 world_size=n, rank=0, device=self.device.index,
                                                 timeout=timeout)
             st.joined = True
+            st.staging = self._comm.staging
             self._await("ready")
         except BaseException:
             _break(st, "set-up failed")
@@ -441,8 +446,10 @@ class ShardGroup:
         stats: optional dict; accumulates "rasters", "fallbacks",
         "overflow_fallbacks", "host_served", "scattered_bytes" (the row
         blocks sent to ranks 1 ... n - 1), "records_bytes" (rank 0's
-        records all-gather), "group_calls" (calls the group ran, whose
-        counters follow) and, under "ranks", each rank's
+        records all-gather), "device_stitches" (files the stitch kernel
+        wrote on card 0: 0 on the host routes and on the CPU),
+        "group_calls" (calls the group ran, whose counters follow) and,
+        under "ranks", each rank's
         "peak_device_bytes" (the largest), "stage_ms", "records_bytes" and,
         while spans record, "span_ms".  marks: a list receives rank 0's
         (stage, CUDA event) marks, and every rank times its stages by
@@ -502,32 +509,42 @@ def _scatter(call: RankCall, img, height: int, width: int) -> torch.Tensor:
     return x
 
 
-def _encode(call: RankCall, x: torch.Tensor, img, height: int, width: int) -> bytes | None:
-    """The stitched bytes on rank 0 (None elsewhere); the host encoder's
-    where any rank overflowed."""
+def _encode(call: RankCall, x: torch.Tensor, img, height: int,
+            width: int) -> tuple[bytes | None, torch.Tensor | None]:
+    """The stitched bytes on rank 0 (None elsewhere) and the file tensor
+    the stitch wrote (a file the kernel wrote on a card counts in
+    "device_stitches"); the host encoder's bytes and no tensor where any
+    rank overflowed."""
     from nicetpu_torch.dist.sharded import encode_block, gather_stitch
 
     shard = encode_block(x, call.comm, width=width, stages=call.stages)
     if shard is not None:
-        return gather_stitch(shard, call.comm, height=height, width=width, stages=call.stages)
+        data, file = gather_stitch(shard, call.comm, height=height, width=width, stages=call.stages)
+        if file is not None and file.is_cuda:
+            call.count("device_stitches")
+        return data, file
     call.host_route("overflow_fallbacks")
-    return oracle.encode_native(img) if call.root else None
+    return (oracle.encode_native(img) if call.root else None), None
 
 
-def _decode(call: RankCall, data: bytes | None) -> tuple[bytes, torch.Tensor | None]:
-    """Rank 0's bytes on every rank, and this rank's decoded (3, n_local)
-    block, or None on every rank where the host decodes instead (on rank
-    0, counted)."""
+def _share(call: RankCall, data: bytes | None, file: torch.Tensor | None = None) -> bytes:
+    """Rank 0's bytes on every rank: its file tensor sent where the stitch
+    left one, else its bytes."""
+    with call.stages.stage("bytes_broadcast"):
+        return call.comm.broadcast_bytes(data, file)
+
+
+def _decode(call: RankCall, data: bytes) -> torch.Tensor | None:
+    """This rank's decoded (3, n_local) block, or None on every rank where
+    the host decodes instead (on rank 0, counted)."""
     from nicetpu_torch.dist.sharded_decode import decode_block, shardable
 
-    with call.stages.stage("bytes_broadcast"):
-        data = call.comm.broadcast_bytes(data)
     block = None
     if shardable(data, call.comm.size, CFG):
         block = decode_block(data, call.comm, call.device, CFG, call.stages, call.stats)
     if block is None:
         call.host_route("fallbacks")
-    return data, block
+    return block
 
 
 def _gather_raster(call: RankCall, block: torch.Tensor, height: int, width: int) -> np.ndarray | None:
@@ -541,12 +558,13 @@ def _gather_raster(call: RankCall, block: torch.Tensor, height: int, width: int)
 
 def _encode_rank(call: RankCall, img, height: int, width: int) -> bytes | None:
     call.count("rasters")
-    return _encode(call, _scatter(call, img, height, width), img, height, width)
+    return _encode(call, _scatter(call, img, height, width), img, height, width)[0]
 
 
 def _decode_rank(call: RankCall, data: bytes | None) -> np.ndarray | None:
     call.count("rasters")
-    data, block = _decode(call, data)
+    data = _share(call, data)
+    block = _decode(call, data)
     if block is None:
         return oracle.decode_native(data) if call.root else None
     W, H, _ = headers.parse_file_header(data)
@@ -558,7 +576,10 @@ def _roundtrip_rank(call: RankCall, img, height: int, width: int, keep: bool):
     None) on rank 0, None elsewhere."""
     call.count("rasters")
     x = _scatter(call, img, height, width)
-    data, block = _decode(call, _encode(call, x, img, height, width))
+    data, file = _encode(call, x, img, height, width)
+    data = _share(call, data, file)
+    del file  # card 0 holds no copy of the file through the decode
+    block = _decode(call, data)
     if block is None:
         if not call.root:
             return None

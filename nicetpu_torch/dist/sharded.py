@@ -17,11 +17,16 @@ contiguous row blocks, one a rank.  Each rank:
   6. packs its own token range: the table-join kernel, then the fold kernel,
      the bit-offset scan and the word placement of
      `encode2._fold_place_grouped_batched`.
-The shards' words, trimmed to the longest shard's, go to rank 0, which
-concatenates them at their global bit offsets (`stitch_payload`, the
-ordered gather) and assembles the bytes.  `encode_block` is the device half
-from a rank's block already on its device (as `ShardGroup` scatters it),
-`gather_stitch` the ordered gather and the stitch.  Each stage is a span
+The shards' words, trimmed to the longest shard's, go to rank 0 (the
+ordered gather), where one launch of the stitch kernel
+(`cuda_ops.stitch_file`) writes the whole file in the words' device memory:
+the header, the shards' bit strings at their global bit offsets, the
+trailer.  The file leaves the card once, as rank 0's bytes, and the bytes'
+broadcast sends that tensor.  On the CPU the plain version
+(`stitch_file_plain`: `stitch_payload`, then the file around it) serves.
+`encode_block` is the device half from a rank's block already on its
+device (as `ShardGroup` scatters it), `gather_stitch` the ordered gather
+and the stitch.  Each stage is a span
 "dist.<stage>" (`profiling.StageSpans`: upload, halo, first_changes,
 tokenize, histogram_psum, tables, pack, gather_words, stitch,
 bytes_broadcast), timed without a device sync.
@@ -159,38 +164,52 @@ def encode_shards(img: np.ndarray, comm: Comm, device: torch.device, stages: Sta
     return encode_block(x, comm, width=W, stages=stages)
 
 
-def gather_stitch(shard, comm: Comm, *, height: int, width: int, stages: StageSpans) -> bytes | None:
+def gather_stitch(shard, comm: Comm, *, height: int, width: int,
+                  stages: StageSpans) -> tuple[bytes | None, torch.Tensor | None]:
     """The ordered gather of `encode_block`'s result to rank 0, bounded by
-    k_max words a shard, and the stitch there: the `.nice` bytes on rank 0,
-    None elsewhere."""
+    k_max words a shard, and the stitch there (`cuda_ops.stitch_file`).
+    Returns, on rank 0, the `.nice` bytes (one copy of the file to the
+    host, through the rank's pinned staging buffer) and the file as a uint8
+    tensor on the words' device (the kernel's output on a card); (None,
+    None) elsewhere.  The gathered words are freed before the copy."""
     words, bits, lengths = shard
     with stages.stage("gather_words"):
         shards = comm.gather_root(words)
-        w_np = None if shards is None else shards.cpu().numpy().view(np.uint32).reshape(-1)
     with stages.stage("stitch"):
-        if w_np is None:
-            return None
-        payload, total_bits = stitch_payload(w_np, bits, comm.size)
-        return _file_bytes(width, height, lengths, payload, total_bits)
+        if shards is None:
+            return None, None
+        file = cuda_ops.stitch_file(shards, bits, file_header(width, height, lengths))
+        del shards
+        return comm.staging.to_bytes(file), file
 
 
-def _file_bytes(W: int, H: int, lengths: np.ndarray, payload: bytes, total_bits: int) -> bytes:
+def file_header(width: int, height: int, lengths: np.ndarray) -> bytes:
+    """The header of an RGB file: file header, then the stream headers of
+    the flat (858,) code lengths."""
+    return headers.pack_file_header(width, height, 3) + headers.pack_stream_headers(lengths.astype(np.uint8))
+
+
+def _file_bytes(header: bytes, payload: bytes, total_bits: int) -> bytes:
+    """The file around `stitch_payload`'s result: the header, the payload's
+    whole bytes and the trailer [B, B, 0, 0, 0]."""
     n_bytes = total_bits // 8
     B = payload[n_bytes] if total_bits % 8 else 0
-    return (
-        headers.pack_file_header(W, H, 3)
-        + headers.pack_stream_headers(lengths.astype(np.uint8))
-        + payload[:n_bytes]
-        + bytes([B, B, 0, 0, 0])
-    )
+    return header + payload[:n_bytes] + bytes([B, B, 0, 0, 0])
+
+
+def stitch_file_plain(words: torch.Tensor, bits: np.ndarray, header: bytes) -> torch.Tensor:
+    """The plain version of `cuda_ops.stitch_file` on a CPU (n, k) int32
+    tensor: `stitch_payload` and `_file_bytes`, as a uint8 tensor."""
+    payload, total_bits = stitch_payload(words.numpy().view(np.uint32).reshape(-1), bits, words.shape[0])
+    return torch.frombuffer(bytearray(_file_bytes(header, payload, total_bits)), dtype=torch.uint8)
 
 
 def encode_across(img: np.ndarray, comm: Comm, device: torch.device, *, everywhere: bool,
                   stats=None) -> bytes | None:
     """Encode one raster across the ranks of `comm`; every rank passes the
-    same full raster.  The shards' words go to rank 0, which stitches them;
-    with everywhere=True every rank returns the bytes, else rank 0 only
-    (None elsewhere)."""
+    same full raster.  The shards' words go to rank 0, whose device stitches
+    them; with everywhere=True every rank returns the bytes, else rank 0
+    only (None elsewhere)."""
     if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
         raise ValueError("expected (H, W, 3) uint8 image")
     H, W, _ = img.shape
@@ -202,10 +221,10 @@ def encode_across(img: np.ndarray, comm: Comm, device: torch.device, *, everywhe
         if stats is not None:
             stats["overflow_fallbacks"] += 1
         return oracle.encode_native(img) if everywhere or comm.rank == 0 else None
-    data = gather_stitch(shard, comm, height=H, width=W, stages=stages)
+    data, file = gather_stitch(shard, comm, height=H, width=W, stages=stages)
     if everywhere:
         with stages.stage("bytes_broadcast"):
-            data = comm.broadcast_bytes(data)
+            data = comm.broadcast_bytes(data, file)
     return data
 
 

@@ -104,6 +104,7 @@ def load() -> ctypes.CDLL:
             "nt_walk_tables": [vp, vp, vp, vp, vp, vp, i32, i32, vp],
             "nt_slot_scan": [vp, vp, vp, vp, i32, i32, i32, i64, i32, i32, vp],
             "nt_slot_compact": [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i64, i64, i32, i32, vp],
+            "nt_stitch_file": [vp, i64, vp, i32, vp, i32, vp, i64, i32, vp],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)

@@ -12,9 +12,11 @@ dispatched by `tokenize.tokenize_bins`) and the decode tables
 `decode3.prepare_tables_v3`, which builds all ten tables in one launch,
 and `decode3.derive_walk_tables` for arbitrary tables) and the decode
 core's slot assembly (`csrc/slot_assemble_kernels.cu`, the counterpart of
-JAX's in-layout scans `_cumsum_walk` and `_cummax_walk`).  `LAUNCHES`
-also counts the walk (`decode3.walk`) and the row reconstruction
-(`recon.reconstruct_rows`).
+JAX's in-layout scans `_cumsum_walk` and `_cummax_walk`), and the sharded
+encode's stitch (`csrc/stitch_kernels.cu`, which stands for the host numpy
+`stitch_payload` of JAX's `dist/sharded.py`; the plain version is
+`dist.sharded.stitch_file_plain`).  `LAUNCHES` also counts the walk
+(`decode3.walk`) and the row reconstruction (`recon.reconstruct_rows`).
 Each kernel has
   * a wrapper that checks its inputs and, for a CUDA tensor, launches the
     kernel (or raises); for a CPU tensor it runs the plain version, since
@@ -37,6 +39,7 @@ import functools
 import math
 import threading
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -49,7 +52,7 @@ FOLD_CAPW = 10  # words per group record (320 bits), as kCapw in the kernel
 LAUNCHES = {
     "histogram": 0, "table_join": 0, "fold_records": 0,
     "walk": 0, "value_join": 0, "reconstruct_rows": 0, "huffman_tables": 0, "tokenize": 0,
-    "decode_tables": 0, "walk_tables": 0, "slot_assemble": 0,
+    "decode_tables": 0, "walk_tables": 0, "slot_assemble": 0, "stitch": 0,
 }
 _LAUNCHES_LOCK = threading.Lock()  # worker threads launch concurrently; the counts stay exact
 
@@ -529,3 +532,52 @@ def slot_assemble(pos, sym, i12, i34, wbits, *, n_pixels: int):
            *(ptr(t) for t in out), ptr(start), ptr(live), ctypes.c_int(B), ctypes.c_int(nch), ctypes.c_int(steps),
            N, ctypes.c_longlong(K), ctypes.c_int(vec), device=dev)
     return (*out, start, live, scratch[at + B :].view(torch.bool)[:B])
+
+
+# ---------------------------------------------------------------------------
+# stitch (replaces no kernel: JAX's dist/sharded.py stitch_payload is host
+# numpy; the plain version is dist.sharded.stitch_file_plain)
+# ---------------------------------------------------------------------------
+
+STITCH_MAX_SHARDS = 128  # shards a launch takes, as kMaxShards in csrc/stitch_kernels.cu
+STITCH_MAX_HEADER = 1024  # header bytes a launch takes, as kMaxHeader
+
+
+def stitch_file(words: torch.Tensor, bits, header: bytes) -> torch.Tensor:
+    """The `.nice` file of a sharded encode: words (n, k) int32, row d the
+    bit patterns of shard d's payload words; bits (n,) the shards' bit
+    totals (host integers); header the file's header bytes.  Returns one
+    uint8 tensor on the words' device: the header, the shards' bit strings
+    in order (shard d from the sum of the totals before it) cut after the
+    last whole byte, and the trailer [B, B, 0, 0, 0], B the partial last
+    byte or 0.  Equal to `sharded._file_bytes(header, *stitch_payload(...))`
+    where each shard's bits past its total are zero, as the encoder leaves
+    them (the kernel never reads them).
+
+    On a card, one counted launch that allocates nothing; the output is the
+    call's one allocation.  Raises ValueError, before any launch, where a
+    shard's total passes its 32 * k bits."""
+    check(words, "words", 2)
+    n, k = words.shape
+    bits = np.asarray(bits, dtype=np.int64)
+    if bits.shape != (n,) or (bits < 0).any():
+        raise ValueError(f"bits must be ({n},) non-negative totals, got {bits!r}")
+    if int(bits.max()) > 32 * k:
+        raise ValueError("shard payload exceeded its word capacity; re-run with a larger "
+                         "w_cap (pathological bits/pixel)")
+    if words.device.type == "cpu":
+        from nicetpu_torch.dist.sharded import stitch_file_plain
+
+        return stitch_file_plain(words, bits, header)
+    if n > STITCH_MAX_SHARDS or len(header) > STITCH_MAX_HEADER:
+        raise ValueError(f"stitch_file takes at most {STITCH_MAX_SHARDS} shards and {STITCH_MAX_HEADER} "
+                         f"header bytes, got {n} and {len(header)}")
+    off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(bits, out=off[1:])
+    out = torch.empty(len(header) + int(off[-1]) // 8 + 5, dtype=torch.uint8, device=words.device)
+    launch(
+        "stitch", "nt_stitch_file", ptr(words), ctypes.c_longlong(k), off.ctypes.data_as(ctypes.c_void_p),
+        ctypes.c_int(n), ctypes.c_char_p(header), ctypes.c_int(len(header)), ptr(out),
+        ctypes.c_longlong(out.numel()), device=words.device,
+    )
+    return out

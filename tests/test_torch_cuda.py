@@ -24,6 +24,8 @@ from nicetpu_torch.kernels import tokenize as tok
 from _decode_table_rows import INT64_ONLY, LENGTH_ROWS, WALK_ROWS
 from _huffman_rows import _bounds, _deep, _heavy, _random, _sparse, _ties, _zero
 from _slot_rows import CASES as SLOT_CASES, records as slot_records
+from _stitch_rows import CASES as STITCH_CASES, HEADER_LENGTHS, header as stitch_header, random_bits
+from _stitch_rows import shards as stitch_shards
 
 pytestmark = pytest.mark.cuda
 
@@ -690,8 +692,10 @@ def test_roundtrip_and_decode_on_the_card(dev):
     assert datas == [oracle.encode_native(im) for im in imgs]
     assert verified.all()
     assert stats["fallbacks"] == 0 and stats["overflow_fallbacks"] == 0
-    # the walk's tables come with the rest, in one launch a batch
-    assert all(n > 0 for k, n in cuda_ops.LAUNCHES.items() if k != "walk_tables")
+    # the walk's tables come with the rest, in one launch a batch; one card
+    # stitches nothing
+    assert all(n > 0 for k, n in cuda_ops.LAUNCHES.items() if k not in ("walk_tables", "stitch"))
+    assert cuda_ops.LAUNCHES["stitch"] == 0
     assert cuda_ops.LAUNCHES["walk_tables"] == 0
     dstats = {}
     cuda_ops.reset_launches()
@@ -790,12 +794,51 @@ def test_dryrun_multichip_on_the_card(dev, n, backend):
     """The sharded round trip over spawned ranks on the card: gloo ranks
     share it, NCCL runs at world size 1 on a single card."""
     res = launch.dryrun_multichip(n, backend, "cuda", timeout=300)
-    for r in res:
+    for rank, r in enumerate(res):
         unlaunched = {k for k, v in r["launches"].items() if v == 0}
         # a rank whose shard holds runs only has no real slot to join
         # (sharded_decode); the walk's tables come with the decode tables;
-        # the sharded decode assembles its slots with its own carried scans
-        assert unlaunched == {"walk_tables", "slot_assemble"} | (set() if r["real_slots"] else {"value_join"}), r
+        # the sharded decode assembles its slots with its own carried scans;
+        # rank 0 alone stitches the file, once
+        assert unlaunched == ({"walk_tables", "slot_assemble"} | (set() if r["real_slots"] else {"value_join"})
+                              | (set() if rank == 0 else {"stitch"})), r
+        assert r["launches"]["stitch"] == (rank == 0)
+
+
+@pytest.mark.parametrize("hlen", HEADER_LENGTHS)
+@pytest.mark.parametrize("case", list(STITCH_CASES))
+def test_stitch_kernel_matches_plain(dev, case, hlen):
+    bits, k = STITCH_CASES[case]
+    words, head = stitch_shards(bits, k, seed=hlen), stitch_header(hlen, seed=len(case))
+    before = cuda_ops.LAUNCHES["stitch"]
+    got = cuda_ops.stitch_file(words.to(dev), bits, head)
+    assert got.device.type == "cuda" and cuda_ops.LAUNCHES["stitch"] == before + 1
+    assert torch.equal(got.cpu(), cuda_ops.stitch_file(words, bits, head))
+
+
+def test_stitch_kernel_skips_the_bits_past_a_shards_total(dev):
+    bits, k = STITCH_CASES["under-32-between"]
+    dirty = stitch_shards(bits, k, seed=5, garbage=True).to(dev)
+    clean = stitch_shards(bits, k, seed=5)
+    assert torch.equal(cuda_ops.stitch_file(dirty, bits, stitch_header(770)).cpu(),
+                       cuda_ops.stitch_file(clean, bits, stitch_header(770)))
+
+
+def test_stitch_kernel_at_the_four_card_cells_size(dev):
+    """Four shards of about 14.3 M words (a 16384^2 raster's over four
+    ranks), seeded totals near each shard's capacity: the bytes equal the
+    plain version's.  Totals past the words' capacity raise before any
+    launch."""
+    k = 14_300_000
+    bits = random_bits(4, k, seed=11)
+    words = stitch_shards(bits, k, seed=11)
+    want = cuda_ops.stitch_file(words, bits, stitch_header(770))
+    got = cuda_ops.stitch_file(words.to(dev), bits, stitch_header(770))
+    assert got.numel() == 770 + int(bits.sum()) // 8 + 5 and torch.equal(got.cpu(), want)
+    before = cuda_ops.LAUNCHES["stitch"]
+    with pytest.raises(ValueError, match="word capacity"):
+        cuda_ops.stitch_file(words[:, : k - 200].contiguous().to(dev), bits, stitch_header(770))
+    assert cuda_ops.LAUNCHES["stitch"] == before
 
 
 @pytest.mark.parametrize("every_card", [False, True], ids=["one-card", "every-card"])
@@ -813,8 +856,11 @@ def test_shard_group_on_the_card(dev, every_card):
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             marks = [("call_start", ev)]
+            cuda_ops.reset_launches()
             data, verified, out = g.roundtrip(img, stats=stats, keep_decoded=True, marks=marks)
             assert data == oracle.encode_native(img) and verified is True
+            # rank 0 (this process) wrote the file with the stitch kernel, once
+            assert cuda_ops.LAUNCHES["stitch"] == 1 and stats["device_stitches"] == 1
             np.testing.assert_array_equal(out, img)
             assert stats["host_served"] == 0 and len(stats["ranks"]) == n
             assert {"upload", "scatter", "walk", "carry_wait", "verify"} <= {m[0] for m in marks}
@@ -842,10 +888,10 @@ def test_roundtrip_hybrid_on_the_card(dev, gpu_threads, cpu_threads):
         assert [d for d, _ in out] == [oracle.encode_native(im) for im in b]
         assert all(np.array_equal(a, im) for (_, a), im in zip(out, b))
     n = stats["gpu_batches"]
-    per_batch = [k for k in cuda_ops.LAUNCHES if k not in ("walk", "walk_tables")]
+    per_batch = [k for k in cuda_ops.LAUNCHES if k not in ("walk", "walk_tables", "stitch")]
     assert {k: cuda_ops.LAUNCHES[k] for k in per_batch} == {k: n for k in per_batch}
     assert cuda_ops.LAUNCHES["walk"] == 2 * n + stats["retries"]
-    assert cuda_ops.LAUNCHES["walk_tables"] == 0
+    assert cuda_ops.LAUNCHES["walk_tables"] == 0 and cuda_ops.LAUNCHES["stitch"] == 0
 
 
 def test_an_exception_in_a_gpu_worker_fails_the_call(dev, monkeypatch):
@@ -889,8 +935,9 @@ def test_cli_and_corpus_on_the_card(dev, tmp_path, monkeypatch):
     assert cli.main([str(tmp_path / "out.nice"), str(tmp_path / "back.png")]) == 0
     assert np.array_equal(nicetpu_torch.imread(str(tmp_path / "back.png")), img)
     # the CLI encodes through the two-step encode, whose Huffman tables are
-    # built on the host; its decode builds the walk's tables with the rest
-    assert [k for k, n in cuda_ops.LAUNCHES.items() if n == 0] == ["huffman_tables", "walk_tables"]
+    # built on the host; its decode builds the walk's tables with the rest;
+    # one card stitches nothing
+    assert [k for k, n in cuda_ops.LAUNCHES.items() if n == 0] == ["huffman_tables", "walk_tables", "stitch"]
 
     res = corpus.encode_corpus([png, str(tmp_path / "missing.png")], str(tmp_path / "enc"))
     assert (res.encoded, res.failed) == (1, 1)

@@ -49,6 +49,7 @@ def test_roundtrip_bytes_proof_and_pixels(group, name):
     assert verified is True
     np.testing.assert_array_equal(out, img)
     assert (stats["rasters"], stats["fallbacks"], stats["overflow_fallbacks"], stats["host_served"]) == (1, 0, 0, 0)
+    assert stats["device_stitches"] == 0  # the plain version stitches on the CPU
     assert stats["scattered_bytes"] == img.nbytes // n * (n - 1)
     assert len(stats["ranks"]) == n and stats["records_bytes"] > 0
     for r in stats["ranks"]:
