@@ -23,7 +23,9 @@ import numpy as np
 import torch
 
 from nicetpu_torch import pipeline
-from nicetpu_torch.config import BACKENDS, HOST_CODECS, RuntimeConfig
+from nicetpu_torch.config import RuntimeConfig, backend_target
+from nicetpu_torch.config import resolve_device as _resolve_device
+from nicetpu_torch.convert import to_rgb as _to_rgb
 from nicetpu_torch.dist.group import ShardGroup  # noqa: F401  (the api's sharded path)
 from nicetpu_torch.format import headers
 from nicetpu_torch.hostref import oracle
@@ -32,25 +34,6 @@ from nicetpu_torch.spec import codec as spec_codec
 from nicetpu_torch.utils.profiling import span
 
 MAX_BATCH = 8  # images per device batch; bounds device memory per call
-
-
-def _resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' was requested but CUDA is not available")
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
-    return dev
-
-
-def backend_target(backend: str) -> torch.device | str:
-    """Where a backend runs: the torch.device of "cuda" or "cpu", or the
-    name of the host codec that serves it, "native" or "spec".  "cuda"
-    without CUDA raises: no other backend answers in its place."""
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}: use one of {BACKENDS}")
-    return backend if backend in HOST_CODECS else _resolve_device(backend)
 
 
 def target(device, config) -> torch.device | str:
@@ -73,33 +56,6 @@ def _host_decode(codec: str, datas: list[bytes]) -> list[np.ndarray]:
     return [spec_codec.decode(d) for d in datas]
 
 
-def _to_rgb(img: np.ndarray, alpha: str = "drop") -> np.ndarray:
-    """Normalize to (H, W, 3) uint8 (the port's copy of `nicetpu.api._to_rgb`).
-
-    The `.nice` wire format cannot round-trip alpha: the reference encoder
-    accepts RGBA but its decoder reconstructs 3 bytes/pixel unconditionally
-    (ref code.rs:659; SURVEY A.8.3), so reference channels=4 files are
-    undecodable even by the reference itself.  This codec therefore always
-    writes channels=3; `alpha` controls the RGBA policy:
-      "drop"  - discard the alpha plane (the reference encoder's behavior)
-      "error" - refuse RGBA input outright
-    """
-    if img.ndim != 3 or img.dtype != np.uint8:
-        raise ValueError("expected (H, W, C) uint8 image")
-    if img.shape[2] == 4:
-        if alpha == "error":
-            raise ValueError(
-                "RGBA input refused (alpha='error'): .nice cannot round-trip "
-                "alpha (SURVEY A.8.3)"
-            )
-        if alpha != "drop":
-            raise ValueError(f"unknown alpha policy {alpha!r}")
-        img = img[:, :, :3]
-    if img.shape[2] != 3:
-        raise ValueError("expected RGB or RGBA image")
-    return np.ascontiguousarray(img)
-
-
 def _batches(keys: list) -> list[list[int]]:
     """Indices grouped by equal key (input order kept), cut into batches of
     at most MAX_BATCH."""
@@ -113,7 +69,7 @@ def encode(img: np.ndarray, *, device=None, config=None, alpha: str = "drop") ->
     """Encode an (H, W, 3|4) uint8 array to `.nice` bytes.
 
     alpha: the RGBA policy, "drop" (the reference encoder's behaviour) or
-    "error" (RGBA input raises ValueError; see `_to_rgb`)."""
+    "error" (RGBA input raises ValueError; see `convert.to_rgb`)."""
     return encode_batch([_to_rgb(img, alpha)], device=device, config=config)[0]
 
 

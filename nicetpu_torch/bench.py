@@ -83,10 +83,10 @@ def prepare(device) -> torch.device:
     """The bench's device; on the card, the kernels built and loaded and
     the host codec loaded, so that no timed region holds a build.  Raises
     where CUDA is asked for and absent."""
-    from nicetpu_torch.api import _resolve_device
+    from nicetpu_torch.config import resolve_device
     from nicetpu_torch.hostref import oracle
 
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     if dev.type == "cuda":
         from nicetpu_torch.kernels import build
 

@@ -58,8 +58,6 @@ import time
 import torch
 
 from nicetpu_torch.bench import card_line, make_image
-from nicetpu_torch.bench_huffman_ablation import cuda_ms
-from nicetpu_torch.bench_tokenize_host import Timed
 
 SIDE, BATCH = 512, 8
 SIZES = (1, 8, 32)
@@ -97,6 +95,34 @@ VARIANTS = {
          ("const dim3 grid(B);", "const dim3 grid(B, kStreams);")),
         False),
 }
+
+
+class Timed:
+    """A callable that adds each call's host seconds to `self.seconds`."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds = fn, 0.0
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            self.seconds += time.perf_counter() - t0
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean ms a call over `reps` calls after a warm-up, by CUDA events; the
+    stream first spins about 10 ms so that the launches queue ahead."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _build(name: str, source: str, out_dir: str) -> ctypes.CDLL:

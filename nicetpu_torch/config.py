@@ -11,7 +11,9 @@ Backends:
     "native"  the port's host codec (`hostref`, C++ built by g++ at first use)
     "spec"    the port's numpy reference codec (`spec.codec`): needs no
               compiler; a serial Python decoder, for small images
-There is no "auto": no backend answers for another.
+There is no "auto": no backend answers for another.  `backend_target`
+says where a backend runs and `resolve_device` checks a device; the api,
+the schedulers, the CLI, the corpus and the sharded codec all ask them.
 """
 
 from __future__ import annotations
@@ -19,8 +21,30 @@ from __future__ import annotations
 import dataclasses
 import os
 
+import torch
+
 BACKENDS = ("cuda", "cpu", "native", "spec")
 HOST_CODECS = ("native", "spec")  # the backends served by a host codec
+
+
+def resolve_device(device) -> torch.device:
+    """The torch.device of "cuda" or "cpu"; "cuda" without CUDA raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' was requested but CUDA is not available")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
+    return dev
+
+
+def backend_target(backend: str) -> torch.device | str:
+    """Where a backend runs: the torch.device of "cuda" or "cpu", or the
+    name of the host codec that serves it, "native" or "spec".  "cuda"
+    without CUDA raises: no other backend answers in its place."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}: use one of {BACKENDS}")
+    return backend if backend in HOST_CODECS else resolve_device(backend)
 
 
 @dataclasses.dataclass

@@ -8,12 +8,20 @@ under gloo, where tensors are staged through host memory.  Every method
 takes and returns tensors on the caller's device and moves them as needed.
 A `Comm` also holds the rank's pinned staging buffer (`PinnedStaging`),
 through which a file on the card comes to the host as bytes.
+
+`RankCall` is one rank's part of one call of the sharded codec: its `Comm`,
+its device, its stages (spans "dist.<stage>") and its counters.  Every
+per-rank step of `sharded` and `sharded_decode` takes one, whichever entry
+made it: the SPMD entries (`encode_sharded`, `decode_sharded` and the
+`multihost` pair) on every rank, or `ShardGroup` on each of its ranks.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from nicetpu_torch.utils.profiling import StageSpans
 
 
 class PinnedStaging:
@@ -137,3 +145,21 @@ class Comm:
             buf = torch.empty(int(n.item()), dtype=torch.uint8, device=self.device)
         dist.broadcast(buf, self._global(0), group=self.group)
         return data if self.rank == 0 else self.staging.to_bytes(buf)
+
+
+class RankCall:
+    """One rank's part of a call: its `Comm`, device and stages, and the
+    dict its counters add to where the caller asked for stats (None
+    otherwise).  marks: a list that receives (stage, CUDA event) marks."""
+
+    def __init__(self, comm: Comm, device: torch.device, stats: dict | None = None, marks=None) -> None:
+        self.comm, self.device, self.stats = comm, device, stats
+        self.stages = StageSpans("dist", stats, marks)
+
+    @property
+    def root(self) -> bool:
+        return self.comm.rank == 0
+
+    def count(self, key: str, value: int = 1) -> None:
+        if self.stats is not None:
+            self.stats[key] = self.stats.get(key, 0) + value

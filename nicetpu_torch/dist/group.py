@@ -9,16 +9,18 @@ limit on the rendezvous and on every collective.
 
 A call hands the raster to rank 0 only.  Rank 0 uploads it once ("upload")
 and scatters its row blocks over the group's collectives ("scatter",
-`Comm.scatter_root`);
-no rank receives a copy of the whole raster.  The round trip then runs the
-sharded encode (`sharded.encode_block`: halo, first changes, summed
-histogram, device tables, pack), the ordered gather to rank 0 and the
-stitch there (`sharded.gather_stitch`: one kernel writes the file on card
-0, counted in "device_stitches"), the broadcast of that file tensor,
-the sharded decode (`sharded_decode.decode_block` at the robust rung
-`decode3.LADDER[-1]`: walk, assembly, records all-gather, carry pipeline),
-and each rank's comparison of its decoded block
-with its own input block on its device; one all-reduce makes `verified`.
+`Comm.scatter_root`); no rank receives a copy of the whole raster.  The
+round trip then runs the per-rank steps that the SPMD entries run too:
+the sharded encode (`sharded.encode_rank`: halo, first changes, summed
+histogram, device tables, pack, the ordered gather to rank 0 and the
+stitch there, one kernel writing the file on card 0, counted in
+"device_stitches"), the broadcast of that file tensor
+(`sharded.share_bytes`), the sharded decode (`sharded_decode.decode_rank`
+at the robust rung `decode3.LADDER[-1]`: walk, assembly, records
+all-gather, carry pipeline), and each rank's comparison of its decoded
+block with its own input block on its device; one all-reduce makes
+`verified`.  This module keeps the processes, the round trip's
+composition and the merge of the ranks' counters.
 
 Host routes, each counted in stats: an overflow on any rank sends the
 raster to `hostref.encode_native` ("overflow_fallbacks"); failed gates, a
@@ -54,8 +56,14 @@ from multiprocessing.connection import wait
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from nicetpu_torch.convert import to_rgb
+from nicetpu_torch.dist.comm import RankCall
 from nicetpu_torch.dist.launch import free_port
+from nicetpu_torch.dist.multihost import initialize_distributed
+from nicetpu_torch.dist.sharded import encode_rank, share_bytes, splits
+from nicetpu_torch.dist.sharded_decode import decode_raster, decode_rank, gather_raster
 from nicetpu_torch.format import headers
 from nicetpu_torch.hostref import oracle
 from nicetpu_torch.kernels import decode3
@@ -68,30 +76,6 @@ COUNTERS = ("rasters", "fallbacks", "overflow_fallbacks", "host_served", "scatte
             "records_bytes", "device_stitches")
 CFG = decode3.LADDER[-1]  # the sharded decode's walk: the robust rung
 WHOLE_ON_HOST = {"rasters": 1, "fallbacks": 1, "host_served": 1}  # a raster that does not split
-
-
-class RankCall:
-    """One rank's part of a call: its `Comm`, device, stages and, where the
-    caller asked for stats, a fresh dict of its counters."""
-
-    def __init__(self, comm, device: torch.device, stats: dict | None, marks) -> None:
-        self.comm, self.device, self.stats = comm, device, stats
-        self.stages = profiling.StageSpans("dist", stats, marks)
-
-    @property
-    def root(self) -> bool:
-        return self.comm.rank == 0
-
-    def count(self, key: str, value: int = 1) -> None:
-        if self.stats is not None:
-            self.stats[key] = self.stats.get(key, 0) + value
-
-    def host_route(self, key: str) -> None:
-        """This call's raster took a host route: `key` counted, and
-        "host_served" once a call."""
-        self.count(key)
-        if self.stats is not None:
-            self.stats["host_served"] = 1
 
 
 def _stage_ms(marks) -> dict:
@@ -118,6 +102,7 @@ def _serve(fn, comm, device: torch.device, args: tuple, opts: dict, marks=None):
     if call.stats is None:
         return result, None
     counters = {k: v for k, v in call.stats.items() if k not in ("stages", "gates")}
+    counters["host_served"] = int(bool(counters.get("fallbacks") or counters.get("overflow_fallbacks")))
     counters["stage_ms"] = (_stage_ms(marks) if marks
                             else {k: 1e3 * v for k, v in call.stats.get("stages", {}).items()})
     counters["peak_device_bytes"] = (torch.cuda.max_memory_allocated(device)
@@ -151,13 +136,7 @@ def _helper_main(rank: int, n: int, port: int, device: str, conn, parent: int,
     collective with it see its connections close."""
     threading.Thread(target=_watch_parent, args=(parent,), daemon=True).start()
     try:
-        import torch.distributed as dist
-
-        from nicetpu_torch.dist.multihost import initialize_distributed
-
         dev = _rank_device(device, rank)
-        if dev.type == "cuda":
-            torch.cuda.set_device(dev)
         conn.send(("up", None))
         comm = initialize_distributed(backend=_backend(device), init_method=f"tcp://127.0.0.1:{port}",
                                       world_size=n, rank=rank, device=dev.index, timeout=timeout)
@@ -234,8 +213,6 @@ def _shutdown(state: _State) -> None:
     if state.staging is not None:
         state.staging.release()
     if state.joined:
-        import torch.distributed as dist
-
         state.joined = False
         if dist.is_initialized() and (clean or state.backend != "nccl"):
             with contextlib.suppress(Exception):
@@ -243,12 +220,13 @@ def _shutdown(state: _State) -> None:
 
 
 class _Replies:
-    """Reads the helpers' replies to one call in a thread of its own, so
-    that a helper's error, death or a call past its deadline closes the
-    group (and so ends rank 0's waits) while rank 0 computes."""
+    """Reads every helper's reply `kind` ("up" and "ready" in the set-up,
+    "done" to a call) in a thread of its own, so that a helper's error,
+    death or a reply past the deadline closes the group (and so ends rank
+    0's waits) while rank 0 computes."""
 
-    def __init__(self, state: _State, timeout: float) -> None:
-        self.state, self.deadline = state, time.monotonic() + timeout
+    def __init__(self, state: _State, timeout: float, kind: str = "done") -> None:
+        self.state, self.kind, self.deadline = state, kind, time.monotonic() + timeout
         self.counters: dict = {}
         self.failure: str | None = None
         self.thread = threading.Thread(target=self._run, daemon=True)
@@ -260,8 +238,7 @@ class _Replies:
         while pending and self.failure is None:
             left = self.deadline - time.monotonic()
             if left <= 0:
-                self._fail(f"the call did not finish within its time limit (ranks "
-                           f"{sorted(pending.values())} had not replied)")
+                self._fail(f"no {self.kind!r} within the time limit from ranks {sorted(pending.values())}")
                 break
             alive = {st.procs[r - 1].sentinel: conn for conn, r in pending.items()}
             ready = wait(list(pending) + list(alive), timeout=min(left, 1.0))
@@ -271,7 +248,7 @@ class _Replies:
                     kind, val = conn.recv()
                 except (EOFError, OSError):
                     kind, val = "error", "it exited without a reply"
-                if kind != "done":
+                if kind != self.kind:
                     self._fail(f"rank {rank} failed:\n{val}")
                     break
                 self.counters[rank] = val
@@ -298,10 +275,6 @@ class ShardGroup:
     belong to a `torch.distributed` group."""
 
     def __init__(self, n: int = 4, *, device: str = "cuda", timeout: float = DEFAULT_TIMEOUT) -> None:
-        import torch.distributed as dist
-
-        from nicetpu_torch.dist.multihost import initialize_distributed
-
         if device not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
         if device == "cuda":
@@ -346,22 +319,9 @@ class ShardGroup:
     def _await(self, kind: str) -> None:
         """Wait for `kind` from every helper; raise on an error, a death or
         the time limit."""
-        st = self._state
-        pending = dict(zip(st.conns, range(1, self.n)))
-        deadline = time.monotonic() + self.timeout
-        while pending:
-            left = deadline - time.monotonic()
-            if left <= 0:
-                raise TimeoutError(f"ranks {sorted(pending.values())} did not send {kind!r} "
-                                   f"within {self.timeout:.0f} s")
-            for conn in wait(list(pending), timeout=min(left, 1.0)):
-                try:
-                    got, val = conn.recv()
-                except (EOFError, OSError):
-                    got, val = "error", "it exited"
-                if got != kind:
-                    raise RuntimeError(f"rank {pending[conn]} failed to start:\n{val}")
-                del pending[conn]
+        failure = _Replies(self._state, self.timeout, kind).join()
+        if failure is not None:
+            raise RuntimeError(failure)
 
     def close(self) -> None:
         """Stop the helpers and leave the process group (idempotent)."""
@@ -413,10 +373,7 @@ class ShardGroup:
     def encode(self, img: np.ndarray, *, stats: dict | None = None, marks=None) -> bytes:
         """The `.nice` bytes of an (H, W, 3|4) uint8 raster, equal to
         `hostref.encode_native`'s."""
-        from nicetpu_torch.api import _to_rgb
-        from nicetpu_torch.dist.sharded import splits
-
-        img = _to_rgb(img)
+        img = to_rgb(img)
         H, W, _ = img.shape
         if not splits(H, W, self.n):
             _add(stats, WHOLE_ON_HOST)
@@ -425,8 +382,6 @@ class ShardGroup:
 
     def decode(self, data: bytes, *, stats: dict | None = None, marks=None) -> np.ndarray:
         """The (H, W, 3) uint8 raster of `.nice` bytes."""
-        from nicetpu_torch.dist.sharded import splits
-
         W, H, channels = headers.parse_file_header(data)
         if channels != 3:
             raise ValueError("only channels=3 decode is defined (SURVEY A.8.3)")
@@ -454,10 +409,7 @@ class ShardGroup:
         while spans record, "span_ms".  marks: a list receives rank 0's
         (stage, CUDA event) marks, and every rank times its stages by
         events."""
-        from nicetpu_torch.api import _to_rgb
-        from nicetpu_torch.dist.sharded import splits
-
-        img = _to_rgb(img)
+        img = to_rgb(img)
         H, W, _ = img.shape
         if not splits(H, W, self.n):
             data = oracle.encode_native(img)
@@ -509,66 +461,14 @@ def _scatter(call: RankCall, img, height: int, width: int) -> torch.Tensor:
     return x
 
 
-def _encode(call: RankCall, x: torch.Tensor, img, height: int,
-            width: int) -> tuple[bytes | None, torch.Tensor | None]:
-    """The stitched bytes on rank 0 (None elsewhere) and the file tensor
-    the stitch wrote (a file the kernel wrote on a card counts in
-    "device_stitches"); the host encoder's bytes and no tensor where any
-    rank overflowed."""
-    from nicetpu_torch.dist.sharded import encode_block, gather_stitch
-
-    shard = encode_block(x, call.comm, width=width, stages=call.stages)
-    if shard is not None:
-        data, file = gather_stitch(shard, call.comm, height=height, width=width, stages=call.stages)
-        if file is not None and file.is_cuda:
-            call.count("device_stitches")
-        return data, file
-    call.host_route("overflow_fallbacks")
-    return (oracle.encode_native(img) if call.root else None), None
-
-
-def _share(call: RankCall, data: bytes | None, file: torch.Tensor | None = None) -> bytes:
-    """Rank 0's bytes on every rank: its file tensor sent where the stitch
-    left one, else its bytes."""
-    with call.stages.stage("bytes_broadcast"):
-        return call.comm.broadcast_bytes(data, file)
-
-
-def _decode(call: RankCall, data: bytes) -> torch.Tensor | None:
-    """This rank's decoded (3, n_local) block, or None on every rank where
-    the host decodes instead (on rank 0, counted)."""
-    from nicetpu_torch.dist.sharded_decode import decode_block, shardable
-
-    block = None
-    if shardable(data, call.comm.size, CFG):
-        block = decode_block(data, call.comm, call.device, CFG, call.stages, call.stats)
-    if block is None:
-        call.host_route("fallbacks")
-    return block
-
-
-def _gather_raster(call: RankCall, block: torch.Tensor, height: int, width: int) -> np.ndarray | None:
-    """The decoded blocks gathered to rank 0 as an (H, W, 3) host raster."""
-    with call.stages.stage("gather_decoded"):
-        blocks = call.comm.gather_root(block)
-        if blocks is None:
-            return None
-        return blocks.permute(1, 0, 2).reshape(3, height, width).permute(1, 2, 0).cpu().numpy()
-
-
 def _encode_rank(call: RankCall, img, height: int, width: int) -> bytes | None:
     call.count("rasters")
-    return _encode(call, _scatter(call, img, height, width), img, height, width)[0]
+    return encode_rank(call, _scatter(call, img, height, width), img, height, width)[0]
 
 
 def _decode_rank(call: RankCall, data: bytes | None) -> np.ndarray | None:
     call.count("rasters")
-    data = _share(call, data)
-    block = _decode(call, data)
-    if block is None:
-        return oracle.decode_native(data) if call.root else None
-    W, H, _ = headers.parse_file_header(data)
-    return _gather_raster(call, block, H, W)
+    return decode_raster(call, share_bytes(call, data), CFG, everywhere=False)
 
 
 def _roundtrip_rank(call: RankCall, img, height: int, width: int, keep: bool):
@@ -576,10 +476,10 @@ def _roundtrip_rank(call: RankCall, img, height: int, width: int, keep: bool):
     None) on rank 0, None elsewhere."""
     call.count("rasters")
     x = _scatter(call, img, height, width)
-    data, file = _encode(call, x, img, height, width)
-    data = _share(call, data, file)
+    data, file = encode_rank(call, x, img, height, width)
+    data = share_bytes(call, data, file)
     del file  # card 0 holds no copy of the file through the decode
-    block = _decode(call, data)
+    block = decode_rank(call, data, CFG)
     if block is None:
         if not call.root:
             return None
@@ -589,5 +489,5 @@ def _roundtrip_rank(call: RankCall, img, height: int, width: int, keep: bool):
         wrong = (block != x.T).any().to(torch.int64).reshape(1)
         verified = int(call.comm.psum(wrong)[0]) == 0
     del x
-    out = _gather_raster(call, block, height, width) if keep else None
+    out = gather_raster(call, block, height, width) if keep else None
     return (data, verified, out) if call.root else None

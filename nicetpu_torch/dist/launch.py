@@ -26,6 +26,15 @@ import time
 import traceback
 
 import numpy as np
+import torch
+import torch.distributed as dist
+
+from nicetpu_torch.config import resolve_device
+from nicetpu_torch.dist.multihost import initialize_distributed
+from nicetpu_torch.dist.sharded import encode_sharded
+from nicetpu_torch.dist.sharded_decode import decode_sharded
+from nicetpu_torch.hostref import oracle
+from nicetpu_torch.kernels import cuda_ops
 
 DEFAULT_TIMEOUT = 300.0
 
@@ -38,21 +47,11 @@ def free_port() -> int:
 
 def _rank_main(rank: int, n: int, port: int, backend: str, device: str, fn, args, out) -> None:
     try:
-        import torch
-
-        from nicetpu_torch.dist.multihost import initialize_distributed
-
-        cuda = device == "cuda"
-        if cuda:
-            if not torch.cuda.is_available():
-                raise RuntimeError("device='cuda' was requested but CUDA is not available")
+        if resolve_device(device).type == "cuda":
             torch.cuda.set_device(rank % torch.cuda.device_count())
         comm = initialize_distributed(backend=backend, init_method=f"tcp://127.0.0.1:{port}",
-                                      world_size=n, rank=rank,
-                                      device=torch.cuda.current_device() if cuda else None)
+                                      world_size=n, rank=rank)
         result = fn(comm, *args)
-        import torch.distributed as dist
-
         dist.barrier()
         dist.destroy_process_group()
         out.put((rank, True, result))
@@ -72,8 +71,6 @@ def run(fn, n: int, *, backend: str = "nccl", device: str = "cuda", args: tuple 
     if device not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
     if backend == "nccl":
-        import torch
-
         if device != "cuda" or not torch.cuda.is_available():
             raise RuntimeError("backend 'nccl' needs device='cuda' and CUDA")
         if n > torch.cuda.device_count():
@@ -125,11 +122,6 @@ def dryrun_image(n: int) -> np.ndarray:
 
 
 def _dryrun_rank(comm, device: str) -> dict:
-    from nicetpu_torch.dist.sharded import encode_sharded
-    from nicetpu_torch.dist.sharded_decode import decode_sharded
-    from nicetpu_torch.hostref import oracle
-    from nicetpu_torch.kernels import cuda_ops
-
     img = dryrun_image(comm.size)
     cuda_ops.reset_launches()
     estats: dict = {}

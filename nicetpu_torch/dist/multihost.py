@@ -20,10 +20,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from nicetpu_torch.api import _resolve_device
-from nicetpu_torch.dist.comm import Comm
-from nicetpu_torch.dist.sharded import encode_across
-from nicetpu_torch.dist.sharded_decode import decode_across
+from nicetpu_torch.config import resolve_device
+from nicetpu_torch.dist.comm import Comm, RankCall
+from nicetpu_torch.dist.sharded import encode_raster
+from nicetpu_torch.dist.sharded_decode import decode_raster
 
 BACKENDS = ("nccl", "gloo")
 
@@ -52,7 +52,7 @@ def encode_multihost(img: np.ndarray, *, device="cuda", group=None,
                      stats: dict | None = None) -> bytes | None:
     """Encode a raster across all ranks; every rank passes the same raster.
     Returns the `.nice` bytes on rank 0 and None elsewhere."""
-    return encode_across(img, Comm(group), _resolve_device(device), everywhere=False, stats=stats)
+    return encode_raster(RankCall(Comm(group), resolve_device(device), stats), img, everywhere=False)
 
 
 def decode_multihost(data: bytes, *, device="cuda", group=None, cfg=None,
@@ -60,5 +60,4 @@ def decode_multihost(data: bytes, *, device="cuda", group=None, cfg=None,
     """Decode a `.nice` raster across all ranks; every rank passes the same
     bytes.  Returns the (H, W, 3) uint8 raster on rank 0 and None
     elsewhere."""
-    return decode_across(data, Comm(group), _resolve_device(device), everywhere=False, cfg=cfg,
-                         stats=stats)
+    return decode_raster(RankCall(Comm(group), resolve_device(device), stats), data, cfg, everywhere=False)

@@ -24,12 +24,17 @@ the header, the shards' bit strings at their global bit offsets, the
 trailer.  The file leaves the card once, as rank 0's bytes, and the bytes'
 broadcast sends that tensor.  On the CPU the plain version
 (`stitch_file_plain`: `stitch_payload`, then the file around it) serves.
-`encode_block` is the device half from a rank's block already on its
-device (as `ShardGroup` scatters it), `gather_stitch` the ordered gather
-and the stitch.  Each stage is a span
-"dist.<stage>" (`profiling.StageSpans`: upload, halo, first_changes,
-tokenize, histogram_psum, tables, pack, gather_words, stitch,
-bytes_broadcast), timed without a device sync.
+
+One rank's part is `encode_rank`, from its row block on its device to rank
+0's bytes: `encode_block` (the device half) then `gather_stitch` (the
+ordered gather and the stitch), or the counted host route.  Its rows come
+from one of two sources: each rank's own upload where every rank holds
+the raster (`encode_raster`, under the SPMD entries `encode_sharded` and
+`multihost.encode_multihost`), or rank 0's upload and scatter
+(`ShardGroup`).  `share_bytes` gives rank 0's bytes to every rank.  Each
+stage is a span "dist.<stage>" (`profiling.StageSpans`: upload, halo,
+first_changes, tokenize, histogram_psum, tables, pack, gather_words,
+stitch, bytes_broadcast), timed without a device sync.
 
 Divergences from the JAX package, on purpose: the word capacity a shard
 (2 * n_local + 64, JAX's) is not asserted; totals are int64; and any
@@ -43,8 +48,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nicetpu_torch.api import _resolve_device
-from nicetpu_torch.dist.comm import Comm
+from nicetpu_torch.config import resolve_device
+from nicetpu_torch.dist.comm import Comm, RankCall
 from nicetpu_torch.format import constants as C
 from nicetpu_torch.format import headers
 from nicetpu_torch.hostref import oracle
@@ -52,7 +57,6 @@ from nicetpu_torch.kernels import cuda_ops
 from nicetpu_torch.kernels.encode2 import _fold_place_grouped_batched, total_bits_overflow
 from nicetpu_torch.kernels.huffman_dev import build_tables_device
 from nicetpu_torch.kernels.tokenize import first_change, halo_pixels, tokenize_bins
-from nicetpu_torch.utils.profiling import StageSpans
 
 
 def stitch_payload(shard_words: np.ndarray, shard_bits: np.ndarray, n_dev: int) -> tuple[bytes, int]:
@@ -101,9 +105,11 @@ def rows_per_rank(height: int, width: int, n: int) -> int:
     return height // n
 
 
-def _tokenize_block(x, comm: Comm, *, width: int, n_local: int, stages: StageSpans):
+def _tokenize_block(call: RankCall, x, *, width: int):
     """x (n_local, 3) uint8, this rank's rows -> flat bins (1, n_local * S)
     with 858 holes, and the run-digit overflow flag (1,)."""
+    comm, stages = call.comm, call.stages
+    n_local = x.shape[0]
     N = comm.size * n_local
     halo = halo_pixels(width)
     with stages.stage("halo"):
@@ -120,15 +126,16 @@ def _tokenize_block(x, comm: Comm, *, width: int, n_local: int, stages: StageSpa
                              invalid_bin=C.TOTAL_SYMBOLS, tail=firsts[comm.rank + 1 :], **kw)
 
 
-def encode_block(x: torch.Tensor, comm: Comm, *, width: int, stages: StageSpans):
+def encode_block(call: RankCall, x: torch.Tensor, *, width: int):
     """The device half on one rank, from its row block x (n_local, 3) uint8
     on its device: tokenize, count, tables, pack.
 
     Returns (words (k_max,) int32 bit patterns of this shard's payload, the
     shard bit totals (n,) int64 numpy, the flat code lengths (858,) numpy),
     or None on every rank where any rank overflowed."""
+    comm, stages = call.comm, call.stages
     n_local = x.shape[0]
-    bins, run_ovf = _tokenize_block(x, comm, width=width, n_local=n_local, stages=stages)
+    bins, run_ovf = _tokenize_block(call, x, width=width)
     with stages.stage("histogram_psum"):
         counts = comm.psum(cuda_ops.histogram(bins).to(torch.int64))
     with stages.stage("tables"):
@@ -154,18 +161,8 @@ def encode_block(x: torch.Tensor, comm: Comm, *, width: int, stages: StageSpans)
     return words[0, :k_max].contiguous(), bits, lengths[0].cpu().numpy()
 
 
-def encode_shards(img: np.ndarray, comm: Comm, device: torch.device, stages: StageSpans):
-    """`encode_block` on this rank's rows of a full host raster."""
-    H, W, _ = img.shape
-    rows = rows_per_rank(H, W, comm.size)
-    with stages.stage("upload"):
-        block = np.ascontiguousarray(img[comm.rank * rows : (comm.rank + 1) * rows]).reshape(rows * W, 3)
-        x = torch.from_numpy(block).to(device)
-    return encode_block(x, comm, width=W, stages=stages)
-
-
-def gather_stitch(shard, comm: Comm, *, height: int, width: int,
-                  stages: StageSpans) -> tuple[bytes | None, torch.Tensor | None]:
+def gather_stitch(call: RankCall, shard, *, height: int,
+                  width: int) -> tuple[bytes | None, torch.Tensor | None]:
     """The ordered gather of `encode_block`'s result to rank 0, bounded by
     k_max words a shard, and the stitch there (`cuda_ops.stitch_file`).
     Returns, on rank 0, the `.nice` bytes (one copy of the file to the
@@ -173,14 +170,55 @@ def gather_stitch(shard, comm: Comm, *, height: int, width: int,
     tensor on the words' device (the kernel's output on a card); (None,
     None) elsewhere.  The gathered words are freed before the copy."""
     words, bits, lengths = shard
-    with stages.stage("gather_words"):
-        shards = comm.gather_root(words)
-    with stages.stage("stitch"):
+    with call.stages.stage("gather_words"):
+        shards = call.comm.gather_root(words)
+    with call.stages.stage("stitch"):
         if shards is None:
             return None, None
         file = cuda_ops.stitch_file(shards, bits, file_header(width, height, lengths))
         del shards
-        return comm.staging.to_bytes(file), file
+        return call.comm.staging.to_bytes(file), file
+
+
+def encode_rank(call: RankCall, x: torch.Tensor, img: np.ndarray | None, height: int,
+                width: int) -> tuple[bytes | None, torch.Tensor | None]:
+    """One raster's encode on one rank, from its row block x on its device:
+    rank 0's stitched bytes (None elsewhere) and the file tensor the stitch
+    wrote, a file the kernel wrote on a card counted in "device_stitches".
+    Where any rank overflowed, rank 0 encodes its raster `img` (None on the
+    other ranks) with the host encoder and no tensor comes back; the route
+    is counted in "overflow_fallbacks", present at 0 otherwise."""
+    shard = encode_block(call, x, width=width)
+    call.count("overflow_fallbacks", int(shard is None))
+    if shard is None:
+        return (oracle.encode_native(img) if call.root else None), None
+    data, file = gather_stitch(call, shard, height=height, width=width)
+    if file is not None and file.is_cuda:
+        call.count("device_stitches")
+    return data, file
+
+
+def share_bytes(call: RankCall, data: bytes | None, file: torch.Tensor | None = None) -> bytes:
+    """Rank 0's bytes on every rank: its file tensor sent where the stitch
+    left one, else its bytes."""
+    with call.stages.stage("bytes_broadcast"):
+        return call.comm.broadcast_bytes(data, file)
+
+
+def encode_raster(call: RankCall, img: np.ndarray, *, everywhere: bool) -> bytes | None:
+    """Encode one raster that every rank holds across the ranks, each rank
+    uploading its own rows: the bytes on every rank (everywhere=True) or on
+    rank 0 only (None elsewhere).  Raises where the height does not split
+    over the ranks (`rows_per_rank`)."""
+    if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
+        raise ValueError("expected (H, W, 3) uint8 image")
+    H, W, _ = img.shape
+    rows = rows_per_rank(H, W, call.comm.size)
+    with call.stages.stage("upload"):
+        block = np.ascontiguousarray(img[call.comm.rank * rows : (call.comm.rank + 1) * rows])
+        x = torch.from_numpy(block.reshape(rows * W, 3)).to(call.device)
+    data, file = encode_rank(call, x, img, H, W)
+    return share_bytes(call, data, file) if everywhere else data
 
 
 def file_header(width: int, height: int, lengths: np.ndarray) -> bytes:
@@ -204,30 +242,6 @@ def stitch_file_plain(words: torch.Tensor, bits: np.ndarray, header: bytes) -> t
     return torch.frombuffer(bytearray(_file_bytes(header, payload, total_bits)), dtype=torch.uint8)
 
 
-def encode_across(img: np.ndarray, comm: Comm, device: torch.device, *, everywhere: bool,
-                  stats=None) -> bytes | None:
-    """Encode one raster across the ranks of `comm`; every rank passes the
-    same full raster.  The shards' words go to rank 0, whose device stitches
-    them; with everywhere=True every rank returns the bytes, else rank 0
-    only (None elsewhere)."""
-    if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
-        raise ValueError("expected (H, W, 3) uint8 image")
-    H, W, _ = img.shape
-    if stats is not None:
-        stats.setdefault("overflow_fallbacks", 0)
-    stages = StageSpans("dist", stats)
-    shard = encode_shards(img, comm, device, stages)
-    if shard is None:
-        if stats is not None:
-            stats["overflow_fallbacks"] += 1
-        return oracle.encode_native(img) if everywhere or comm.rank == 0 else None
-    data, file = gather_stitch(shard, comm, height=H, width=W, stages=stages)
-    if everywhere:
-        with stages.stage("bytes_broadcast"):
-            data = comm.broadcast_bytes(data, file)
-    return data
-
-
 def encode_sharded(img: np.ndarray, *, device="cuda", group=None, stats: dict | None = None) -> bytes:
     """Encode an (H, W, 3) uint8 raster across the ranks of `group` (the
     default group if None): call it on every rank with the same raster.
@@ -235,7 +249,8 @@ def encode_sharded(img: np.ndarray, *, device="cuda", group=None, stats: dict | 
 
     device: "cuda" (the rank's current CUDA device; raises without CUDA) or
     "cpu" (the kernels' plain versions).  stats: optional dict; receives
-    "overflow_fallbacks" (1 when the raster went to the host encoder) and
-    "stages" (this rank's host seconds per stage, the spans "dist.<stage>";
-    nothing waits for the device)."""
-    return encode_across(img, Comm(group), _resolve_device(device), everywhere=True, stats=stats)
+    "overflow_fallbacks" (1 when the raster went to the host encoder),
+    "device_stitches" (1 on rank 0 when the stitch kernel wrote the file on
+    its card) and "stages" (this rank's host seconds per stage, the spans
+    "dist.<stage>"; nothing waits for the device)."""
+    return encode_raster(RankCall(Comm(group), resolve_device(device), stats), img, everywhere=True)

@@ -18,16 +18,18 @@ Counterpart of `nicetpu/dist/sharded_decode.py`, in two shardings:
   rows above its block from rank d - 1, runs the reconstruction kernel once
   with that carry (`prev4`), and sends its own last four rows on.  (JAX's
   masked loop computes every block on every device; the result is the
-  same.)  The blocks are then gathered: on every rank (`decode_sharded`),
-  or on rank 0 only (`multihost.decode_multihost`).
+  same.)  The blocks are then gathered (`gather_raster`): on every rank
+  (`decode_sharded`), or on rank 0 only (`multihost.decode_multihost` and
+  `ShardGroup`).
 
 * **Batch** (`decode_batch_sharded`): each rank decodes its share of a
   same-shape batch with `decode3.decode_batch_v3` and its ladder; the
   arrays are gathered in order.  No collectives run inside the decode.
 
-`decode_block` is one rank's part; its stages are spans "dist.<stage>"
-(`profiling.StageSpans`: decode_tables, walk, assembly, records_all_gather,
-place, carry_wait, recon, then gather_blocks in `decode_across`), timed
+One rank's part is `decode_rank`: `shardable`, then `decode_block` (the
+device half), or the counted host route.  Its stages are spans
+"dist.<stage>" (`profiling.StageSpans`: decode_tables, walk, assembly,
+records_all_gather, place, carry_wait, recon, then gather_decoded), timed
 without a device sync.
 
 Nothing falls back quietly: a raster whose gates fail, or whose geometry
@@ -45,15 +47,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nicetpu_torch.api import _resolve_device
-from nicetpu_torch.dist.comm import Comm
+from nicetpu_torch.config import resolve_device
+from nicetpu_torch.dist.comm import Comm, RankCall
 from nicetpu_torch.dist.sharded import splits
 from nicetpu_torch.format import constants as C
 from nicetpu_torch.format import headers
 from nicetpu_torch.format.huffman import validate_flat_lengths
 from nicetpu_torch.hostref import oracle
 from nicetpu_torch.kernels import cuda_ops, decode3, recon
-from nicetpu_torch.utils.profiling import StageSpans
 
 SHARD_ALIGN = 8  # chunks a rank rounds up to: the JAX walk's block on its jnp path
 
@@ -145,15 +146,16 @@ def shardable(data: bytes, n: int, cfg: decode3.WalkCfg) -> bool:
     return splits(H, W, n) and nlc * cfg.chunk_bits <= decode3.MAX_DEVICE_BITS
 
 
-def decode_block(data: bytes, comm: Comm, device: torch.device, cfg, stages: StageSpans, stats=None):
+def decode_block(call: RankCall, data: bytes, cfg: decode3.WalkCfg):
     """This rank's (3, n_local) uint8 row block, or None on every rank where
     the gates failed.  Global quantities (positions, digit and coverage
     counts) are int64; each slot-space temporary is dropped once the next
     step has consumed it, and only the real pixels' slots reach the value
     join and the records, so that a 16384x16384 raster's shards fit four
-    ranks on one card.  stats, where given, receives "gates", "real_slots"
-    and accumulates "records_bytes" (the bytes of the records all-gather
-    that this rank receives)."""
+    ranks on one card.  The call's stats, where given, receive "gates",
+    "real_slots" and accumulate "records_bytes" (the bytes of the records
+    all-gather that this rank receives)."""
+    comm, device, stages, stats = call.comm, call.device, call.stages, call.stats
     W, H, _ = headers.parse_file_header(data)
     n, rank = comm.size, comm.rank
     N = H * W
@@ -251,8 +253,7 @@ def decode_block(data: bytes, comm: Comm, device: torch.device, cfg, stages: Sta
         del rec, dst
         allrec = comm.all_gather(mine)
         del mine
-        if stats is not None:
-            stats["records_bytes"] = stats.get("records_bytes", 0) + allrec.numel() * allrec.element_size()
+        call.count("records_bytes", allrec.numel() * allrec.element_size())
     with stages.stage("place"):
         # each rank's records lie in pixel order (padding N last): this rank's
         # rows are one run of each
@@ -275,29 +276,39 @@ def decode_block(data: bytes, comm: Comm, device: torch.device, cfg, stages: Sta
     return out[0].to(torch.uint8)
 
 
-def decode_across(data: bytes, comm: Comm, device: torch.device, *, everywhere: bool,
-                  cfg: decode3.WalkCfg | None = None, stats=None) -> np.ndarray | None:
-    """Decode one `.nice` raster across the ranks of `comm`; every rank
-    passes the same bytes.  Returns the (H, W, 3) uint8 raster on every rank
-    (everywhere=True) or on rank 0 only (None elsewhere)."""
+def decode_rank(call: RankCall, data: bytes, cfg: decode3.WalkCfg) -> torch.Tensor | None:
+    """This rank's decoded (3, n_local) block of `data`, or None on every
+    rank where the host decodes the raster instead: it does not split over
+    the ranks, a shard is longer than the walk holds, or the gates failed.
+    That route is counted in "fallbacks", present at 0 otherwise."""
+    block = decode_block(call, data, cfg) if shardable(data, call.comm.size, cfg) else None
+    call.count("fallbacks", int(block is None))
+    return block
+
+
+def gather_raster(call: RankCall, block: torch.Tensor, height: int, width: int, *,
+                  everywhere: bool = False) -> np.ndarray | None:
+    """The decoded blocks as an (H, W, 3) host raster: on every rank
+    (everywhere=True, an all-gather) or on rank 0 only (None elsewhere)."""
+    with call.stages.stage("gather_decoded"):
+        blocks = call.comm.all_gather(block) if everywhere else call.comm.gather_root(block)
+        if blocks is None:
+            return None
+        return blocks.permute(1, 0, 2).reshape(3, height, width).permute(1, 2, 0).cpu().numpy()
+
+
+def decode_raster(call: RankCall, data: bytes, cfg: decode3.WalkCfg | None = None, *,
+                  everywhere: bool) -> np.ndarray | None:
+    """Decode one `.nice` raster that every rank holds across the ranks:
+    the (H, W, 3) uint8 raster on every rank (everywhere=True) or on rank 0
+    only (None elsewhere).  cfg defaults to the robust rung."""
     W, H, channels = headers.parse_file_header(data)
     if channels != 3:
         raise ValueError("only channels=3 decode is defined (SURVEY A.8.3)")
-    if stats is not None:
-        stats.setdefault("fallbacks", 0)
-    cfg = cfg or decode3.LADDER[-1]
-    stages = StageSpans("dist", stats)
-    block = decode_block(data, comm, device, cfg, stages, stats) if shardable(data, comm.size, cfg) else None
+    block = decode_rank(call, data, cfg or decode3.LADDER[-1])
     if block is None:
-        if stats is not None:
-            stats["fallbacks"] += 1
-        return oracle.decode_native(data) if everywhere or comm.rank == 0 else None
-    with stages.stage("gather_blocks"):
-        blocks = comm.all_gather(block) if everywhere else comm.gather_root(block)
-        if blocks is None:
-            return None
-        planar = blocks.permute(1, 0, 2).reshape(3, H, W)
-        return planar.permute(1, 2, 0).cpu().numpy()
+        return oracle.decode_native(data) if everywhere or call.root else None
+    return gather_raster(call, block, H, W, everywhere=everywhere)
 
 
 def decode_sharded(data: bytes, *, device="cuda", group=None, cfg: decode3.WalkCfg | None = None,
@@ -315,8 +326,7 @@ def decode_sharded(data: bytes, *, device="cuda", group=None, cfg: decode3.WalkC
     only, which launches no value join), "records_bytes" and "stages" (this
     rank's host seconds per stage, the spans "dist.<stage>"; nothing waits
     for the device)."""
-    return decode_across(data, Comm(group), _resolve_device(device), everywhere=True, cfg=cfg,
-                         stats=stats)
+    return decode_raster(RankCall(Comm(group), resolve_device(device), stats), data, cfg, everywhere=True)
 
 
 def decode_batch_sharded(datas: list[bytes], *, device="cuda", group=None,
@@ -331,7 +341,7 @@ def decode_batch_sharded(datas: list[bytes], *, device="cuda", group=None,
     if len(datas) % n:
         raise ValueError(f"batch size must be a multiple of {n} ranks")
     k = len(datas) // n
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     sub: dict = {}
     arrs = decode3.decode_batch_v3(datas[comm.rank * k : (comm.rank + 1) * k], device=dev, stats=sub)
     gathered = comm.all_gather(torch.from_numpy(np.stack(arrs)))

@@ -38,9 +38,10 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from nicetpu_torch.config import RuntimeConfig, backend_target
+from nicetpu_torch.convert import words_to_numpy
 from nicetpu_torch.format import constants as C
 from nicetpu_torch.format import headers
-from nicetpu_torch.convert import words_to_numpy
 from nicetpu_torch.hostref import oracle
 from nicetpu_torch.kernels import decode3
 from nicetpu_torch.kernels.bitpack import words_to_payload
@@ -345,11 +346,7 @@ class Pipeline:
 
     def __init__(self, workers: int | None = None, batch: int | None = None, config=None) -> None:
         if config is None:
-            from nicetpu_torch.config import RuntimeConfig
-
             config = RuntimeConfig.from_env()
-        from nicetpu_torch.api import backend_target
-
         target = backend_target(config.backend)
         if target == "spec":
             raise ValueError("Pipeline runs on the 'cuda', 'cpu' or 'native' backend; "

@@ -71,6 +71,31 @@ def multihost_pair(comm, img):
     return data, out, dry
 
 
+def _staged(fn, arg):
+    """fn(arg) on the CPU, and the stage names it left in its stats."""
+    st: dict = {}
+    return fn(arg, device="cpu", stats=st), set(st["stages"])
+
+
+def spmd_rasters(comm, rasters, uneven):
+    """The SPMD entries on each raster, with their stage names:
+    encode_sharded and encode_multihost, then decode_sharded and
+    decode_multihost of the bytes; and the ValueError of encode_sharded on
+    a height that does not split over the ranks."""
+    res = {}
+    for name, img in rasters.items():
+        runs = {"encode_sharded": _staged(encode_sharded, img), "encode_multihost": _staged(encode_multihost, img)}
+        data = runs["encode_sharded"][0]
+        runs.update(decode_sharded=_staged(decode_sharded, data), decode_multihost=_staged(decode_multihost, data))
+        res[name] = runs
+    try:
+        encode_sharded(uneven, device="cpu")
+        res["uneven"] = "no error"
+    except ValueError as e:
+        res["uneven"] = str(e)
+    return res
+
+
 def fail_on_rank_1(comm):
     if comm.rank == 1:
         raise ValueError("rank 1 fails on purpose")

@@ -462,10 +462,14 @@ def test_bench_variants_still_apply(variant):
 
 def test_bench_decode_tables_needs_a_card_and_calls_the_ten_tables(monkeypatch, capsys):
     """The bench exits 1 without a card, printing no result; on this tree
-    its tables call is `prepare_tables_v3(walk=True)`, the ten tables."""
+    its tables call is `prepare_tables_v3(walk=True)`, the ten tables.  Its
+    timer adds each wrapped call's seconds and passes results through."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert bench_decode_tables.main(["--host-only"]) == 1
     assert capsys.readouterr().out == ""
     lens = torch.from_numpy(_rows("valid"))
     for g, w in zip(bench_decode_tables.tables_call()(lens), _plain_pair(lens)):
         _eq(g, w)
+    timed = bench_decode_tables.Timed(lambda a, b=0: a + b)
+    assert timed(2, b=3) == 5 and timed(1) == 1
+    assert timed.seconds > 0

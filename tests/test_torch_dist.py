@@ -5,6 +5,9 @@ against the images.  The ranks are spawned processes
 hang fails the test instead of running the suite out; every single-raster
 and batch case runs inside one spawn of four ranks."""
 
+import ast
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +17,7 @@ from nicetpu.dist.sharded import encode_sharded as jax_encode_sharded
 from nicetpu.dist.sharded import make_mesh
 from nicetpu.hostref import oracle
 from nicetpu.kernels import decode3 as jd3
+import nicetpu_torch
 from nicetpu_torch import bench_all
 from nicetpu_torch.dist import launch
 from nicetpu_torch.dist.multihost import initialize_distributed
@@ -90,7 +94,7 @@ def test_decode_equals_the_image(port, i):
         np.testing.assert_array_equal(out, DECODED[i])
         assert st["fallbacks"] == 0
         assert st["gates"] == dict.fromkeys(("consistency", "crossing", "coverage", "backref"), True)
-        assert set(st["stages"]) == set(DECODE_STAGES) | {"gather_blocks"}
+        assert set(st["stages"]) == set(DECODE_STAGES) | {"gather_decoded"}
 
 
 def test_noisy_decode_equals_jax(port):
@@ -220,3 +224,32 @@ def test_stage_spans_sum_host_seconds_into_stats(monkeypatch):
     with idle.stage("walk"):  # without stats, no clock reading and no stage
         pass
     assert idle.stages is None
+
+
+# the modules below the api, in the order they may import each other
+LOWER = ("dist/comm", "dist/sharded", "dist/sharded_decode", "dist/multihost", "dist/launch", "dist/group",
+         "pipeline")
+
+
+def _imported(node) -> list[str]:
+    """The modules an import statement names, `from a import b` as a.b."""
+    if isinstance(node, ast.Import):
+        return [a.name for a in node.names]
+    if isinstance(node, ast.ImportFrom) and node.module:
+        return [node.module] + [f"{node.module}.{a.name}" for a in node.names]
+    return []
+
+
+@pytest.mark.parametrize("module", LOWER)
+def test_lower_layers_do_not_import_the_api(module):
+    """The layers point one way: no module below the api imports it at any
+    level, and no module imports a `dist` module inside a function, so that
+    nothing dodges an import cycle."""
+    path = os.path.join(os.path.dirname(nicetpu_torch.__file__), f"{module}.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = [n for node in ast.walk(tree) for n in _imported(node)]
+    assert not [n for n in names if n == "nicetpu_torch.api" or n.startswith("nicetpu_torch.api.")]
+    inner = [n for fn in ast.walk(tree) if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+             for node in ast.walk(fn) for n in _imported(node)]
+    assert not [n for n in inner if n == "nicetpu_torch.dist" or n.startswith("nicetpu_torch.dist.")]

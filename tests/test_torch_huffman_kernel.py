@@ -18,7 +18,6 @@ The kernel itself runs only on a card (`tests/test_torch_cuda.py`).  Here:
 JAX runs on batches of 3, so that `build_tables_device` compiles once.
 """
 
-import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +25,6 @@ import pytest
 import torch
 
 from nicetpu.kernels import huffman_dev as jhd
-from nicetpu_torch import bench_huffman_ablation as ablation
 from nicetpu_torch.bench import make_image
 from nicetpu_torch.format import constants as C
 from nicetpu_torch.kernels import cuda_ops, encode2
@@ -268,18 +266,3 @@ def test_wrapper_on_the_cpu_runs_the_plain_version():
 def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
     with pytest.raises((TypeError, ValueError)):
         thd.build_tables_device(bad)
-
-
-@pytest.mark.parametrize("variant", sorted(ablation.VARIANTS))
-def test_ablation_variants_still_apply(variant):
-    """`bench_huffman_ablation` edits copies of the kernel's source: each
-    edit must still find its text exactly once."""
-    with open(os.path.join(ablation.build.CSRC, "huffman_kernels.cu")) as f:
-        committed = f.read()
-    assert (ablation.variant_source(variant) == committed) == (variant == "committed")
-
-
-def test_ablation_needs_a_card():
-    if torch.cuda.is_available():
-        pytest.skip("a card is present")
-    assert ablation.main([]) == 1

@@ -2,16 +2,20 @@
 one group of 2 and one of 4 ranks serve every call of this file (the
 failure cases and the group's lifetime are in
 `test_torch_shard_group_life.py`).  The bytes are held against
-`hostref`, the decoded rasters against the images."""
+`hostref`, the decoded rasters against the images, and against the SPMD
+entries (`encode_sharded`, `decode_sharded` and the `multihost` pair) on
+the same rasters in one spawn of 2 ranks."""
 
 import numpy as np
 import pytest
 import torch
 
 from nicetpu_torch import api
-from nicetpu_torch.dist import group as group_mod
+from nicetpu_torch.dist import launch
 from nicetpu_torch.hostref import oracle
 from nicetpu_torch.utils import profiling
+
+import _torch_dist_worker as worker
 
 TIMEOUT = 120.0  # seconds a call or a collective may take before the group fails
 
@@ -30,6 +34,8 @@ def _rasters():
 
 
 RASTERS = _rasters()
+UNEVEN = RASTERS["noise"][:31]  # 31 rows: no split over 2 or 4 ranks
+ROW_SOURCES = {"upload", "scatter"}  # where a rank's rows come from: the only stages the drivers differ in
 
 
 @pytest.fixture(scope="module", params=[2, 4], ids=lambda n: f"{n}ranks")
@@ -38,6 +44,13 @@ def group(request):
     group at a time, and pytest runs every test of a parameter in turn."""
     with api.ShardGroup(request.param, device="cpu", timeout=TIMEOUT) as g:
         yield g
+
+
+@pytest.fixture(scope="module")
+def spmd():
+    """Each rank's results of the SPMD entries on RASTERS, 2 gloo ranks."""
+    return launch.run(worker.spmd_rasters, 2, backend="gloo", device="cpu", timeout=TIMEOUT,
+                      args=(RASTERS, UNEVEN))
 
 
 @pytest.mark.parametrize("name", list(RASTERS))
@@ -68,7 +81,7 @@ def test_encode_and_decode_alone(group):
 
 
 def test_a_height_that_does_not_split_is_a_counted_fallback(group):
-    img = RASTERS["noise"][:31]  # 31 rows: no split over 2 or 4 ranks
+    img = UNEVEN
     stats: dict = {}
     data, verified, out = group.roundtrip(img, stats=stats, keep_decoded=True)
     assert data == oracle.encode_native(img) and verified is True
@@ -96,3 +109,41 @@ def test_an_untraced_call_does_not_wait_for_the_device(group, monkeypatch):
     assert calls == [] and "span_ms" not in stats["ranks"][0]
 
 
+@pytest.mark.parametrize("name", list(RASTERS))
+def test_spmd_encode_matches_the_group(group, spmd, name):
+    """The SPMD encode gives the group's bytes (the bytes do not depend on
+    the number of ranks) through the same stages once the rows are on the
+    rank, and a broadcast of the bytes where every rank returns them."""
+    stats: dict = {}
+    data = group.encode(RASTERS[name], stats=stats)
+    for r, rank in enumerate(spmd):
+        everywhere, stages = rank[name]["encode_sharded"]
+        root_only, root_stages = rank[name]["encode_multihost"]
+        assert everywhere == data and root_only == (data if r == 0 else None)
+        assert stages == root_stages | {"bytes_broadcast"}
+        assert root_stages - ROW_SOURCES == set(stats["ranks"][r]["stage_ms"]) - ROW_SOURCES
+
+
+@pytest.mark.parametrize("name", list(RASTERS))
+def test_spmd_decode_matches_the_group(group, spmd, name):
+    """The SPMD decode gives the group's raster through the same stages,
+    the gather of the decoded blocks included, after the group's broadcast
+    of rank 0's bytes."""
+    stats: dict = {}
+    out = group.decode(oracle.encode_native(RASTERS[name]), stats=stats)
+    np.testing.assert_array_equal(out, RASTERS[name])
+    for r, rank in enumerate(spmd):
+        everywhere, stages = rank[name]["decode_sharded"]
+        root_only, root_stages = rank[name]["decode_multihost"]
+        np.testing.assert_array_equal(everywhere, out)
+        if r == 0:
+            np.testing.assert_array_equal(root_only, out)
+        else:
+            assert root_only is None
+        assert stages == root_stages == set(stats["ranks"][r]["stage_ms"]) - {"bytes_broadcast"}
+
+
+def test_spmd_encode_of_a_height_that_does_not_split_raises(spmd):
+    """Where every rank holds the raster, a height that does not split is
+    the caller's error; the group sends it to the host instead (above)."""
+    assert all("must split" in rank["uneven"] for rank in spmd)

@@ -17,7 +17,6 @@ held against JAX's `cascade` + `assemble_bins` with a halo and against
 `jax.vmap(_tokenize_core)`.  Every comparison is bit-exact.
 """
 
-import os
 from functools import partial
 
 import jax
@@ -28,8 +27,6 @@ import torch
 
 from nicetpu.kernels import encode2 as jenc
 from nicetpu.kernels import tokenize as jtok
-from nicetpu_torch import bench_tokenize_ablation as ablation
-from nicetpu_torch import bench_tokenize_host as bh
 from nicetpu_torch.format import constants as C
 from nicetpu_torch.kernels import cuda_ops
 from nicetpu_torch.kernels import tokenize as ttok
@@ -563,28 +560,3 @@ def test_tokenize_bins_rejects(case):
     args = dict(width=8, halo=0, g0=0, n_total=64, ndigits_cap=3, invalid_bin=1023) | kw
     with pytest.raises((TypeError, ValueError)):
         ttok.tokenize_bins(x, **args)
-
-
-def test_bench_tokenize_host_needs_a_card_and_times_its_parts(monkeypatch, capsys):
-    """The host-cost bench exits 1 without a card, printing no result; its
-    timer adds each wrapped call's seconds and passes results through."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert bh.main(["--reps", "1"]) == 1
-    assert capsys.readouterr().out == ""
-    timed = bh.Timed(lambda a, b=0: a + b)
-    assert timed(2, b=3) == 5 and timed(1) == 1
-    assert timed.seconds > 0
-
-
-@pytest.mark.parametrize("variant", sorted(ablation.VARIANTS))
-def test_ablation_variants_still_apply(variant):
-    """`bench_tokenize_ablation` edits copies of the kernel's source: each
-    edit still applies exactly once, and only `committed` is the source."""
-    with open(os.path.join(ablation.build.CSRC, "tokenize_kernels.cu")) as f:
-        committed = f.read()
-    assert (ablation.variant_source(variant) == committed) == (variant == "committed")
-
-
-def test_ablation_needs_a_card(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert ablation.main([]) == 1
