@@ -68,7 +68,15 @@ Phases, one printed line or block each; any failure exits nonzero:
      beside its bound, the plain version (host numpy, with the words' copy
      down) and one call as rank 0 makes it (the kernel, one copy of the
      file down through a pinned staging buffer, the bytes; and the same
-     through pageable memory);
+     through pageable memory); the reconstruction on thread-block clusters
+     (rows past one block's shared memory): exact against its plain
+     version at 4,352 and 16,384 wide with zeros and with a random carry
+     above, on random forms and with CONST, lag-2 and lag-3 pixels on
+     every slice seam and the row's wrap, each launch counted on a
+     cluster; then timed (CUDA events) on one rank's block of the
+     four-card raster (1 x 4096 rows x 16,384 with a random carry) beside
+     the one-block kernel on a 4096x4096 raster, on random forms and on
+     forms that read lag 1 only (HALF and CONST), each beside its bound;
   3. encode 64 512x512 RGB8 images in 8 batches of 8 through
      nicetpu_torch.encode_batch(device=dev.type), the two-step encode: every
      blob equals the native encoder's, none falls back, every encode kernel
@@ -102,8 +110,11 @@ Phases, one printed line or block each; any failure exits nonzero:
      over the 4096x4096 raster's words as 4 shard-local walks, each re-based
      to its slice's first bit, against the unsharded walk, its reconstruction as 4 row
      blocks chained through prev4 against the unsharded kernel, chained
-     blocks at 5,000 wide (the scratch path), and both kernels with their
-     new arguments against their plain versions at small sizes; (b) the
+     blocks at 5,000 wide (a cluster a chain) and at 70,000 wide (one block
+     with device-memory scratch), and both kernels with their new arguments
+     against their plain versions at small sizes (the reconstruction at
+     those two widths too, with a carry and with zeros, each launch counted
+     on its path); (b) the
      4096x4096 raster through encode_sharded and decode_sharded as 4 gloo
      ranks on the one card (NCCL will not put two ranks on one GPU; the
      contexts time-slice, so the timing says nothing of scaling): bytes
@@ -225,6 +236,7 @@ _rows = _load_rows("_huffman_rows")
 _table_rows = _load_rows("_decode_table_rows")
 _slot_rows = _load_rows("_slot_rows")
 _stitch_rows = _load_rows("_stitch_rows")
+_recon_rows = _load_rows("_recon_rows")
 _bounds, _deep, _heavy, _random, _sparse, _ties, _zero = (_rows._bounds, _rows._deep, _rows._heavy, _rows._random,
                                                          _rows._sparse, _rows._ties, _rows._zero)
 
@@ -814,19 +826,6 @@ def fold_odd_shapes(dev) -> None:
           "the long-record case holds a record within 320 bits")
 
 
-def random_recon_inputs(b: int, h: int, w: int, seed: int):
-    """Random forms and deltas, CONST references drawn from the width's
-    offsets (some landing in the current row's first columns), as the GPU
-    tests make them."""
-    rng = np.random.default_rng(seed)
-    n = h * w
-    form = rng.integers(0, 5, (b, n)).astype(np.int32)
-    delta = rng.integers(0, 256, (b, 3, n)).astype(np.int32)
-    choices = np.array([0] + decode_dev._const_offsets(w), np.int32)
-    refoff = np.where(form == 0, rng.choice(choices, (b, n)), 0).astype(np.int32)
-    return [torch.from_numpy(a) for a in (form, delta, refoff)]
-
-
 def phase_decode_kernels(dev) -> dict:
     """walk, value_join and reconstruct_rows on the words, tables and
     records of a real 512x512x8 encode at the fast rung."""
@@ -896,7 +895,7 @@ def phase_decode_kernels(dev) -> dict:
     check(torch.equal(full, want), "full-size reconstruction differs from the encoded images")
     # 1100: 35 segments, the last one ragged, through the two-level resolve
     for b_, h_, w_ in ((B, RECON_RANDOM_ROWS, W512), (2, 16, 1100)):
-        args = [t.to(dev) for t in random_recon_inputs(b_, h_, w_, seed=w_)]
+        args = [t.to(dev) for t in _recon_rows.random_inputs(b_, h_, w_, seed=w_)]
         got = recon.reconstruct_rows(*args, width=w_)
         want = decode_dev.reconstruct_rows(*args, h_ * w_, w_)
         err = max_abs_err(got, want)
@@ -1049,6 +1048,60 @@ def stitch_kernel(dev) -> dict:
           f"(kernel, one copy down through the pinned buffer, bytes) {res['call_ms']:.1f} ms, through "
           f"pageable memory {res['pageable_call_ms']:.1f} ms", flush=True)
     return {"stitch": res}
+
+
+RECON_BLOCK = (4096, 16384)  # rows and width of one rank's block of the four-card raster
+RECON_CLUSTER_CHECKS = (4352, 16384)  # cluster widths held against the plain version, 2 rows each
+
+
+def lag1_recon_inputs(h: int, w: int, seed: int):
+    """Forms that read lag 1 only: HALF, and CONST at a fifth of the pixels
+    (drawn from the width's offsets), as on photographic content."""
+    _, delta, _ = _recon_rows.random_inputs(1, h, w, seed)
+    const = torch.from_numpy(np.random.default_rng(seed).random((1, h * w)) < 0.2)
+    form = torch.where(const, 0, 4).to(torch.int32)
+    choices = torch.tensor(decode_dev._const_offsets(w), dtype=torch.int32)
+    pick = torch.from_numpy(np.random.default_rng(seed + 1).integers(0, len(choices), (1, h * w)))
+    return form, delta, torch.where(const, choices[pick], 0).to(torch.int32)
+
+
+def recon_cluster_kernel(dev) -> dict:
+    """Rows past one block's shared memory, on a cluster a chain: exact
+    against the plain version, then the four-card raster's rank block
+    timed beside the one-block kernel at 4,096 wide."""
+    for w in RECON_CLUSTER_CHECKS:
+        ctas = recon.cluster_ctas(w, dev)
+        check(ctas > 1, f"width {w} does not run on a cluster")
+        for name, make in (("random", _recon_rows.random_inputs), ("seams", _recon_rows.seam_inputs)):
+            args = [t.to(dev) for t in make(1, 2, w, w)]
+            prev4 = torch.from_numpy(np.random.default_rng(w).integers(0, 256, (1, 3, 4 * w))
+                                     .astype(np.int32)).to(dev)
+            before = cuda_ops.LAUNCHES["reconstruct_rows_cluster"]
+            got = recon.reconstruct_rows(*args, width=w), recon.reconstruct_rows(*args, width=w, prev4=prev4)
+            check(cuda_ops.LAUNCHES["reconstruct_rows_cluster"] == before + 2, "cluster launches not counted")
+            same = (torch.equal(got[0], decode_dev.reconstruct_rows(*args, 2 * w, w))
+                    and all(torch.equal(g, x) for g, x in
+                            zip(got[1], decode_dev.reconstruct_rows(*args, 2 * w, w, prev4=prev4))))
+            print(f"[kernel] reconstruct_rows on a cluster of {ctas} CTAs a chain at 1 x 2 rows x {w}, "
+                  f"{name} forms, zeros and a random carry above: exact={same}", flush=True)
+            check(same, f"the cluster reconstruction disagrees with its plain version at width {w} ({name})")
+    res = {}
+    H, W = RECON_BLOCK
+    for forms, make in (("random", _recon_rows.random_inputs), ("lag1", None)):
+        for h, w in ((H, W), (H, H)):
+            args = [t.to(dev) for t in (make(1, h, w, 7) if make else lag1_recon_inputs(h, w, 7))]
+            prev4 = torch.from_numpy(np.random.default_rng(8).integers(0, 256, (1, 3, 4 * w))
+                                     .astype(np.int32)).to(dev)
+            out, _ = recon.reconstruct_rows(*args, width=w, prev4=prev4)
+            ms = cuda_ms(lambda: recon.reconstruct_rows(*args, width=w, prev4=prev4), 3, warmup=1)
+            b = bound(nbytes(*args, out), 0)
+            ctas = recon.cluster_ctas(w, dev)
+            key = f"{forms}_{h}x{w}"
+            res[f"{key}_ms"], res[f"{key}_bound_ms"], res[f"{key}_ctas"] = ms, b["bound_ms"], ctas
+            print(f"[kernel] reconstruct_rows at 1 x {h} rows x {w}, {forms} forms, a random carry: "
+                  f"{ms:.3f} ms ({'a cluster of %d CTAs a chain' % ctas if ctas else 'one block a chain'}), "
+                  f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({ms / b['bound_ms']:.0f}x)", flush=True)
+    return res
 
 
 REAL_CROP = 512  # side of phase 2's soccer0 crop (the plain walk takes it in seconds)
@@ -1337,7 +1390,8 @@ def phase_cli(img, ref) -> None:
 
 
 SHARDS = 4  # ranks of phase 10
-SCRATCH_W = 5000  # a width past the reconstruction's shared memory: the scratch path
+WIDE_W = 5000  # a width past one block's shared memory: a cluster a chain
+SCRATCH_W = 70_000  # a width past a 16-CTA cluster's shared memory: device-memory scratch
 SHARDED_TIMEOUT = 420.0  # seconds phase 10's spawned ranks may take in all
 
 
@@ -1425,26 +1479,35 @@ def phase_sharded_kernels(dev, big, big_ref, blob512) -> None:
     print(f"[sharded-kernel] reconstruct_rows, 4096x4096 raster: {SHARDS} blocks of {blocks[0]} rows "
           f"chained through prev4 equal the unsharded kernel bit for bit; {chain_ms:.4f} ms chained, "
           f"{whole_ms:.4f} ms unsharded (CUDA events, 3 calls)")
-    args = [t.to(dev) for t in random_recon_inputs(1, 6, SCRATCH_W, seed=SCRATCH_W)]
-    check(torch.equal(chained_recon(*args, SCRATCH_W, [1, 2, 3]),
-                      recon.reconstruct_rows(*args, width=SCRATCH_W)),
-          f"chained blocks at {SCRATCH_W} wide (the scratch path) differ from the unsharded kernel")
-    print(f"[sharded-kernel] reconstruct_rows at {SCRATCH_W} wide (device-memory scratch): blocks of 1, "
-          "2 and 3 rows chained through prev4 equal the unsharded kernel")
+    check(recon.cluster_ctas(WIDE_W, dev) > 1 and recon.chain_plan(SCRATCH_W, dev)[1] > 0,
+          f"{WIDE_W} wide does not run on a cluster, or {SCRATCH_W} wide on device-memory scratch")
+    for w_, where in ((WIDE_W, "a cluster a chain"), (SCRATCH_W, "device-memory scratch")):
+        args = [t.to(dev) for t in _recon_rows.random_inputs(1, 6, w_, seed=w_)]
+        check(torch.equal(chained_recon(*args, w_, [1, 2, 3]), recon.reconstruct_rows(*args, width=w_)),
+              f"chained blocks at {w_} wide ({where}) differ from the unsharded kernel")
+        print(f"[sharded-kernel] reconstruct_rows at {w_} wide ({where}): blocks of 1, "
+              "2 and 3 rows chained through prev4 equal the unsharded kernel")
     # both kernels with their new arguments against their plain versions
     sharded_walk_check(dev, blob512, decode3.WalkCfg(2048, 32, 8, 2), "one 512x512 blob, 2048-bit chunks",
                        plain=True)
-    for b_, h_, w_ in ((2, 16, W512), (1, 2, SCRATCH_W)):
-        args = [t.to(dev) for t in random_recon_inputs(b_, h_, w_, seed=w_ + 1)]
+    for b_, h_, w_ in ((2, 16, W512), (1, 2, WIDE_W), (1, 2, SCRATCH_W)):
+        args = [t.to(dev) for t in _recon_rows.random_inputs(b_, h_, w_, seed=w_ + 1)]
         prev4 = torch.from_numpy(np.random.default_rng(w_).integers(0, 256, (b_, 3, 4 * w_))
                                  .astype(np.int32)).to(dev)
-        got = recon.reconstruct_rows(*args, width=w_, prev4=prev4)
+        before = dict(cuda_ops.LAUNCHES)
+        got = recon.reconstruct_rows(*args, width=w_, prev4=prev4), recon.reconstruct_rows(*args, width=w_)
+        cluster = recon.cluster_ctas(w_, dev) > 1
+        rose = {k: cuda_ops.LAUNCHES[k] - before[k] for k in ("reconstruct_rows", "reconstruct_rows_cluster")}
+        check(rose == {"reconstruct_rows": 2, "reconstruct_rows_cluster": 2 * cluster},
+              f"reconstruct_rows at width {w_} counted {rose}")
         want = decode_dev.reconstruct_rows(*args, h_ * w_, w_, prev4=prev4)
-        err = max(max_abs_err(g, x) for g, x in zip(got, want))
-        same = all(torch.equal(g, x) for g, x in zip(got, want))
-        print(f"[sharded-kernel] reconstruct_rows with a random carry at {b_} x {h_} rows x {w_}: "
-              f"out and tail exact={same} max_abs_err={err}")
-        check(same, f"reconstruct_rows with a carry disagrees with its plain version at width {w_}")
+        err = max(max_abs_err(g, x) for g, x in zip(got[0], want))
+        same = (all(torch.equal(g, x) for g, x in zip(got[0], want))
+                and torch.equal(got[1], decode_dev.reconstruct_rows(*args, h_ * w_, w_)))
+        print(f"[sharded-kernel] reconstruct_rows at {b_} x {h_} rows x {w_} "
+              f"({'a cluster a chain' if cluster else 'one block a chain'}), with a random carry and with "
+              f"zeros: out and tail exact={same} max_abs_err={err}")
+        check(same, f"reconstruct_rows disagrees with its plain version at width {w_}")
 
 
 def _sharded_rank(comm, device: str, big, big_ref, blobs, imgs) -> dict:
@@ -1905,6 +1968,7 @@ def main() -> int:
     kernels.update(phase_decode_kernels(dev))
     kernels.update(slot_assemble_kernel(dev))
     kernels.update(stitch_kernel(dev))
+    kernels["reconstruct_rows"].update(recon_cluster_kernel(dev))
     phase_decode_kernels_real(dev)
 
     imgs = [make_image(512, 512, s) for s in range(64)]

@@ -11,9 +11,14 @@
 // Payload words arrive as int32 tensors holding uint32 bit patterns; the walk
 // reads them as uint32_t, so windows and shifts are unsigned and logical.
 
+#include <cooperative_groups.h>
+#include <cstdio>
+
 #include "common.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 using nt::aligned16;
 using nt::block_slice;
@@ -401,15 +406,24 @@ __global__ void value_join_kernel(const int* __restrict__ bins, const int* __res
 // decode_dev.reconstruct_rows and the Pallas kernel.  refoff must hold 0 or one of
 // decode_dev._const_offsets(W) (every offset is >= max(4, W - 3)).
 //
+// The buffers take about 53 bytes a pixel of a row.  Where a row's fit one
+// block's shared memory (up to about 4,288 pixels on an H100), one block runs
+// a chain (reconstruct_rows_kernel<true>).  Wider rows run on a thread-block
+// cluster, each CTA a column slice (reconstruct_rows_cluster_kernel, below);
+// rows too wide for even a 16-CTA cluster (about 63,000 pixels and more) run
+// on one block with the buffers in the wrapper's scratch in device memory
+// (reconstruct_rows_kernel<false>, its scratch sized by nt_recon_plan, without
+// the cp.async staging).
+//
 // Bound: its least time is set by bytes (32 a pixel), but the scheme does 256
 // candidates of work a pixel, two instructions each, so it is bound by the
-// issue rate of the few SMs it occupies (3 * B blocks, one per chain), plus
-// the per-row resolve (S steps) and replay (kSeg steps) latencies.  Tensor
-// cores have no part in this integer chain.  The buffers take about 53 bytes
-// a pixel of a row: in shared memory where they fit, beyond that in the
-// wrapper's scratch in device memory, sized by nt_recon_scratch_bytes
-// (without the cp.async staging; the loads go straight to the staging
-// step).
+// issue rate of the SMs it occupies, plus per-row latencies.  One block a
+// chain occupies 3 * B SMs and pays the resolve (S steps, or S / kGroup +
+// kGroup through the groups) and the replay (kSeg steps) a row.  A cluster of C CTAs
+// a chain spreads the build over 3 * B * C SMs, so that a row's candidate
+// work is W / C pixels a CTA, and pays instead two cluster barriers a row and
+// the carry across the C slices (C steps, from shared memory).  Tensor cores
+// have no part in this integer chain.
 // ---------------------------------------------------------------------------
 constexpr int kSeg = 32;    // pixels a segment
 constexpr int kCand = 8;    // candidates a lane: a warp covers one segment's 256
@@ -558,6 +572,158 @@ __device__ __forceinline__ uint32_t pack4(const float* x) {
   return __byte_perm(lo, hi, 0x5410);
 }
 
+// Step 1 for one pixel, at column x of the row and xl of the buffers: its
+// (k / 2, addend) and meta from its form f, CONST offset ro and delta byte d;
+// flags its segment where it reads lag 2 or 3.  ring_at(slot, col) reads a
+// row above from the ring; above is row r - 1 at the buffers' columns.
+template <class RingAt>
+__device__ __forceinline__ void stage_pixel(int f, int ro, uint32_t d, int x, int xl, int r, int W,
+                                            RingAt ring_at, const uint8_t* above, float2* fk,
+                                            uint32_t* meta, uint32_t* flag) {
+  uint32_t cv = 0, cc = 0;
+  if (ro > 0) {
+    const int k = x - ro;
+    if (k >= 0) {
+      cc = k + 1;  // 1 + column of a reference into this row, fixed up later
+    } else {
+      // rows back, 1..4 (k >= -(3W + 3)); a row before the block is
+      // still in its ring slot (the carry, or zeros)
+      const int back = k >= -W ? 1 : (k >= -2 * W ? 2 : (k >= -3 * W ? 3 : 4));
+      cv = ring_at((r - back) & 3, k + back * W);
+    }
+  }
+  uint32_t c, k, lag = 1;
+  if (f == 0) {
+    k = 0;
+    c = 2 * ((cv + d) & 255);
+  } else if (f >= 1 && f <= 3) {
+    k = 2;
+    c = 2 * d;
+    lag = f;
+    cc = 0;
+  } else {
+    k = 1;
+    c = above[xl] + 2 * d;
+    cc = 0;
+  }
+  fk[xl] = pixel_fk(k, c);
+  meta[xl] = lag | (cc << 2) | (d << 8);
+  if (lag != 1) flag[xl / kSeg] = 1;
+}
+
+// Step 2 for one segment of n pixels (fk and meta from its first): lane l
+// pushes candidates 8l .. 8l+7 of each lag through them and stores its bytes
+// of the segment's three LUTs (lut2, 96 words); lane 0 stores the tags.
+__device__ __forceinline__ void build_segment(const float2* fk, const uint32_t* meta,
+                                              const uint32_t* flag, int n, int l, uint2* lut2,
+                                              uint32_t* tag) {
+  float r1[kCand], r2[kCand], r3[kCand];
+#pragma unroll
+  for (int i = 0; i < kCand; ++i) r1[i] = r2[i] = r3[i] = as_chain(kCand * l + i);
+  uint32_t t1 = 0, t2 = 1, t3 = 2;
+  if (n == kSeg && !*flag) {  // every pixel reads lag 1: the tags end at 0
+    // HALF halves the spread of the candidates and CONST ends it, so the
+    // 256 candidates soon share one value in each lag: from there one
+    // value is carried for all of them
+#pragma unroll
+    for (int j = 0; j < kCollapseFirst; ++j) lag1_step(fk[j], r1, r2, r3);
+    bool one = all_equal(r1, r2, r3);
+#pragma unroll
+    for (int j0 = kCollapseFirst; j0 < kSeg; j0 += kCollapseEvery) {
+      if (!one) {  // the same for the whole warp
+#pragma unroll
+        for (int j = j0; j < j0 + kCollapseEvery; ++j) lag1_step(fk[j], r1, r2, r3);
+        one = all_equal(r1, r2, r3);
+      } else {
+#pragma unroll
+        for (int j = j0; j < j0 + kCollapseEvery; ++j) {
+          r3[0] = r2[0];
+          r2[0] = r1[0];
+          r1[0] = chain_step(r1[0], fk[j]);
+        }
+      }
+    }
+    if (one) {
+#pragma unroll
+      for (int i = 1; i < kCand; ++i) {
+        r1[i] = r1[0];
+        r2[i] = r2[0];
+        r3[i] = r3[0];
+      }
+    }
+    t1 = t2 = t3 = 0;
+  } else {
+    for (int j = 0; j < n; ++j) {
+      const float2 p = fk[j];
+      const uint32_t lag = meta[j] & 3;
+#pragma unroll
+      for (int i = 0; i < kCand; ++i) {
+        const float x = lag == 3 ? r3[i] : (lag == 2 ? r2[i] : r1[i]);
+        r3[i] = r2[i];
+        r2[i] = r1[i];
+        r1[i] = chain_step(x, p);
+      }
+      const uint32_t tn = lag == 3 ? t3 : (lag == 2 ? t2 : t1);
+      t3 = t2;
+      t2 = t1;
+      t1 = tn;
+    }
+  }
+  lut2[l] = make_uint2(pack4(r1), pack4(r1 + 4));
+  lut2[32 + l] = make_uint2(pack4(r2), pack4(r2 + 4));
+  lut2[64 + l] = make_uint2(pack4(r3), pack4(r3 + 4));
+  if (l == 0) *tag = t1 | (t2 << 8) | (t3 << 16);
+}
+
+// Step 4 for one segment of n pixels (fk, meta and the ring row cur from its
+// first): its values from the entry triple e, four bytes to a ring word;
+// clears its flag, which this row's build alone reads.
+__device__ __forceinline__ void replay_segment(const float2* fk, const uint32_t* meta,
+                                               uint32_t* flag, uint32_t e, int n, uint8_t* cur) {
+  float v1 = as_chain(e & 255), v2 = as_chain((e >> 8) & 255), v3 = as_chain(e >> 16);
+  const bool lag1 = !*flag;
+  *flag = 0;
+  uint32_t* cur32 = reinterpret_cast<uint32_t*>(cur);
+  if (n == kSeg) {  // straight-line, 8 pixels' loads ahead of the chain
+#pragma unroll
+    for (int j0 = 0; j0 < kSeg; j0 += 8) {
+      float2 p[8];
+      uint32_t lag[8];
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        p[u] = fk[j0 + u];
+        lag[u] = lag1 ? 1 : meta[j0 + u] & 3;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const float x = lag[u] == 3 ? v3 : (lag[u] == 2 ? v2 : v1);
+        v3 = v2;
+        v2 = v1;
+        v[u] = v1 = chain_step(x, p[u]);
+      }
+      cur32[j0 >> 2] = pack4(v);
+      cur32[(j0 >> 2) + 1] = pack4(v + 4);
+    }
+  } else {
+    for (int j0 = 0; j0 < n; j0 += 4) {
+      float v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (j0 + u < n) {
+          const uint32_t lag = meta[j0 + u] & 3;
+          const float x = lag == 3 ? v3 : (lag == 2 ? v2 : v1);
+          v3 = v2;
+          v2 = v1;
+          v1 = chain_step(x, fk[j0 + u]);
+        }
+        v[u] = v1;
+      }
+      cur32[j0 >> 2] = pack4(v);
+    }
+  }
+}
+
 template <bool kStaged>
 __global__ void __launch_bounds__(1024)
     reconstruct_rows_kernel(const int* __restrict__ form, const int* __restrict__ delta,
@@ -571,7 +737,7 @@ __global__ void __launch_bounds__(1024)
   float2* fk = reinterpret_cast<float2*>(buf + lay.fk);
   uint32_t* meta = reinterpret_cast<uint32_t*>(buf + lay.meta);
   uint8_t* ring = buf + lay.ring;
-  uint32_t* lut32 = reinterpret_cast<uint32_t*>(buf + lay.lut);
+  uint2* lut2 = reinterpret_cast<uint2*>(buf + lay.lut);
   const uint8_t* lut8 = buf + lay.lut;
   uint32_t* tags = reinterpret_cast<uint32_t*>(buf + lay.tags);
   uint32_t* bnd = reinterpret_cast<uint32_t*>(buf + lay.bnd);
@@ -592,6 +758,8 @@ __global__ void __launch_bounds__(1024)
   const int* ro_img = refoff + b * N;
   const int* d_img = delta + (long long)bc * N;
   int* o_img = out + (long long)bc * N;
+
+  auto ring_at = [&](int slot, int col) -> uint32_t { return ring[slot * Wp + col]; };
 
   // rows -4 .. -1: the carry (row -4 + j in slot j, since row r lives in
   // slot r & 3), or zeros before the raster start
@@ -624,35 +792,7 @@ __global__ void __launch_bounds__(1024)
       const int f = kStaged ? st_form[x] : f_img[i];  // any form outside 0..3 is HALF
       const int ro = kStaged ? st_ro[x] : ro_img[i];
       const uint32_t d = (kStaged ? st_delta[x] : d_img[i]) & 255;
-      uint32_t cv = 0, cc = 0;
-      if (ro > 0) {
-        const int k = x - ro;
-        if (k >= 0) {
-          cc = k + 1;  // 1 + column of a reference into this row, fixed up later
-        } else {
-          // rows back, 1..4 (k >= -(3W + 3)); a row before the block is
-          // still in its ring slot (the carry, or zeros)
-          const int back = k >= -W ? 1 : (k >= -2 * W ? 2 : (k >= -3 * W ? 3 : 4));
-          cv = ring[((r - back) & 3) * Wp + k + back * W];
-        }
-      }
-      uint32_t c, k, lag = 1;
-      if (f == 0) {
-        k = 0;
-        c = 2 * ((cv + d) & 255);
-      } else if (f >= 1 && f <= 3) {
-        k = 2;
-        c = 2 * d;
-        lag = f;
-        cc = 0;
-      } else {
-        k = 1;
-        c = above[x] + 2 * d;
-        cc = 0;
-      }
-      fk[x] = pixel_fk(k, c);
-      meta[x] = lag | (cc << 2) | (d << 8);
-      if (lag != 1) flag[x / kSeg] = 1;
+      stage_pixel(f, ro, d, x, x, r, W, ring_at, above, fk, meta, flag);
     }
     __syncthreads();
     if (kStaged && r + 1 < H) fetch(r + 1);  // overlaps the rest of this row
@@ -660,66 +800,9 @@ __global__ void __launch_bounds__(1024)
     // 2. build: item = (segment s, lane l holding candidates 8l .. 8l+7)
     for (int item = tid; item < S * 32; item += nt) {
       const int s = item >> 5;
-      const int l = item & 31;
       const int x0 = s * kSeg;
-      const int n = min(kSeg, W - x0);
-      float r1[kCand], r2[kCand], r3[kCand];
-#pragma unroll
-      for (int i = 0; i < kCand; ++i) r1[i] = r2[i] = r3[i] = as_chain(kCand * l + i);
-      uint32_t t1 = 0, t2 = 1, t3 = 2;
-      if (n == kSeg && !flag[s]) {  // every pixel reads lag 1: the tags end at 0
-        // HALF halves the spread of the candidates and CONST ends it, so the
-        // 256 candidates soon share one value in each lag: from there one
-        // value is carried for all of them
-#pragma unroll
-        for (int j = 0; j < kCollapseFirst; ++j) lag1_step(fk[x0 + j], r1, r2, r3);
-        bool one = all_equal(r1, r2, r3);
-#pragma unroll
-        for (int j0 = kCollapseFirst; j0 < kSeg; j0 += kCollapseEvery) {
-          if (!one) {  // the same for the whole warp
-#pragma unroll
-            for (int j = j0; j < j0 + kCollapseEvery; ++j) lag1_step(fk[x0 + j], r1, r2, r3);
-            one = all_equal(r1, r2, r3);
-          } else {
-#pragma unroll
-            for (int j = j0; j < j0 + kCollapseEvery; ++j) {
-              r3[0] = r2[0];
-              r2[0] = r1[0];
-              r1[0] = chain_step(r1[0], fk[x0 + j]);
-            }
-          }
-        }
-        if (one) {
-#pragma unroll
-          for (int i = 1; i < kCand; ++i) {
-            r1[i] = r1[0];
-            r2[i] = r2[0];
-            r3[i] = r3[0];
-          }
-        }
-        t1 = t2 = t3 = 0;
-      } else {
-        for (int j = 0; j < n; ++j) {
-          const float2 p = fk[x0 + j];
-          const uint32_t lag = meta[x0 + j] & 3;
-#pragma unroll
-          for (int i = 0; i < kCand; ++i) {
-            const float x = lag == 3 ? r3[i] : (lag == 2 ? r2[i] : r1[i]);
-            r3[i] = r2[i];
-            r2[i] = r1[i];
-            r1[i] = chain_step(x, p);
-          }
-          const uint32_t tn = lag == 3 ? t3 : (lag == 2 ? t2 : t1);
-          t3 = t2;
-          t2 = t1;
-          t1 = tn;
-        }
-      }
-      uint2* lut2 = reinterpret_cast<uint2*>(lut32);
-      lut2[(s * 3 + 0) * 32 + l] = make_uint2(pack4(r1), pack4(r1 + 4));
-      lut2[(s * 3 + 1) * 32 + l] = make_uint2(pack4(r2), pack4(r2 + 4));
-      lut2[(s * 3 + 2) * 32 + l] = make_uint2(pack4(r3), pack4(r3 + 4));
-      if (l == 0) tags[s] = t1 | (t2 << 8) | (t3 << 16);
+      build_segment(fk + x0, meta + x0, flag + s, min(kSeg, W - x0), item & 31, lut2 + s * 96,
+                    tags + s);
     }
     __syncthreads();
 
@@ -747,51 +830,8 @@ __global__ void __launch_bounds__(1024)
 
     // 4. replay: one thread per segment, four bytes to a ring word
     for (int s = tid; s < S; s += nt) {
-      const uint32_t e = bnd[s];
-      float v1 = as_chain(e & 255), v2 = as_chain((e >> 8) & 255), v3 = as_chain(e >> 16);
       const int x0 = s * kSeg;
-      const int n = min(kSeg, W - x0);
-      const bool lag1 = !flag[s];
-      flag[s] = 0;  // read by this row's build only
-      uint32_t* cur32 = reinterpret_cast<uint32_t*>(cur + x0);
-      if (n == kSeg) {  // straight-line, 8 pixels' loads ahead of the chain
-#pragma unroll
-        for (int j0 = 0; j0 < kSeg; j0 += 8) {
-          float2 p[8];
-          uint32_t lag[8];
-          float v[8];
-#pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            p[u] = fk[x0 + j0 + u];
-            lag[u] = lag1 ? 1 : meta[x0 + j0 + u] & 3;
-          }
-#pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            const float x = lag[u] == 3 ? v3 : (lag[u] == 2 ? v2 : v1);
-            v3 = v2;
-            v2 = v1;
-            v[u] = v1 = chain_step(x, p[u]);
-          }
-          cur32[j0 >> 2] = pack4(v);
-          cur32[(j0 >> 2) + 1] = pack4(v + 4);
-        }
-      } else {
-        for (int j0 = 0; j0 < n; j0 += 4) {
-          float v[4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            if (j0 + u < n) {
-              const uint32_t lag = meta[x0 + j0 + u] & 3;
-              const float x = lag == 3 ? v3 : (lag == 2 ? v2 : v1);
-              v3 = v2;
-              v2 = v1;
-              v1 = chain_step(x, fk[x0 + j0 + u]);
-            }
-            v[u] = v1;
-          }
-          cur32[j0 >> 2] = pack4(v);
-        }
-      }
+      replay_segment(fk + x0, meta + x0, flag + s, bnd[s], min(kSeg, W - x0), cur + x0);
     }
     __syncthreads();
 
@@ -811,6 +851,253 @@ __global__ void __launch_bounds__(1024)
       }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// reconstruct_rows_cluster: the same scheme for rows too wide for one block's
+// shared memory, one thread-block cluster of C CTAs a (image, channel) chain.
+// The S segments of a row split evenly over the CTAs: CTA j owns segments
+// [j S / C, (j + 1) S / C) and their columns, and holds their fk, meta,
+// flags, LUTs, staged inputs and its columns of the 4-row ring in its own
+// shared memory.  For each row:
+//   1. stage: each CTA stages its slice.  A CONST reference reaches at most 3
+//      columns either side of its pixel, wrapping at the row's ends, so those
+//      at a slice's edges (and the first and last columns' wrap) read the
+//      rows above from the neighbouring CTA's ring through distributed shared
+//      memory;
+//   2. build: each CTA builds its segments' LUTs, as the one-block kernel;
+//   3. resolve, in three levels: each CTA composes its groups of kCGroup
+//      segments, then its groups into one LUT triple (the CTA's); after a
+//      cluster barrier every CTA copies the triples of the CTAs before it,
+//      and one thread carries the row's entry triple (the previous row's
+//      last three values) across them and on across its own groups; one
+//      thread a group then resolves its segments;
+//   4. replay: each CTA replays its segments and stores its columns;
+//   5. fix-up: the last CTA recomputes columns W - 3 .. W - 1.  Their CONST
+//      references land in columns 0..2 of the row, which one of its threads
+//      computes during step 3 from the first CTA's first three pixels and
+//      the row's entry triple.
+// Two cluster barriers a row: after the composition (every CTA's stage done
+// and its triple written; every CTA reads the triples and the row's entry
+// only after it) and after the replay (the ring rows final for the next
+// row's stage); the stores of a row's columns run between that barrier's
+// arrive and its wait.  The outputs equal the one-block kernel's: the same
+// steps in the same precision.
+// ---------------------------------------------------------------------------
+constexpr int kMaxCtas = 16;       // the largest cluster (16 is non-portable)
+constexpr int kSlicePixels = 1024; // a CTA's share of a row that sets the cluster's size
+constexpr int kCGroup = 8;         // segments a group in a CTA's resolve
+
+// First segment of CTA j of C over S segments.
+__host__ __device__ __forceinline__ int slice_seg(int j, int S, int C) {
+  return (int)((long long)j * S / C);
+}
+
+// Byte offsets of one CTA's buffers at width W over C CTAs.
+struct ClusterLayout {
+  int SP, P;  // the most segments and columns of a slice
+  size_t fk, meta, ring, lut, tags, bnd, flag, xlut, xtags, xbnd, clut, misc, stage, end;
+  __host__ __device__ ClusterLayout(int W, int C) {
+    const int S = (W + kSeg - 1) / kSeg;
+    SP = (S + C - 1) / C;
+    P = SP * kSeg;
+    const size_t NX = C - 1 + (SP + kCGroup - 1) / kCGroup;  // the CTAs before, then own groups
+    fk = 0;                             // per column: float2 (k / 2, addend)
+    meta = fk + 8 * (size_t)P;          // per column: lag | cc << 2 | d << 8
+    ring = meta + 4 * (size_t)P;        // rows r-4 .. r-1 of the slice, stride P
+    lut = ring + 4 * (size_t)P;         // SP x 3 lags x 256 bytes
+    tags = lut + 768 * (size_t)SP;
+    bnd = tags + r16(4 * (size_t)SP);
+    flag = bnd + r16(4 * (size_t)SP);
+    xlut = flag + r16(4 * (size_t)SP);  // NX LUT triples: the CTAs' before this one, own groups'
+    xtags = xlut + 768 * NX;
+    xbnd = xtags + r16(4 * NX);
+    clut = xbnd + r16(4 * NX);          // this CTA's triple, read by the CTAs after it
+    misc = clut + 768;                  // words: its tags, the row's entry, columns 0..2
+    stage = misc + 16;                  // form, delta, refoff of the next row
+    end = stage + 12 * (size_t)P;
+  }
+};
+
+// A cluster barrier in two halves (release on arrive, acquire on wait, by
+// default): a thread's writes before its arrive are seen after every wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(1024)
+    reconstruct_rows_cluster_kernel(const int* __restrict__ form, const int* __restrict__ delta,
+                                    const int* __restrict__ refoff, const int* __restrict__ prev4,
+                                    int* __restrict__ out, int N, int W) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int j = (int)cluster.block_rank();
+  const ClusterLayout lay(W, C);
+  const int bc = blockIdx.x / C;  // b * 3 + c
+  const long long b = bc / 3;
+  float2* fk = reinterpret_cast<float2*>(smem + lay.fk);
+  uint32_t* meta = reinterpret_cast<uint32_t*>(smem + lay.meta);
+  uint8_t* ring = smem + lay.ring;
+  uint2* lut2 = reinterpret_cast<uint2*>(smem + lay.lut);
+  const uint8_t* lut8 = smem + lay.lut;
+  uint32_t* tags = reinterpret_cast<uint32_t*>(smem + lay.tags);
+  uint32_t* bnd = reinterpret_cast<uint32_t*>(smem + lay.bnd);
+  uint32_t* flag = reinterpret_cast<uint32_t*>(smem + lay.flag);
+  uint8_t* xlut = smem + lay.xlut;
+  uint32_t* xtags = reinterpret_cast<uint32_t*>(smem + lay.xtags);
+  uint32_t* xbnd = reinterpret_cast<uint32_t*>(smem + lay.xbnd);
+  uint8_t* clut = smem + lay.clut;
+  uint32_t* misc = reinterpret_cast<uint32_t*>(smem + lay.misc);  // ctag, entry, edge
+  int* st_form = reinterpret_cast<int*>(smem + lay.stage);
+  int* st_delta = st_form + lay.P;
+  int* st_ro = st_delta + lay.P;
+
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int Pp = lay.P;  // ring stride
+  const int S = (W + kSeg - 1) / kSeg;
+  const int s0 = slice_seg(j, S, C);
+  const int nseg = slice_seg(j + 1, S, C) - s0;
+  const int x0 = s0 * kSeg;
+  const int P = min(W, (s0 + nseg) * kSeg) - x0;  // this slice's columns
+  const int NG = (nseg + kCGroup - 1) / kCGroup;
+  const bool last = j == C - 1;
+  const int H = N / W;
+  const int* f_img = form + b * N;
+  const int* ro_img = refoff + b * N;
+  const int* d_img = delta + (long long)bc * N;
+  int* o_img = out + (long long)bc * N;
+
+  // the ring's byte at column col of a slot, from the CTA that owns it
+  auto ring_at = [&](int slot, int col) -> uint32_t {
+    if (col >= x0 && col < x0 + P) return ring[slot * Pp + col - x0];
+    const int o = (int)(((long long)(col / kSeg + 1) * C + S - 1) / S) - 1;
+    return *cluster.map_shared_rank(ring + slot * Pp + col - slice_seg(o, S, C) * kSeg, o);
+  };
+
+  const int* p4 = prev4 != nullptr ? prev4 + (long long)bc * 4 * W : nullptr;
+  for (int i = tid; i < 4 * Pp; i += nt) {
+    const int q = i / Pp, xl = i - q * Pp;
+    ring[i] = p4 != nullptr && xl < P ? (uint8_t)p4[q * W + x0 + xl] : 0;
+  }
+  for (int s = tid; s < nseg; s += nt) flag[s] = 0;
+  auto fetch = [&](int r) {  // cp.async the slice's inputs of row r into the stage
+    const long long base = (long long)r * W + x0;
+    for (int x = tid; x < P; x += nt) {
+      cp_async4(st_form + x, f_img + base + x);
+      cp_async4(st_delta + x, d_img + base + x);
+      cp_async4(st_ro + x, ro_img + base + x);
+    }
+    cp_async_commit();
+  };
+  fetch(0);
+  cp_async_wait_all();
+  cluster_arrive();  // the rings are set, and every CTA of the cluster runs
+
+  for (int r = 0; r < H; ++r) {
+    uint8_t* cur = ring + (r & 3) * Pp;
+    const uint8_t* above = ring + ((r + 3) & 3) * Pp;  // row r - 1
+    cluster_wait();  // the rows above are final in every slice; this row's stage is here
+
+    // 1. stage: each column's (lag, k, c)
+    for (int xl = tid; xl < P; xl += nt)  // any form outside 0..3 is HALF
+      stage_pixel(st_form[xl], st_ro[xl], st_delta[xl] & 255, x0 + xl, xl, r, W, ring_at, above, fk,
+                  meta, flag);
+    __syncthreads();
+    if (r + 1 < H) fetch(r + 1);  // overlaps the rest of this row
+
+    // 2. build: item = (segment s, lane l holding candidates 8l .. 8l+7)
+    for (int item = tid; item < nseg * 32; item += nt) {
+      const int s = item >> 5;
+      const int xs = s * kSeg;
+      build_segment(fk + xs, meta + xs, flag + s, min(kSeg, P - xs), item & 31, lut2 + s * 96,
+                    tags + s);
+    }
+    __syncthreads();
+
+    // 3. resolve: a warp composes each group into xlut slot j + g, one warp
+    //    the groups into the CTA's triple (the last CTA's is read by none)
+    for (int g = tid >> 5; g < NG; g += nt >> 5)
+      compose_group(lut8, tags, g * kCGroup, min(nseg, (g + 1) * kCGroup), xlut + (j + g) * 768,
+                    xtags + j + g, tid & 31);
+    __syncthreads();
+    if (!last && tid < 32) compose_group(xlut, xtags, j, j + NG, clut, misc, tid);
+    cluster_arrive();
+    cluster_wait();  // every CTA's triple, and every stage of this row, done
+
+    // the triples of the CTAs before this one, and the row's entry triple
+    for (int i = tid; i < j * 48; i += nt) {
+      const int o = i / 48, q = i - o * 48;
+      reinterpret_cast<uint4*>(xlut + o * 768)[q] =
+          *cluster.map_shared_rank(reinterpret_cast<const uint4*>(clut) + q, o);
+    }
+    for (int o = tid; o < j; o += nt) xtags[o] = *cluster.map_shared_rank(misc, o);
+    if (tid == nt - 1) {
+      const int slot = (r + 3) & 3;
+      misc[1] = ring_at(slot, W - 1) | (ring_at(slot, W - 2) << 8) | (ring_at(slot, W - 3) << 16);
+    }
+    __syncthreads();
+    if (tid == 0) {
+      const uint32_t e = misc[1];
+      resolve_run(xlut, xtags, xbnd, 0, j + NG, e & 255, (e >> 8) & 255, e >> 16);
+    } else if (last && tid == nt - 1) {
+      // columns 0..2 of this row, for the fix-up: the first CTA's first
+      // three pixels from the row's entry triple (none of them is fixed up)
+      const float2* fk0 = cluster.map_shared_rank(fk, 0);
+      const uint32_t* meta0 = cluster.map_shared_rank(meta, 0);
+      const uint32_t e = misc[1];
+      float v1 = as_chain(e & 255), v2 = as_chain((e >> 8) & 255), v3 = as_chain(e >> 16);
+      uint32_t edge = 0;
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {
+        const uint32_t lag = meta0[u] & 3;
+        const float x = lag == 3 ? v3 : (lag == 2 ? v2 : v1);
+        v3 = v2;
+        v2 = v1;
+        v1 = chain_step(x, fk0[u]);
+        edge |= chain_byte(v1) << (8 * u);
+      }
+      misc[2] = edge;
+    }
+    __syncthreads();
+    for (int g = tid; g < NG; g += nt) {
+      const uint32_t e = xbnd[j + g];
+      resolve_run(lut8, tags, bnd, g * kCGroup, min(nseg, (g + 1) * kCGroup), e & 255,
+                  (e >> 8) & 255, e >> 16);
+    }
+    __syncthreads();
+
+    // 4. replay: one thread per segment, four bytes to a ring word
+    for (int s = tid; s < nseg; s += nt) {
+      const int xs = s * kSeg;
+      replay_segment(fk + xs, meta + xs, flag + s, bnd[s], min(kSeg, P - xs), cur + xs);
+    }
+    __syncthreads();
+
+    // 5. the last CTA's thread 0 fixes up columns W - 3 .. W - 1 (the slice
+    //    holds far more than the 6 columns they read back)
+    const long long row = (long long)r * W + x0;
+    if (last && tid == 0) {
+      const uint32_t edge = misc[2];
+      for (int xl = P - 3; xl < P; ++xl) {
+        const uint32_t m = meta[xl];
+        const uint32_t cc = (m >> 2) & 3, lag = m & 3;
+        float2 p = fk[xl];
+        if (cc) p = pixel_fk(0, 2 * ((((edge >> (8 * (cc - 1))) & 255) + (m >> 8)) & 255));
+        const uint32_t v = chain_byte(chain_step(as_chain(cur[xl - lag]), p));
+        cur[xl] = v;
+        o_img[row + xl] = v;
+      }
+    }
+    cp_async_wait_all();  // the next row's stage
+    cluster_arrive();     // this row's ring columns are final
+    for (int xl = tid; xl < (last ? P - 3 : P); xl += nt) o_img[row + xl] = cur[xl];
+  }
+  cluster_wait();  // no CTA leaves while another may read its shared memory
 }
 
 }  // namespace
@@ -849,19 +1136,102 @@ int nt_value_join(const void* bins, const void* tbl, void* out, int K, int B, lo
   return (int)cudaGetLastError();
 }
 
-// Per-chain scratch bytes that nt_reconstruct_rows needs at width W on this
-// device: 0 when its buffers fit in a block's shared memory, -1 on error.
-long long nt_recon_scratch_bytes(int W, int device) {
-  int optin = 0;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess)
-    return -1;
-  const ReconLayout lay(W);
-  return lay.end <= (size_t)optin ? 0 : (long long)lay.stage;
+}  // extern "C"
+
+namespace {
+
+constexpr int kMaxDevices = 64;
+int g_cluster_limit[kMaxDevices];  // 0 not probed yet, -1 no cluster, else the most CTAs
+
+// The most CTAs a cluster of the cluster kernel takes on a device: 16, or 8
+// where it refuses 16 (said once on stderr), or none below sm_90.  Probed
+// once a device at its largest shared memory, when the kernel's attributes
+// are set, once.  A failed probe returns its error and leaves none behind,
+// and an sm_90 device that refuses an 8-CTA cluster is an error: neither
+// falls back to the device-memory scratch path.  Sets the current device.
+cudaError_t cluster_limit(int device, int optin, int* most) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  int& lim = g_cluster_limit[device];
+  if (lim == 0) {  // two threads may both probe; each stores the same answer
+    int major = 0;
+    cudaError_t err = cudaDeviceGetAttribute(&major, cudaDevAttrComputeCapabilityMajor, device);
+    if (err != cudaSuccess) return err;
+    int found = -1;
+    if (major >= 9) {
+      const void* fn = reinterpret_cast<const void*>(reconstruct_rows_cluster_kernel);
+      err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      for (int c = kMaxCtas; c >= 8 && found < 0 && err == cudaSuccess; c /= 2) {
+        cudaLaunchConfig_t cfg = {};
+        cudaLaunchAttribute attr = {};
+        attr.id = cudaLaunchAttributeClusterDimension;
+        attr.val.clusterDim.x = c;
+        attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+        cfg.gridDim = dim3(c);
+        cfg.blockDim = dim3(1024);
+        cfg.dynamicSmemBytes = optin;
+        cfg.attrs = &attr;
+        cfg.numAttrs = 1;
+        int n = 0;
+        err = cudaOccupancyMaxActiveClusters(&n, fn, &cfg);
+        if (err == cudaSuccess && n > 0) found = c;
+      }
+      if (err != cudaSuccess) {
+        cudaGetLastError();  // the probe's own error, returned here
+        return err;
+      }
+      if (found < 0) return cudaErrorNotSupported;
+      if (found < kMaxCtas)
+        std::fprintf(stderr, "nicetpu_torch: device %d refuses %d-CTA clusters; wide rows take %d\n",
+                     device, kMaxCtas, found);
+    }
+    lim = found;
+  }
+  *most = lim > 0 ? lim : 0;
+  return cudaSuccess;
 }
 
-// prev4: the (B, 3, 4W) carry, or nullptr for zeros before the raster start.
+}  // namespace
+
+extern "C" {
+
+// Where a chain of width W runs on this device: ctas 1 (one block, buffers
+// in shared memory), 2..16 (a cluster: the fewest, a power of two, that
+// gives each CTA at most about kSlicePixels columns and fits) or 0 (one
+// block, buffers in device memory); scratch, the device-memory bytes a
+// chain needs (0 unless ctas is 0).  Returns a CUDA error.
+int nt_recon_plan(int W, int device, int* ctas, long long* scratch) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  *ctas = 1;
+  *scratch = 0;
+  if (ReconLayout(W).end <= (size_t)optin) return (int)cudaSuccess;
+  int most = 0;
+  err = cluster_limit(device, optin, &most);
+  if (err != cudaSuccess) return (int)err;
+  const int S = (W + kSeg - 1) / kSeg;
+  int c = 2;
+  while (c < most && c * kSlicePixels < W) c *= 2;
+  for (*ctas = 0; c <= most && 2 * c <= S; c *= 2) {
+    if (ClusterLayout(W, c).end <= (size_t)optin) {
+      *ctas = c;
+      return (int)cudaSuccess;
+    }
+  }
+  *scratch = (long long)ReconLayout(W).stage;
+  return (int)cudaSuccess;
+}
+
+// prev4: the (B, 3, 4W) carry, or nullptr for zeros before the raster start;
+// ctas and scratch (its bytes a chain where ctas is 0) as nt_recon_plan
+// gives them for W on this device.
 int nt_reconstruct_rows(const void* form, const void* delta, const void* refoff, const void* prev4,
-                        void* out, void* scratch, int B, int N, int W, int device, void* stream) {
+                        void* out, void* scratch, int ctas, int B, int N, int W, int device,
+                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int S = (W + kSeg - 1) / kSeg;
@@ -872,10 +1242,30 @@ int nt_reconstruct_rows(const void* form, const void* delta, const void* refoff,
   const int* p4 = static_cast<const int*>(prev4);
   int* o = static_cast<int*>(out);
   cudaStream_t st = (cudaStream_t)stream;
-  if (scratch) {
+  if (ctas == 0) {
+    if (!scratch) return (int)cudaErrorInvalidValue;
     reconstruct_rows_kernel<false>
         <<<3 * B, threads, 0, st>>>(f, d, ro, p4, o, static_cast<uint8_t*>(scratch), N, W);
-  } else {
+  } else if (ctas > 1) {
+    // a size the probe allowed (it set the attributes), each CTA two segments or more
+    if (device < 0 || device >= kMaxDevices || ctas > g_cluster_limit[device] || 2 * ctas > S)
+      return (int)cudaErrorInvalidValue;
+    const ClusterLayout lay(W, ctas);
+    const int cthreads = 32 * lay.SP < 256 ? 256 : (32 * lay.SP > 1024 ? 1024 : 32 * lay.SP);
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr = {};
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = ctas;
+    attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+    cfg.gridDim = dim3(3 * B * ctas);
+    cfg.blockDim = dim3(cthreads);
+    cfg.dynamicSmemBytes = lay.end;
+    cfg.stream = st;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, reconstruct_rows_cluster_kernel, f, d, ro, p4, o, N, W);
+    if (err != cudaSuccess) return (int)err;
+  } else if (ctas == 1) {
     const size_t smem = ReconLayout(W).end;
     if (smem > 48 * 1024) {
       err = cudaFuncSetAttribute(reconstruct_rows_kernel<true>,
@@ -883,6 +1273,8 @@ int nt_reconstruct_rows(const void* form, const void* delta, const void* refoff,
       if (err != cudaSuccess) return (int)err;
     }
     reconstruct_rows_kernel<true><<<3 * B, threads, smem, st>>>(f, d, ro, p4, o, nullptr, N, W);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

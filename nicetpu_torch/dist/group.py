@@ -74,6 +74,7 @@ CLOSE_WAIT = 30.0  # seconds a helper is given to leave on close before it is ki
 PARENT_POLL = 0.5  # seconds between a helper's checks that rank 0's process lives
 COUNTERS = ("rasters", "fallbacks", "overflow_fallbacks", "host_served", "scattered_bytes",
             "records_bytes", "device_stitches")
+RANK_COUNTERS = ("records_bytes", "recon_chains", "recon_cluster_chains")  # summed per rank
 CFG = decode3.LADDER[-1]  # the sharded decode's walk: the robust rung
 WHOLE_ON_HOST = {"rasters": 1, "fallbacks": 1, "host_served": 1}  # a raster that does not split
 
@@ -405,8 +406,10 @@ class ShardGroup:
         wrote on card 0: 0 on the host routes and on the CPU),
         "group_calls" (calls the group ran, whose counters follow) and,
         under "ranks", each rank's
-        "peak_device_bytes" (the largest), "stage_ms", "records_bytes" and,
-        while spans record, "span_ms".  marks: a list receives rank 0's
+        "peak_device_bytes" (the largest), "stage_ms", "records_bytes",
+        "recon_chains" and "recon_cluster_chains" (the chains it
+        reconstructed, and those on a thread-block cluster) and, while spans
+        record, "span_ms".  marks: a list receives rank 0's
         (stage, CUDA event) marks, and every rank times its stages by
         events."""
         img = to_rgb(img)
@@ -438,7 +441,8 @@ def _merge(stats: dict, counters: dict, n: int) -> None:
     for r, c in counters.items():
         mine = ranks[r]
         mine["peak_device_bytes"] = max(mine.get("peak_device_bytes", 0), c["peak_device_bytes"])
-        mine["records_bytes"] = mine.get("records_bytes", 0) + c.get("records_bytes", 0)
+        for key in RANK_COUNTERS:
+            mine[key] = mine.get(key, 0) + c.get(key, 0)
         for key in ("stage_ms", "span_ms"):
             for stage, ms in c.get(key, {}).items():
                 mine.setdefault(key, {})

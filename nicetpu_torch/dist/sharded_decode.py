@@ -154,7 +154,9 @@ def decode_block(call: RankCall, data: bytes, cfg: decode3.WalkCfg):
     join and the records, so that a 16384x16384 raster's shards fit four
     ranks on one card.  The call's stats, where given, receive "gates",
     "real_slots" and accumulate "records_bytes" (the bytes of the records
-    all-gather that this rank receives)."""
+    all-gather that this rank receives), "recon_chains" (the (image,
+    channel) chains it reconstructs) and "recon_cluster_chains" (those that
+    ran on a thread-block cluster: 0 on the CPU)."""
     comm, device, stages, stats = call.comm, call.device, call.stages, call.stats
     W, H, _ = headers.parse_file_header(data)
     n, rank = comm.size, comm.rank
@@ -271,7 +273,8 @@ def decode_block(call: RankCall, data: bytes, cfg: decode3.WalkCfg):
     with stages.stage("carry_wait"):
         carry = comm.recv_prev(torch.zeros(1, 3, 4 * W, dtype=torch.int32, device=device))
     with stages.stage("recon"):
-        out, tail = recon.reconstruct_rows(form, delta, refoff, width=W, prev4=carry.contiguous())
+        out, tail = recon.reconstruct_rows(form, delta, refoff, width=W, prev4=carry.contiguous(),
+                                           stats=stats)
         comm.send_next(tail)
     return out[0].to(torch.uint8)
 
@@ -323,9 +326,9 @@ def decode_sharded(data: bytes, *, device="cuda", group=None, cfg: decode3.WalkC
     receives "fallbacks" (1 when the host decoder served the raster),
     "gates" (the four gates over all ranks, where the walk ran),
     "real_slots" (this rank's slots of real pixels, 0 on a shard of runs
-    only, which launches no value join), "records_bytes" and "stages" (this
-    rank's host seconds per stage, the spans "dist.<stage>"; nothing waits
-    for the device)."""
+    only, which launches no value join), "records_bytes", "recon_chains",
+    "recon_cluster_chains" and "stages" (this rank's host seconds per
+    stage, the spans "dist.<stage>"; nothing waits for the device)."""
     return decode_raster(RankCall(Comm(group), resolve_device(device), stats), data, cfg, everywhere=True)
 
 

@@ -95,7 +95,8 @@ def load() -> ctypes.CDLL:
             "nt_walk": [vp, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
                         i32, vp],
             "nt_value_join": [vp, vp, vp, i32, i32, i64, i32, vp],
-            "nt_reconstruct_rows": [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp],
+            "nt_reconstruct_rows": [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp],
+            "nt_recon_plan": [i32, i32, vp, vp],
             "nt_huffman_tables": [vp, i32, vp, vp, vp, i32, i32, vp],
             "nt_first_change": [vp, vp, i32, i64, i64, i64, i64, i64, i32, vp],
             "nt_tokenize_bins": [vp, vp, i32, vp, vp, i64, i64, i32, i64, i64, i64, i64, i64, i32, i32,
@@ -110,8 +111,6 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.restype = i32
             fn.argtypes = argtypes
-        lib.nt_recon_scratch_bytes.restype = i64
-        lib.nt_recon_scratch_bytes.argtypes = [i32, i32]
         lib.nt_error_string.restype = ctypes.c_char_p
         lib.nt_error_string.argtypes = [i32]
         _lib = lib

@@ -27,7 +27,8 @@ Each kernel has
   * a launch count in `LAUNCHES`, raised by one at each kernel launch only
     (the tokenizer's once a call of its one launch; the sharded path's
     `first_change` before it is not counted; the slot assembly's once a
-    call of its three).
+    call of its three; a reconstruction on a thread-block cluster counts
+    in "reconstruct_rows" and in "reconstruct_rows_cluster").
 
 Tensors carrying uint32 values (codes, records) are int32 bit patterns.
 """
@@ -51,8 +52,9 @@ FOLD_CAPW = 10  # words per group record (320 bits), as kCapw in the kernel
 
 LAUNCHES = {
     "histogram": 0, "table_join": 0, "fold_records": 0,
-    "walk": 0, "value_join": 0, "reconstruct_rows": 0, "huffman_tables": 0, "tokenize": 0,
-    "decode_tables": 0, "walk_tables": 0, "slot_assemble": 0, "stitch": 0,
+    "walk": 0, "value_join": 0, "reconstruct_rows": 0, "reconstruct_rows_cluster": 0,
+    "huffman_tables": 0, "tokenize": 0, "decode_tables": 0, "walk_tables": 0, "slot_assemble": 0,
+    "stitch": 0,
 }
 _LAUNCHES_LOCK = threading.Lock()  # worker threads launch concurrently; the counts stay exact
 

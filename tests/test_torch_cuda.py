@@ -18,10 +18,11 @@ from nicetpu_torch.dist import launch, sharded_decode
 from nicetpu_torch.format import constants as C
 from nicetpu_torch.hostref import oracle
 from nicetpu_torch.bench import make_image
-from nicetpu_torch.kernels import build, cuda_ops, decode3, decode_dev, encode2, huffman_dev, recon
+from nicetpu_torch.kernels import cuda_ops, decode3, decode_dev, encode2, huffman_dev, recon
 from nicetpu_torch.kernels import tokenize as tok
 
 from _decode_table_rows import INT64_ONLY, LENGTH_ROWS, WALK_ROWS
+from _recon_rows import random_inputs as recon_random_inputs, seam_inputs as recon_seam_inputs
 from _huffman_rows import _bounds, _deep, _heavy, _random, _sparse, _ties, _zero
 from _slot_rows import CASES as SLOT_CASES, records as slot_records
 from _stitch_rows import CASES as STITCH_CASES, HEADER_LENGTHS, header as stitch_header, random_bits
@@ -656,32 +657,68 @@ def test_decode_core_runs_the_kernel_and_no_torch_scan(dev):
     assert not names & {"aten::nonzero", "aten::cummax", "aten::cumsum"}, names
 
 
-def _recon_inputs(B, H, W, seed):
-    rng = np.random.default_rng(seed)
-    N = H * W
-    form = rng.integers(0, 5, (B, N)).astype(np.int32)
-    delta = rng.integers(0, 256, (B, 3, N)).astype(np.int32)
-    choices = np.array([0] + decode_dev._const_offsets(W), np.int32)
-    refoff = np.where(form == 0, rng.choice(choices, (B, N)), 0).astype(np.int32)
-    return [torch.from_numpy(a) for a in (form, delta, refoff)]
+CLUSTER_WIDTHS = (4352, 5000, 8192, 16384, 29051)  # past one block's shared memory (4,288 on an H100)
+SCRATCH_WIDTH = 70_000  # past a 16-CTA cluster's (62,976)
+
+
+def _recon_launch(dev, W, fn):
+    """fn() launches one reconstruction at width W: check that it counts
+    one launch, on a cluster exactly where the dispatch picks one, and
+    return its result."""
+    ctas = recon.cluster_ctas(W, dev)
+    assert (ctas > 0) == (W in CLUSTER_WIDTHS)
+    before = dict(cuda_ops.LAUNCHES)
+    got = fn()
+    assert cuda_ops.LAUNCHES["reconstruct_rows"] == before["reconstruct_rows"] + 1
+    assert cuda_ops.LAUNCHES["reconstruct_rows_cluster"] == before["reconstruct_rows_cluster"] + (ctas > 0)
+    return got
 
 
 # widths 4 and 20 (the smallest and the golden rasters'), a ragged width, the
 # main path's width at 64 rows (B = 1 and 8), 1100 (35 segments, the last one
-# ragged: the two-level resolve), 4096 (128 segments), and 5000 and 29,051,
-# past the shared-memory limit (LUTs, ring and row buffers in device-memory
-# scratch); at 29,051, 908 segments make 57 groups, more than a 1,024-thread
-# block has warps, so a warp composes several
+# ragged: the two-level resolve), 4096 (128 segments), on one block; 4352,
+# 5000, 8192, 16384 and 29,051 past one block's shared memory, on a cluster
+# a chain (every size the dispatch picks; at 29,051 the ragged last segment
+# and slices of 56 or 57 segments, 8 groups); 70,000 past a 16-CTA
+# cluster's, on one block with device-memory scratch (2,188 segments make
+# 137 groups, more than a 1,024-thread block has warps, so a warp composes
+# several)
 @pytest.mark.parametrize("B,H,W", [(1, 9, 4), (2, 7, 20), (3, 5, 37), (1, 64, 512), (8, 64, 512),
-                                   (2, 5, 1100), (1, 3, 4096), (1, 2, 5000), (1, 2, 29051)])
+                                   (2, 5, 1100), (1, 3, 4096), (1, 2, 4352), (1, 2, 5000), (2, 2, 8192),
+                                   (1, 2, 16384), (1, 2, 29051), (1, 1, SCRATCH_WIDTH)])
 def test_reconstruct_rows_matches_plain(dev, B, H, W):
-    scratch = build.load().nt_recon_scratch_bytes(W, torch.cuda.current_device())
-    assert (scratch > 0) == (W >= 5000)
-    form, delta, refoff = (t.to(dev) for t in _recon_inputs(B, H, W, seed=W))
-    before = cuda_ops.LAUNCHES["reconstruct_rows"]
-    got = recon.reconstruct_rows(form, delta, refoff, width=W)
-    assert cuda_ops.LAUNCHES["reconstruct_rows"] == before + 1
+    ctas, scratch = recon.chain_plan(W, dev)
+    assert (scratch > 0) == (W >= SCRATCH_WIDTH) == (ctas == 0)
+    form, delta, refoff = (t.to(dev) for t in recon_random_inputs(B, H, W, seed=W))
+    stats = {}
+    got = _recon_launch(dev, W, lambda: recon.reconstruct_rows(form, delta, refoff, width=W, stats=stats))
     _same(got, decode_dev.reconstruct_rows(form, delta, refoff, H * W, W))
+    assert stats == {"recon_chains": 3 * B, "recon_cluster_chains": 3 * B if ctas > 1 else 0}
+
+
+def test_reconstruct_rows_widths_take_every_cluster_size(dev):
+    """The widths above take every cluster size the dispatch can pick."""
+    sizes = {recon.cluster_ctas(w, dev) for w in range(4096, SCRATCH_WIDTH + 64, 32)}
+    assert {0, 8, 16} <= sizes
+    assert sizes == {recon.cluster_ctas(w, dev) for w in (4096, *CLUSTER_WIDTHS)}
+
+
+# CONST references, lag 2 and lag 3 on every column within 4 of a segment
+# boundary (every slice seam) and of the row's ends (the wrap), each CONST
+# offset in turn; with zeros and with a random carry above the block
+@pytest.mark.parametrize("W", CLUSTER_WIDTHS)
+@pytest.mark.parametrize("carry", [False, True], ids=["zeros", "carry"])
+def test_reconstruct_rows_seams_match_plain(dev, W, carry):
+    H = 3
+    form, delta, refoff = (t.to(dev) for t in recon_seam_inputs(1, H, W, seed=W + 11))
+    if not carry:
+        got = _recon_launch(dev, W, lambda: recon.reconstruct_rows(form, delta, refoff, width=W))
+        _same(got, decode_dev.reconstruct_rows(form, delta, refoff, H * W, W))
+        return
+    prev4 = torch.from_numpy(np.random.default_rng(W + 1).integers(0, 256, (1, 3, 4 * W))
+                             .astype(np.int32)).to(dev)
+    got = _recon_launch(dev, W, lambda: recon.reconstruct_rows(form, delta, refoff, width=W, prev4=prev4))
+    _same(got, decode_dev.reconstruct_rows(form, delta, refoff, H * W, W, prev4=prev4))
 
 
 def test_roundtrip_and_decode_on_the_card(dev):
@@ -694,7 +731,9 @@ def test_roundtrip_and_decode_on_the_card(dev):
     assert stats["fallbacks"] == 0 and stats["overflow_fallbacks"] == 0
     # the walk's tables come with the rest, in one launch a batch; one card
     # stitches nothing
-    assert all(n > 0 for k, n in cuda_ops.LAUNCHES.items() if k not in ("walk_tables", "stitch"))
+    assert all(n > 0 for k, n in cuda_ops.LAUNCHES.items()
+               if k not in ("reconstruct_rows_cluster", "walk_tables", "stitch"))
+    assert cuda_ops.LAUNCHES["reconstruct_rows_cluster"] == 0  # rows this narrow fit one block
     assert cuda_ops.LAUNCHES["stitch"] == 0
     assert cuda_ops.LAUNCHES["walk_tables"] == 0
     dstats = {}
@@ -760,23 +799,24 @@ def test_walk_shard_offsets_match_plain_and_the_unsharded_walk(dev, chunk_bits, 
               decode3.walk_plain(sl, before, aff, dD, inc, pfx, wb_rel, **kw))
 
 
-@pytest.mark.parametrize("B,H,W", [(2, 9, 20), (1, 12, 512), (2, 6, 1100), (1, 2, 5000)])
+@pytest.mark.parametrize("B,H,W", [(2, 9, 20), (1, 12, 512), (2, 6, 1100), (1, 2, 4352), (1, 2, 5000),
+                                   (1, 2, 8192), (1, 3, 16384), (1, 2, 29051), (1, 1, SCRATCH_WIDTH)])
 def test_reconstruct_rows_carry_matches_plain(dev, B, H, W):
-    """Kernel with a random carry against its plain version: the staged path
-    (20, 512, 1100 wide) and the device-memory scratch path (5000)."""
-    form, delta, refoff = (t.to(dev) for t in _recon_inputs(B, H, W, seed=W + 3))
+    """Kernel with a random carry against its plain version: one block in
+    shared memory (20, 512, 1100 wide), a cluster a chain (4352 to 29,051)
+    and one block with device-memory scratch (70,000)."""
+    form, delta, refoff = (t.to(dev) for t in recon_random_inputs(B, H, W, seed=W + 3))
     prev4 = torch.from_numpy(np.random.default_rng(W).integers(0, 256, (B, 3, 4 * W))
                              .astype(np.int32)).to(dev)
-    before = cuda_ops.LAUNCHES["reconstruct_rows"]
-    got = recon.reconstruct_rows(form, delta, refoff, width=W, prev4=prev4)
-    assert cuda_ops.LAUNCHES["reconstruct_rows"] == before + 1
+    got = _recon_launch(dev, W, lambda: recon.reconstruct_rows(form, delta, refoff, width=W, prev4=prev4))
     _same(got, decode_dev.reconstruct_rows(form, delta, refoff, H * W, W, prev4=prev4))
 
 
-@pytest.mark.parametrize("W,rows", [(512, (16, 16, 32)), (5000, (1, 2))])
+# 16384: a rank's rows of the four-card raster, on a cluster a chain
+@pytest.mark.parametrize("W,rows", [(512, (16, 16, 32)), (5000, (1, 2)), (16384, (2, 1, 3))])
 def test_reconstruct_rows_blocks_chained_on_the_card(dev, W, rows):
     H = sum(rows)
-    form, delta, refoff = (t.to(dev) for t in _recon_inputs(1, H, W, seed=W))
+    form, delta, refoff = (t.to(dev) for t in recon_random_inputs(1, H, W, seed=W))
     whole = recon.reconstruct_rows(form, delta, refoff, width=W)
     carry = torch.zeros(1, 3, 4 * W, dtype=torch.int32, device=dev)
     outs, r0 = [], 0
@@ -799,8 +839,9 @@ def test_dryrun_multichip_on_the_card(dev, n, backend):
         # a rank whose shard holds runs only has no real slot to join
         # (sharded_decode); the walk's tables come with the decode tables;
         # the sharded decode assembles its slots with its own carried scans;
-        # rank 0 alone stitches the file, once
-        assert unlaunched == ({"walk_tables", "slot_assemble"} | (set() if r["real_slots"] else {"value_join"})
+        # rank 0 alone stitches the file, once; its rows fit one block
+        assert unlaunched == ({"reconstruct_rows_cluster", "walk_tables", "slot_assemble"}
+                              | (set() if r["real_slots"] else {"value_join"})
                               | (set() if rank == 0 else {"stitch"})), r
         assert r["launches"]["stitch"] == (rank == 0)
 
@@ -888,10 +929,12 @@ def test_roundtrip_hybrid_on_the_card(dev, gpu_threads, cpu_threads):
         assert [d for d, _ in out] == [oracle.encode_native(im) for im in b]
         assert all(np.array_equal(a, im) for (_, a), im in zip(out, b))
     n = stats["gpu_batches"]
-    per_batch = [k for k in cuda_ops.LAUNCHES if k not in ("walk", "walk_tables", "stitch")]
+    per_batch = [k for k in cuda_ops.LAUNCHES
+                 if k not in ("walk", "reconstruct_rows_cluster", "walk_tables", "stitch")]
     assert {k: cuda_ops.LAUNCHES[k] for k in per_batch} == {k: n for k in per_batch}
     assert cuda_ops.LAUNCHES["walk"] == 2 * n + stats["retries"]
     assert cuda_ops.LAUNCHES["walk_tables"] == 0 and cuda_ops.LAUNCHES["stitch"] == 0
+    assert cuda_ops.LAUNCHES["reconstruct_rows_cluster"] == 0
 
 
 def test_an_exception_in_a_gpu_worker_fails_the_call(dev, monkeypatch):
@@ -937,7 +980,8 @@ def test_cli_and_corpus_on_the_card(dev, tmp_path, monkeypatch):
     # the CLI encodes through the two-step encode, whose Huffman tables are
     # built on the host; its decode builds the walk's tables with the rest;
     # one card stitches nothing
-    assert [k for k, n in cuda_ops.LAUNCHES.items() if n == 0] == ["huffman_tables", "walk_tables", "stitch"]
+    assert [k for k, n in cuda_ops.LAUNCHES.items() if n == 0] == ["reconstruct_rows_cluster", "huffman_tables",
+                                                                  "walk_tables", "stitch"]
 
     res = corpus.encode_corpus([png, str(tmp_path / "missing.png")], str(tmp_path / "enc"))
     assert (res.encoded, res.failed) == (1, 1)

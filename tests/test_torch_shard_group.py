@@ -71,6 +71,23 @@ def test_roundtrip_bytes_proof_and_pixels(group, name):
     assert {"upload", "stitch"} <= set(stats["ranks"][0]["stage_ms"])
 
 
+@pytest.mark.parametrize("entry", ["roundtrip", "decode", "encode"])
+def test_reconstruction_chains_reach_each_ranks_stats(group, entry):
+    """Every rank reconstructs its block's three channel chains a decode,
+    on one block each on the CPU (no cluster), and its counters reach the
+    merged per-rank stats; an encode reconstructs none."""
+    img = RASTERS["noise"]
+    stats: dict = {}
+    if entry == "roundtrip":
+        group.roundtrip(img, stats=stats)
+    elif entry == "decode":
+        group.decode(oracle.encode_native(img), stats=stats)
+    else:
+        group.encode(img, stats=stats)
+    chains = 0 if entry == "encode" else 3
+    assert [(r["recon_chains"], r["recon_cluster_chains"]) for r in stats["ranks"]] == [(chains, 0)] * group.n
+
+
 def test_encode_and_decode_alone(group):
     img = RASTERS["run-across-edge"]
     data = group.encode(img)
