@@ -77,6 +77,14 @@ Phases, one printed line or block each; any failure exits nonzero:
      four-card raster (1 x 4096 rows x 16,384 with a random carry) beside
      the one-block kernel on a 4096x4096 raster, on random forms and on
      forms that read lag 1 only (HALF and CONST), each beside its bound;
+     then config 4's largest device batch (api.plan_batches' first of
+     bench_all's 100 texture patches: 8 images 579-760 wide, zero-padded
+     to the largest, with their geometry table) through the tokenizer (3
+     and 11 digits), the slot assembly (the robust rung's walk records)
+     and the reconstruction: one counted launch each, each exact image by
+     image against the plain version (the reconstruction on each image's
+     first 32 rows, and whole against the images, zeros past each), each
+     table launch timed beside one scalar launch an image;
   3. encode 64 512x512 RGB8 images in 8 batches of 8 through
      nicetpu_torch.encode_batch(device=dev.type), the two-step encode: every
      blob equals the native encoder's, none falls back, every encode kernel
@@ -147,8 +155,10 @@ Phases, one printed line or block each; any failure exits nonzero:
      (rung_probe.single_device); each image's round-trip stage times and
      soccer0's decode stage times on each rung; decode_batch of the 8 committed files,
      exact; then nicetpu_torch.bench_real and bench_all's real-photo lines
-     (config 2, config 3's 2048x2048 soccer0 and config 4), where a counted
-     fallback is reported, not a failure;
+     (config 2, config 3's 2048x2048 soccer0 and config 4: the 100 mixed
+     texture patches through one api.roundtrip_batch, 13 device batches,
+     bytes equal to the native encoder's), where a counted fallback is
+     reported, not a failure;
  14. one device's memory: make_img(8192, 16384, 5) (1.57 G payload bits,
      below MAX_DEVICE_BITS) through decode_batch on the card, exact and
      with 0 fallbacks, its peak device memory beside the reckoning that
@@ -219,6 +229,8 @@ from nicetpu_torch.format.huffman import build_tables_host
 from nicetpu_torch.kernels import build, cuda_ops, decode3, decode_dev, encode2, huffman_dev, recon
 from nicetpu_torch.kernels import tokenize as tok
 from nicetpu_torch.kernels.encode2 import encode_fused_core, mark_stage
+from nicetpu_torch.kernels import geometry
+from nicetpu_torch.kernels.geometry import Geometry
 
 
 
@@ -484,7 +496,7 @@ def huffman_kernel(dev) -> dict:
 
     # the fused encode's tables with no host sync: under "error" any sync raises
     flat = pipeline.upload_batch([make_image(W512, W512, s) for s in range(B)], dev)
-    kw = dict(width=W512, ndigits_cap=3, w_cap=pipeline.w_cap(N))
+    kw = dict(geom=Geometry.uniform(W512, N, B, dev), ndigits_cap=3, w_cap=pipeline.w_cap(N))
     encode_fused_core(flat, **kw)  # warm-up: the allocator's blocks
     torch.cuda.synchronize()
     cuda_ops.reset_launches()
@@ -729,7 +741,7 @@ def decode_tables_kernels(dev) -> dict:
 
     # the round trip's tables with no host sync: under "error" any sync raises
     flat = pipeline.upload_batch([make_image(W512, W512, s) for s in range(B)], dev)
-    kw = dict(width=W512, ndigits_cap=3, w_cap=pipeline.w_cap(N))
+    kw = dict(geom=Geometry.uniform(W512, N, B, dev), ndigits_cap=3, w_cap=pipeline.w_cap(N))
 
     def fused():
         return decode3.prepare_tables_v3(encode_fused_core(flat, **kw)[1], walk=True)
@@ -833,7 +845,8 @@ def phase_decode_kernels(dev) -> dict:
     flat = pipeline.upload_batch(imgs, dev)
     cfg = decode3.LADDER[0]
     w_cap = decode3.roundtrip_cap_words(N)
-    words, lengths, totals, ovf = encode_fused_core(flat, width=W512, ndigits_cap=3, w_cap=w_cap)
+    geom = Geometry.uniform(W512, N, B, dev)
+    words, lengths, totals, ovf = encode_fused_core(flat, geom=geom, ndigits_cap=3, w_cap=w_cap)
     check(not bool(ovf.any()), "the kernel phase's encode overflowed")
     af, pr, ib, pfx, sym_tbl, _, ok, aff, dD, inc = decode3.prepare_tables_v3(lengths, walk=True)
     wi = decode3._fit_words(words, decode3._wcap_one((32 * (w_cap - 2)) // 8, cfg))
@@ -882,8 +895,8 @@ def phase_decode_kernels(dev) -> dict:
     out["value_join"].update(bound(2 * nbytes(bins) + nbytes(sym_tbl), bins.numel()))
 
     syms = cuda_ops.value_join(bins, sym_tbl)
-    rec, dst, _ = decode3.assemble_v3(pos.view(B, Sn), sym.view(B, Sn), *syms, N, W512, wbits)
-    form, delta, refoff = decode3.place_and_unpack(rec, dst, N, W512)
+    rec, dst, _ = decode3.assemble_v3(pos.view(B, Sn), sym.view(B, Sn), *syms, wbits, geom=geom)
+    form, delta, refoff = decode3.place_and_unpack(rec, dst, geom=geom)
     n_chk = RECON_CHECK_ROWS * W512
     f_c, d_c, r_c = form[:, :n_chk].contiguous(), delta[:, :, :n_chk].contiguous(), refoff[:, :n_chk].contiguous()
     out["reconstruct_rows"] = compare(
@@ -1137,8 +1150,9 @@ def phase_decode_kernels_real(dev) -> None:
     syms = cuda_ops.value_join(bins, sym_tbl)
     check(torch.equal(syms, cuda_ops.value_join_plain(bins, sym_tbl)),
           "value_join disagrees with its plain version on the real stream")
-    rec, dst, gates = decode3.assemble_v3(pos.view(1, S), sym.view(1, S), *syms, H * W, W, wbits)
-    form, delta, refoff = decode3.place_and_unpack(rec, dst, H * W, W)
+    geom = Geometry.uniform(W, H * W, 1, dev)
+    rec, dst, gates = decode3.assemble_v3(pos.view(1, S), sym.view(1, S), *syms, wbits, geom=geom)
+    form, delta, refoff = decode3.place_and_unpack(rec, dst, geom=geom)
     n_chk = REAL_CHECK_ROWS * W
     cut = [t[..., :n_chk].contiguous() for t in (form, delta, refoff)]
     check(torch.equal(recon.reconstruct_rows(*cut, width=W), decode_dev.reconstruct_rows(*cut, n_chk, W)),
@@ -1152,6 +1166,100 @@ def phase_decode_kernels_real(dev) -> None:
           f"rounds ({nch} chunks x {kw['steps']} steps; {int(live.sum())} groups, {digits} of them run "
           f"digits) equal walk_plain; value_join equals its plain version; reconstruct_rows equals its "
           f"plain version on the first {REAL_CHECK_ROWS} rows and the image in full")
+
+
+MIXED_REPS = 10  # timed calls of each kernel on the mixed batch
+
+
+def phase_mixed_kernels(dev) -> None:
+    """Config 4's largest device batch (the first of `api.plan_batches` on
+    bench_all's 100 texture patches: 8 images 579-760 wide, zero-padded to
+    the largest) through the tokenizer, the slot assembly and the
+    reconstruction with the batch's geometry table: one counted launch
+    each, exact against the plain versions image by image (and the slot
+    assembly against its plain version of the whole batch), the
+    reconstruction equal to the images with zeros past each; each table
+    launch timed beside one scalar launch an image."""
+    t0 = time.perf_counter()
+    stream = bench_all.texture_patches(bench_all.mixed_sizes(), seed=9)
+    batch = [stream[i] for i in nicetpu_torch.api.plan_batches(stream, dev)[0]]
+    flat = pipeline.upload_batch(batch, dev)
+    geom = pipeline.batch_geometry(batch, flat)
+    shapes = list(zip(geom.widths, geom.n_pixels))
+    check(len(shapes) == nicetpu_torch.api.MAX_BATCH and len(set(geom.widths)) == len(shapes),
+          f"config 4's first batch holds {shapes}")
+    inv = encode2.INVALID_BIN
+    times = {}
+
+    for cap in (3, C.MAX_RUN_DIGITS):
+        before = cuda_ops.LAUNCHES["tokenize"]
+        bins, ovf = tok.tokenize_images(flat, geom=geom, ndigits_cap=cap, invalid_bin=inv)
+        check(cuda_ops.LAUNCHES["tokenize"] == before + 1, "the mixed batch's tokenizer was not one counted launch")
+        S = 5 + cap
+        for b, (w, n) in enumerate(shapes):
+            x = flat[b : b + 1, :n].contiguous()
+            want = tok.tokenize_bins_plain(x, width=w, halo=0, g0=0, n_total=n, ndigits_cap=cap, invalid_bin=inv)
+            check(torch.equal(bins[b, : n * S], want[0][0]) and bool(ovf[b]) == bool(want[1][0])
+                  and bool((bins[b, n * S :] == inv).all()),
+                  f"the table tokenizer differs from the plain version on image {b} ({n // w}x{w}) at {cap} digits")
+    xs = [(flat[b : b + 1, :n].contiguous(), w, n) for b, (w, n) in enumerate(shapes)]
+    times["tokenize"] = (
+        cuda_ms(lambda: tok.tokenize_images(flat, geom=geom, ndigits_cap=3, invalid_bin=inv), MIXED_REPS),
+        cuda_ms(lambda: [tok.tokenize_bins(x, width=w, halo=0, g0=0, n_total=n, ndigits_cap=3, invalid_bin=inv)
+                         for x, w, n in xs], MIXED_REPS))
+    del xs
+
+    # the robust rung's walk records: every image of the set decodes there
+    w_cap = decode3.roundtrip_cap_words(geom.n_max)
+    words, lengths, totals, ovf = encode_fused_core(flat, geom=geom, ndigits_cap=3, w_cap=w_cap)
+    check(not bool(ovf.any()), "the mixed batch's fused encode overflowed")
+    af, pr, ib, pfx, sym_tbl, _, tables_ok, aff, dD, inc = decode3.prepare_tables_v3(lengths, walk=True)
+    cfg = decode3.LADDER[-1]
+    wi = decode3._fit_words(words, decode3._words_cap((int(totals.max()) + 7) // 8, (cfg,)))
+    wbits = totals.to(torch.int32)
+    steps = decode3._steps(cfg.chunk_bits, cfg.steps_div)
+    pos, sym, i12, i34, ok1, ok2 = decode3.walk_rounds(wi, wbits, aff, dD, inc, pfx, chunk_bits=cfg.chunk_bits,
+                                                       steps=steps, rounds=cfg.rounds)
+    before = cuda_ops.LAUNCHES["slot_assemble"]
+    got = cuda_ops.slot_assemble(pos, sym, i12, i34, wbits, geom=geom)
+    check(cuda_ops.LAUNCHES["slot_assemble"] == before + 1, "the mixed batch's slot assembly was not one counted call")
+    whole = decode3.slot_assemble_plain(pos, sym, i12, i34, wbits, geom.column(geometry.N).to(torch.int64))
+    check(all(torch.equal(g, w) for g, w in zip(got, whole)),
+          "the table slot assembly differs from its plain version of the batch")
+    for b, (w, n) in enumerate(shapes):
+        alone = decode3.slot_assemble_plain(*(t[b : b + 1] for t in (pos, sym, i12, i34, wbits)), n)
+        k = alone[0].shape[1]
+        check(all(torch.equal(g[b, :k], a[0]) for g, a in zip(got[:5], alone[:5]))
+              and bool(got[5][b]) == bool(alone[5][0]),
+              f"the table slot assembly differs from image {b}'s alone ({n // w}x{w})")
+    del pos, sym, i12, i34, got, whole
+
+    form, delta, refoff, gates = decode3.decode_planes_v3(wi, wbits, af, pr, ib, pfx, sym_tbl, geom=geom,
+                                                          chunk_bits=cfg.chunk_bits, steps=steps, rounds=cfg.rounds,
+                                                          walk_tables=(aff, dD, inc))
+    check(bool(gates.all() & tables_ok.all()), f"the mixed batch's robust-rung gates: {gates.tolist()}")
+    before = cuda_ops.LAUNCHES["reconstruct_rows"]
+    out = recon.reconstruct_rows(form, delta, refoff, geom=geom)
+    check(cuda_ops.LAUNCHES["reconstruct_rows"] == before + 1, "the mixed batch's reconstruction was not one launch")
+    check(torch.equal(out, flat.transpose(1, 2).to(torch.int32)),
+          "the table reconstruction is not the images with zeros past each")
+    cut = []
+    for b, (w, n) in enumerate(shapes):
+        one = [t[b : b + 1, ..., :n].contiguous() for t in (form, delta, refoff)]
+        m = min(RECON_CHECK_ROWS, n // w) * w
+        plain = decode_dev.reconstruct_rows(*(t[..., :m].contiguous() for t in one), m, w)
+        check(torch.equal(out[b, :, :m], plain[0]),
+              f"the table reconstruction differs from the plain version on image {b}'s first rows ({w} wide)")
+        cut.append((one, w))
+    times["reconstruct_rows"] = (
+        cuda_ms(lambda: recon.reconstruct_rows(form, delta, refoff, geom=geom), MIXED_REPS),
+        cuda_ms(lambda: [recon.reconstruct_rows(*one, width=w) for one, w in cut], MIXED_REPS))
+    print(f"[mixed] config 4's first device batch, {len(shapes)} images {sorted(geom.widths)} wide "
+          f"({geom.n_max} pixels the largest): the tokenizer (3 and {C.MAX_RUN_DIGITS} digits), slot assembly and "
+          f"reconstruction with the table, one counted launch each, exact image by image; ms a table launch "
+          f"beside one scalar launch an image: "
+          f"{json.dumps({k: [round(v, 4) for v in t] for k, t in times.items()})}; "
+          f"took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def stage_ms(marks) -> dict:
@@ -1466,8 +1574,9 @@ def phase_sharded_kernels(dev, big, big_ref, blob512) -> None:
     pos, sym, i12, i34, _ = whole
     bins = decode3._payload_bins(sym.view(1, S), i12.view(1, S), i34.view(1, S))
     syms = cuda_ops.value_join(bins, sym_tbl)
-    rec, dst, _ = decode3.assemble_v3(pos.view(1, S), sym.view(1, S), *syms, H * W, W, wbits)
-    form, delta, refoff = decode3.place_and_unpack(rec, dst, H * W, W)
+    geom = Geometry.uniform(W, H * W, 1, dev)
+    rec, dst, _ = decode3.assemble_v3(pos.view(1, S), sym.view(1, S), *syms, wbits, geom=geom)
+    form, delta, refoff = decode3.place_and_unpack(rec, dst, geom=geom)
     full = recon.reconstruct_rows(form, delta, refoff, width=W)
     check(torch.equal(full, torch.from_numpy(big.reshape(1, -1, 3)).to(dev).transpose(1, 2).to(torch.int32)),
           "the 4096x4096 reconstruction differs from the image")
@@ -1691,7 +1800,8 @@ def phase_real(dev) -> None:
     for rung, cfg in enumerate(decode3.LADDER):
         marks = []
         mark_stage(marks, "begin")
-        _, ok, _ = decode3._decode_core_v3(*args, n_pixels=H * W, width=W, chunk_bits=cfg.chunk_bits,
+        _, ok, _ = decode3._decode_core_v3(*args, geom=Geometry.uniform(W, H * W, 1, dev),
+                                           chunk_bits=cfg.chunk_bits,
                                            steps=decode3._steps(cfg.chunk_bits, cfg.steps_div),
                                            rounds=cfg.rounds, marks=marks)
         torch.cuda.synchronize()
@@ -1970,6 +2080,7 @@ def main() -> int:
     kernels.update(stitch_kernel(dev))
     kernels["reconstruct_rows"].update(recon_cluster_kernel(dev))
     phase_decode_kernels_real(dev)
+    phase_mixed_kernels(dev)
 
     imgs = [make_image(512, 512, s) for s in range(64)]
     t0 = time.perf_counter()

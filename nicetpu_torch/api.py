@@ -29,11 +29,14 @@ from nicetpu_torch.convert import to_rgb as _to_rgb
 from nicetpu_torch.dist.group import ShardGroup  # noqa: F401  (the api's sharded path)
 from nicetpu_torch.format import headers
 from nicetpu_torch.hostref import oracle
-from nicetpu_torch.kernels import decode3, encode2
+from nicetpu_torch.kernels import decode3, encode2, recon
 from nicetpu_torch.spec import codec as spec_codec
 from nicetpu_torch.utils.profiling import span
 
 MAX_BATCH = 8  # images per device batch; bounds device memory per call
+# what `roundtrip_batch` counts of its device batches: the batches, the
+# images' pixels, and the pixels the batches hold (B x the largest image's)
+BATCH_STATS = ("device_batches", "image_pixels", "batch_pixels")
 
 
 def target(device, config) -> torch.device | str:
@@ -56,13 +59,26 @@ def _host_decode(codec: str, datas: list[bytes]) -> list[np.ndarray]:
     return [spec_codec.decode(d) for d in datas]
 
 
-def _batches(keys: list) -> list[list[int]]:
-    """Indices grouped by equal key (input order kept), cut into batches of
-    at most MAX_BATCH."""
+def _batches(keys: list, order=None) -> list[list[int]]:
+    """Indices grouped by equal key (in `order`, default the input order),
+    cut into batches of at most MAX_BATCH."""
     groups: dict = {}
-    for i, k in enumerate(keys):
+    for i, k in zip(range(len(keys)) if order is None else order, keys):
         groups.setdefault(k, []).append(i)
     return [idxs[s : s + MAX_BATCH] for idxs in groups.values() for s in range(0, len(idxs), MAX_BATCH)]
+
+
+def plan_batches(imgs: list[np.ndarray], device) -> list[list[int]]:
+    """The round trip's device batches: the images sorted, stably, by
+    pixel count, largest first, and cut into batches of at most MAX_BATCH
+    whatever their shapes, so that images of like size share a batch and
+    its padding stays small.  Images whose chains reconstruct on different
+    paths (`recon.chain_path`: one block, a cluster, device-memory scratch)
+    never share one.  A same-shape call gets `_batches`'s batches."""
+    with span("api.plan_batches"):
+        order = sorted(range(len(imgs)), key=lambda i: -imgs[i].shape[0] * imgs[i].shape[1])
+        paths = [recon.chain_path(im.shape[1], device) for im in imgs]
+        return _batches([paths[i] for i in order], order)
 
 
 def encode(img: np.ndarray, *, device=None, config=None, alpha: str = "drop") -> bytes:
@@ -146,38 +162,50 @@ def decode_batch(datas: list[bytes], *, device=None, config=None, chunk_bits: in
     return out
 
 
-def roundtrip_batch(imgs: list[np.ndarray], *, device="cuda",
-                    stats: dict | None = None) -> tuple[list[bytes], np.ndarray]:
+def roundtrip_batch(imgs: list[np.ndarray], *, device="cuda", stats: dict | None = None,
+                    marks=None) -> tuple[list[bytes], np.ndarray]:
     """Encode images and prove that each blob decodes back to its image.
 
-    Same-shape images share batches of up to MAX_BATCH, each encoded,
-    decoded from the resident words and compared on the device
-    (`pipeline.roundtrip_batch_resident`).  Returns (datas, verified): the
-    `.nice` bytes and a (len(imgs),) bool array, True where the device
-    proved the round trip.  The host codec proves the others.
+    The images, of any shapes, share device batches of up to MAX_BATCH
+    (`plan_batches`: largest first), each encoded, decoded from the
+    resident words and compared on the device, each image at its own
+    geometry (`pipeline.roundtrip_batch_resident`).  Returns (datas,
+    verified) in input order: the `.nice` bytes and a (len(imgs),) bool
+    array, True where the device proved the round trip.  The host codec
+    proves the others.
 
     stats: optional dict; receives "device" and accumulates "retries"
     (images retried on the robust rung), "fallbacks" (images proven on the
-    host), "overflow_fallbacks" (images encoded by the host codec) and
+    host), "overflow_fallbacks" (images encoded by the host codec),
     "overflow_decoded" (images decoded on the device although their encode
-    had overflowed)."""
+    had overflowed) and BATCH_STATS: "device_batches", "image_pixels" (the
+    images' pixels) and "batch_pixels" (each batch's images times its
+    largest image's pixels, the padded pixels the device took).
+
+    marks: optional list receiving (stage, CUDA event) pairs, each batch's
+    stages in turn (`pipeline.roundtrip_batch_resident`)."""
     dev = _resolve_device(device)
     imgs = [_to_rgb(im) for im in imgs]
     if stats is not None:
         stats["device"] = str(dev)
-        for k in pipeline.ROUNDTRIP_STATS:
+        for k in pipeline.ROUNDTRIP_STATS + BATCH_STATS:
             stats.setdefault(k, 0)
     datas: list[bytes | None] = [None] * len(imgs)
     verified = np.zeros(len(imgs), bool)
     with span("api.roundtrip_batch"):
-        for chunk in _batches([im.shape for im in imgs]):
+        for chunk in plan_batches(imgs, dev):
             batch = [imgs[i] for i in chunk]
             out, ok = pipeline.roundtrip_batch_resident(
-                pipeline.upload_batch(batch, dev), batch, stats=stats
+                pipeline.upload_batch(batch, dev), batch, stats=stats, marks=marks
             )
             for j, i in enumerate(chunk):
                 datas[i] = out[j]
                 verified[i] = ok[j]
+            if stats is not None:
+                n = [im.shape[0] * im.shape[1] for im in batch]
+                stats["device_batches"] += 1
+                stats["image_pixels"] += sum(n)
+                stats["batch_pixels"] += len(n) * max(n)
     return datas, verified
 
 

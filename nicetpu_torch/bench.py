@@ -194,12 +194,14 @@ def device_only(batches, refs, reps, dev, counts) -> list[float]:
     from nicetpu_torch.format import headers
     from nicetpu_torch.kernels import decode3
     from nicetpu_torch.kernels.encode2 import encode_fused
+    from nicetpu_torch.kernels.geometry import Geometry
 
     H, W, _ = batches[0][0][0].shape
     cap = pipeline.w_cap(H * W)
+    geoms = [Geometry.uniform(W, H * W, flat.shape[0], flat.device) for _, flat in batches]
 
     def enc_round():
-        smalls = [encode_fused(flat, width=W, ndigits_cap=3, w_cap=cap)[1] for _, flat in batches]
+        smalls = [encode_fused(flat, geom=g, ndigits_cap=3, w_cap=cap)[1] for (_, flat), g in zip(batches, geoms)]
         return [s.cpu().numpy() for s in smalls]
 
     outs, secs = timed(enc_round, reps, dev)
@@ -222,14 +224,16 @@ def device_only(batches, refs, reps, dev, counts) -> list[float]:
 
 def _device_roundtrip(batches, reps, dev, counts):
     from nicetpu_torch.kernels import decode3
+    from nicetpu_torch.kernels.geometry import Geometry
 
-    W = batches[0][0][0].shape[1]
+    H, W, _ = batches[0][0][0].shape
+    geoms = [Geometry.uniform(W, H * W, flat.shape[0], flat.device) for _, flat in batches]
 
     def rt_round():
         stats = []
-        for _, flat in batches:
+        for (_, flat), geom in zip(batches, geoms):
             st: dict = {}
-            _, small, verified = decode3.roundtrip_verify_fused(flat, width=W, stats=st)
+            _, small, verified = decode3.roundtrip_verify_fused(flat, geom=geom, stats=st)
             st["overflow_fallbacks"] = int(small[:, 859].sum())
             require(bool(verified.all()), f"device round trip not verified: {verified.tolist()}")
             stats.append(st)
@@ -245,6 +249,7 @@ def _decode(blobs, imgs, reps, dev, counts):
     """decode_batch_v3 from bytes, then the decode core on prepared
     arguments with a per-image checksum."""
     from nicetpu_torch.kernels import decode3
+    from nicetpu_torch.kernels.geometry import Geometry
 
     mb = sum(im.nbytes for im in imgs) / 1e6
     stats_e2e: list = []
@@ -264,7 +269,7 @@ def _decode(blobs, imgs, reps, dev, counts):
 
     args, (H, W) = decode3.prepare_batch_args(blobs, device=dev)
     cfg = decode3.LADDER[0]
-    kw = dict(n_pixels=H * W, width=W, chunk_bits=cfg.chunk_bits,
+    kw = dict(geom=Geometry.uniform(W, H * W, len(blobs), dev), chunk_bits=cfg.chunk_bits,
               steps=decode3._steps(cfg.chunk_bits, cfg.steps_div), rounds=cfg.rounds)
 
     def core():

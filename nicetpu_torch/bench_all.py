@@ -14,8 +14,10 @@ measurement (counterpart of `bench_all.py`).
      (`soccer0`, `config3_real`): `decode3.decode_batch_v3` of its bytes
      and the device-compute decode through the retry ladder on resident
      arguments, each with its fallbacks, retries and gates;
-  4. 100 real-photo patches of mixed sizes (sides 128..767), encoded and
-     decoded with the `native` backend and on the card;
+  4. 100 photo patches of mixed sizes (sides 128..767, `texture_patches`:
+     cut from the corpus's wood, marble and skin textures in turn, at
+     seeded offsets), encoded and decoded with the `native` backend and on
+     the card;
   5. one `make_img(14336, 14336, 5)` raster (a payload of about 2.4 G
      bits, past 2**31) through `encode_sharded` and `decode_sharded` on its
      default rung, the robust one (`decode3.LADDER[-1]`), over 4 ranks:
@@ -61,6 +63,7 @@ CONFIG5_WARM_SIDE = 512  # each rank warms on a raster this size first
 CONFIG5_TIMEOUT = 900.0  # seconds the spawned ranks may take in all
 KODAK = (24, 512, 768)  # images, height, width
 MIXED = (100, 128, 768)  # images, smallest side, one past the largest
+TEXTURES = ("wood", "marble", "skin")  # the corpus's 1024x1024 photographic textures
 REAL_SIDE = 2048  # config 3's real photo: soccer0, whole
 MAKE_IMG_ROWS = 256  # rows of `make_img` built at a time
 
@@ -119,6 +122,22 @@ def real_patches(n: int, h: int, w: int) -> list[np.ndarray]:
     return out
 
 
+def texture_patches(sizes, seed: int) -> list[np.ndarray]:
+    """(h, w, 3) patches of the corpus's photographic textures, one a size,
+    from TEXTURES in turn, each at offsets drawn from `seed`; nothing is
+    resampled, so every side is at most 1024."""
+    from nicetpu_torch.realcorpus import NAMES
+
+    textures = dict(zip(NAMES, _corpus_images()))
+    rng = np.random.default_rng(seed)
+    out = []
+    for k, (h, w) in enumerate(sizes):
+        im = textures[TEXTURES[k % len(TEXTURES)]]
+        y0, x0 = int(rng.integers(0, im.shape[0] - h + 1)), int(rng.integers(0, im.shape[1] - w + 1))
+        out.append(im[y0 : y0 + h, x0 : x0 + w].copy())
+    return out
+
+
 def peak_reset(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -173,12 +192,14 @@ def _ladder_checksums(dev, blobs):
     checksum; returns a call giving (ok (B,), sums (B,), retries, the gates
     of the last rung run)."""
     from nicetpu_torch.kernels import decode3
+    from nicetpu_torch.kernels.geometry import Geometry
 
     args, (H, W) = decode3.prepare_batch_args(blobs, device=dev)
+    geom = Geometry.uniform(W, H * W, len(blobs), dev)
 
     def call(cfg):
         out, ok, gates = decode3._decode_core_v3(
-            *args, n_pixels=H * W, width=W, chunk_bits=cfg.chunk_bits,
+            *args, geom=geom, chunk_bits=cfg.chunk_bits,
             steps=decode3._steps(cfg.chunk_bits, cfg.steps_div), rounds=cfg.rounds)
         return (ok.cpu().numpy(), (out.sum(dim=(1, 2), dtype=torch.int64).cpu().numpy(),),
                 gates.cpu().numpy())
@@ -344,18 +365,26 @@ def config3(dev, *, side: int = 4096, real_side: int = REAL_SIDE, reps: int = 2,
             + config3_real(dev, side=real_side, reps=reps, card=card))
 
 
+def mixed_sizes(n: int = MIXED[0], lo: int = MIXED[1], hi: int = MIXED[2]) -> list[tuple[int, int]]:
+    """Config 4's n (h, w) sizes, each side uniform on lo..hi - 1, drawn from
+    default_rng(9) (the benchmark's mixed100 shapes)."""
+    rng = np.random.default_rng(9)
+    return [(int(rng.integers(lo, hi)), int(rng.integers(lo, hi))) for _ in range(n)]
+
+
 def config4(dev, *, n: int = MIXED[0], lo: int = MIXED[1], hi: int = MIXED[2], reps: int = 1,
             card: str) -> list[dict]:
-    """100 real-photo patches of mixed sizes, round trip on the host codec
-    and on the card."""
+    """100 photo patches of mixed sizes (`texture_patches`): the host
+    codec's encode and decode, then one `api.roundtrip_batch` of the whole
+    set on the card, which shares device batches of up to MAX_BATCH
+    whatever the shapes: ceil(n / MAX_BATCH) batches (every side here
+    reconstructs on one block), bytes equal to the native encoder's."""
     from nicetpu_torch import api
     from nicetpu_torch.config import RuntimeConfig
 
-    rng = np.random.default_rng(9)
-    sizes = [(int(rng.integers(lo, hi)), int(rng.integers(lo, hi))) for _ in range(n)]
-    stream = [real_patches(1, h, w)[0] for h, w in sizes]
+    stream = texture_patches(mixed_sizes(n, lo, hi), seed=9)
     mb = sum(im.nbytes for im in stream) / 1e6
-    label = f"{n} real photo patches of mixed sizes ({lo}..{hi - 1} a side), round trip"
+    label = f"{n} photo texture patches of mixed sizes ({lo}..{hi - 1} a side), round trip"
     native = RuntimeConfig(backend="native")
 
     def rt_native():
@@ -366,24 +395,27 @@ def config4(dev, *, n: int = MIXED[0], lo: int = MIXED[1], hi: int = MIXED[2], r
     refs = outs[-1][0]
     require(all(np.array_equal(a, im) for _, arrs in outs for a, im in zip(arrs, stream)),
             "config 4: a native round trip differs")
-    api.decode(api.encode(stream[0], device=dev), device=dev)  # warm-up
-    est, dst = [], []
+    api.roundtrip_batch(stream[:1], device=dev)  # warm-up
+    st: list[dict] = []
 
     def rt_dev():
-        est.append({})
-        dst.append({})
-        blobs = api.encode_batch(stream, device=dev, stats=est[-1])
-        return blobs, api.decode_batch(blobs, device=dev, stats=dst[-1])
+        st.append({})
+        return api.roundtrip_batch(stream, device=dev, stats=st[-1])
 
     outs, secs_d = timed(rt_dev, reps, dev)
-    require(all(b == refs for b, _ in outs), "config 4: device bytes differ from the native encoder's")
-    require(all(np.array_equal(a, im) for _, arrs in outs for a, im in zip(arrs, stream)),
-            "config 4: a device round trip differs")
+    require(all(datas == refs for datas, _ in outs), "config 4: device bytes differ from the native encoder's")
+    batches = -(-n // api.MAX_BATCH)
+    require(all(s["device_batches"] == batches for s in st),
+            f"config 4: {[s['device_batches'] for s in st]} device batches a call, not {batches}")
+    last = st[-1]
     return [
         line(f"4: {label}, native backend", mb, secs_n, "arrays exact", reps=reps, card=card),
-        line(f"4: {label}, {dev.type}", mb, secs_d, "bytes equal the native encoder's, arrays exact",
-             reps=reps, card=card, fallbacks=_sum(dst, "fallbacks"), retries=_sum(dst, "retries"),
-             overflow_fallbacks=_sum(est, "overflow_fallbacks")),
+        line(f"4: {label}, {dev.type} roundtrip_batch", mb, secs_d,
+             "bytes equal the native encoder's; unverified images proven on the host", reps=reps, card=card,
+             fallbacks=_sum(st, "fallbacks"), retries=_sum(st, "retries"),
+             overflow_fallbacks=_sum(st, "overflow_fallbacks"),
+             verified_on_device=all(v.all() for _, v in outs), device_batches=last["device_batches"],
+             pad_pct=100 * (last["batch_pixels"] - last["image_pixels"]) / last["image_pixels"]),
     ]
 
 

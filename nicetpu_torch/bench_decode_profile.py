@@ -56,6 +56,7 @@ def run(device="cuda", *, batch: int = BATCH, side: int = SIDE, reps: int = REPS
     output."""
     from nicetpu_torch.hostref import oracle
     from nicetpu_torch.kernels import decode3
+    from nicetpu_torch.kernels.geometry import Geometry
 
     dev = prepare(device)
     card = card if card is not None else card_line()
@@ -63,7 +64,7 @@ def run(device="cuda", *, batch: int = BATCH, side: int = SIDE, reps: int = REPS
     blobs = [oracle.encode_native(im) for im in imgs]
     mb = sum(im.nbytes for im in imgs) / 1e6
     cfg = decode3.LADDER[0]
-    kw = dict(n_pixels=side * side, width=side, chunk_bits=cfg.chunk_bits,
+    kw = dict(geom=Geometry.uniform(side, side * side, batch, dev), chunk_bits=cfg.chunk_bits,
               steps=decode3._steps(cfg.chunk_bits, cfg.steps_div), rounds=cfg.rounds)
     secs: dict = {}
 
@@ -113,7 +114,9 @@ def run(device="cuda", *, batch: int = BATCH, side: int = SIDE, reps: int = REPS
         "the full decode's output differs from the images")
 
     med = {k: statistics.median(v) for k, v in secs.items()}
-    line: dict = {"B": batch, "raw_mb": mb, "kw": kw, "nch": nch}
+    # the core's arguments, its geometry as the one shape it holds
+    args_line = {"n_pixels": side * side, "width": side, **{k: v for k, v in kw.items() if k != "geom"}}
+    line: dict = {"B": batch, "raw_mb": mb, "kw": args_line, "nch": nch}
     for k, v in secs.items():
         line.update(stage_ms(k, v))
     line["word_blocks_ms"] = None

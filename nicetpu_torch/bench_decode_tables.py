@@ -179,9 +179,11 @@ def main_lengths(dev, n: int = BATCH) -> torch.Tensor:
     """(n, 858) int32 lengths of make_image(512, 512, s), s < n, from the fused encode."""
     from nicetpu_torch import pipeline
     from nicetpu_torch.kernels.encode2 import encode_fused_core
+    from nicetpu_torch.kernels.geometry import Geometry
 
     flat = pipeline.upload_batch([make_image(SIDE, SIDE, s) for s in range(n)], dev)
-    return encode_fused_core(flat, width=SIDE, ndigits_cap=3, w_cap=pipeline.w_cap(SIDE * SIDE))[1]
+    geom = Geometry.uniform(SIDE, SIDE * SIDE, n, dev)
+    return encode_fused_core(flat, geom=geom, ndigits_cap=3, w_cap=pipeline.w_cap(SIDE * SIDE))[1]
 
 
 def tables_call():
@@ -243,9 +245,11 @@ def stage_ms(dev, reps: int) -> dict:
     from nicetpu_torch import pipeline
     from nicetpu_torch.kernels import decode3
     from nicetpu_torch.kernels.encode2 import mark_stage
+    from nicetpu_torch.kernels.geometry import Geometry
 
     flat = pipeline.upload_batch([make_image(SIDE, SIDE, s) for s in range(BATCH)], dev)
-    kw = dict(width=SIDE, ndigits_cap=3, w_cap=decode3.roundtrip_cap_words(SIDE * SIDE), cfg=decode3.LADDER[0])
+    kw = dict(geom=Geometry.uniform(SIDE, SIDE * SIDE, BATCH, dev), ndigits_cap=3,
+              w_cap=decode3.roundtrip_cap_words(SIDE * SIDE), cfg=decode3.LADDER[0])
     got: dict = {"tables": [], "walk_round1": []}
     for _ in range(reps + 1):  # the first call warms up
         torch.cuda.synchronize()

@@ -47,14 +47,16 @@ def batch_line(B: int, dev: torch.device, *, side: int, reps: int, card: str) ->
     from nicetpu_torch import pipeline
     from nicetpu_torch.hostref import oracle
     from nicetpu_torch.kernels import encode2
+    from nicetpu_torch.kernels.geometry import Geometry
 
     imgs = [make_image(side, side, s) for s in range(B)]
     refs = [oracle.encode_native(im) for im in imgs]
     flat = pipeline.upload_batch(imgs, dev)
     cap = pipeline.w_cap(side * side)
+    geom = Geometry.uniform(side, side * side, B, dev)
 
     def fused():
-        words, small = encode2.encode_fused(flat, width=side, ndigits_cap=3, w_cap=cap)
+        words, small = encode2.encode_fused(flat, geom=geom, ndigits_cap=3, w_cap=cap)
         return words, small.cpu().numpy()
 
     def twostep():

@@ -5,7 +5,7 @@
 
 For each batch size B, B `make_image` side x side images (512x512 by
 default), uploaded once (untimed), go through
-  dispatch        `encode2.encode_fused(flat, width, ndigits_cap=3,
+  dispatch        `encode2.encode_fused(flat, geom, ndigits_cap=3,
                   w_cap=pipeline.w_cap(N))` and the fetch of the (B, 860)
                   small array: the tokenizer, the histogram kernel, the
                   device Huffman tables, the table-join and fold kernels
@@ -51,15 +51,17 @@ def batch_line(B: int, dev: torch.device, *, side: int, reps: int, card: str) ->
     from nicetpu_torch.hostref import oracle
     from nicetpu_torch.kernels import encode2
     from nicetpu_torch.kernels.bitpack import words_to_payload
+    from nicetpu_torch.kernels.geometry import Geometry
 
     imgs = [make_image(side, side, s) for s in range(B)]
     refs = [oracle.encode_native(im) for im in imgs]
     flat = pipeline.upload_batch(imgs, dev)
     cap = pipeline.w_cap(side * side)
     mb = sum(im.nbytes for im in imgs) / 1e6
+    geom = Geometry.uniform(side, side * side, B, dev)
 
     def dispatch():
-        words, small = encode2.encode_fused(flat, width=side, ndigits_cap=3, w_cap=cap)
+        words, small = encode2.encode_fused(flat, geom=geom, ndigits_cap=3, w_cap=cap)
         return words, small.cpu().numpy()
 
     secs: dict = {}

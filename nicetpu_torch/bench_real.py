@@ -39,6 +39,7 @@ def image_line(name: str, img: np.ndarray, dev: torch.device, *, reps: int,
     from nicetpu_torch.format import constants as C
     from nicetpu_torch.hostref import oracle
     from nicetpu_torch.kernels.encode2 import encode_fused
+    from nicetpu_torch.kernels.geometry import Geometry
 
     H, W, _ = img.shape
     mb = img.nbytes / 1e6
@@ -50,9 +51,10 @@ def image_line(name: str, img: np.ndarray, dev: torch.device, *, reps: int,
 
     flat = pipeline.upload_batch([img], dev)
     cap = pipeline.w_cap(H * W)
+    geom = Geometry.uniform(W, H * W, 1, dev)
 
     def enc():
-        return encode_fused(flat, width=W, ndigits_cap=3, w_cap=cap)[1].cpu().numpy()
+        return encode_fused(flat, geom=geom, ndigits_cap=3, w_cap=cap)[1].cpu().numpy()
 
     enc()  # warm-up
     outs, secs = timed(enc, reps, dev)

@@ -10,6 +10,17 @@ constexpr int kSymbols = 858;  // flat histogram bins; any other value is a hole
 constexpr int kThreads = 256;
 constexpr int kTargetBlocks = 132 * 8;  // 8 blocks for each of the H100's 132 SMs
 
+// A batch's geometry table (kernels/geometry.py): (B, kGeoCols) int32, one
+// row an image, its width in column 0 and its pixel count in column 1.  A
+// kernel given no table (nullptr) takes its caller's scalars for every image.
+constexpr int kGeoCols = 50;  // as geometry.COLS
+__device__ __forceinline__ int geo_width(const int* geo, long long b, int width) {
+  return geo != nullptr ? __ldg(geo + b * kGeoCols) : width;
+}
+__device__ __forceinline__ long long geo_pixels(const int* geo, long long b, long long n) {
+  return geo != nullptr ? (long long)__ldg(geo + b * kGeoCols + 1) : n;
+}
+
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }

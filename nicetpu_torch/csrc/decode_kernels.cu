@@ -405,6 +405,10 @@ __global__ void value_join_kernel(const int* __restrict__ bins, const int* __res
 // Reads before the raster start are zeros (or the carry), as in
 // decode_dev.reconstruct_rows and the Pallas kernel.  refoff must hold 0 or one of
 // decode_dev._const_offsets(W) (every offset is >= max(4, W - 3)).
+// A batch of images of several shapes (the round trip's) comes as rows of
+// the largest image's N with the batch's geometry table: each chain runs
+// its own image's N_b / W_b rows of W_b pixels and writes zeros past N_b;
+// the shared memory (or scratch) is sized for the widest image.
 //
 // The buffers take about 53 bytes a pixel of a row.  Where a row's fit one
 // block's shared memory (up to about 4,288 pixels on an H100), one block runs
@@ -724,16 +728,22 @@ __device__ __forceinline__ void replay_segment(const float2* fk, const uint32_t*
   }
 }
 
+// N_row: the pixels of each (B, N_row) row of the inputs; W_max: the width
+// the buffers are sized for; geo: the geometry table, or nullptr for N_row
+// pixels of width W_max in every image.
 template <bool kStaged>
 __global__ void __launch_bounds__(1024)
     reconstruct_rows_kernel(const int* __restrict__ form, const int* __restrict__ delta,
                             const int* __restrict__ refoff, const int* __restrict__ prev4,
-                            int* __restrict__ out, uint8_t* scratch, int N, int W) {
+                            int* __restrict__ out, uint8_t* scratch, const int* __restrict__ geo, int N_row,
+                            int W_max) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const ReconLayout lay(W);
   const int bc = blockIdx.x;  // b * 3 + c
   const long long b = bc / 3;
-  uint8_t* buf = kStaged ? smem : scratch + (long long)bc * lay.stage;
+  const int W = nt::geo_width(geo, b, W_max);
+  const int N = (int)nt::geo_pixels(geo, b, N_row);
+  const ReconLayout lay(W);
+  uint8_t* buf = kStaged ? smem : scratch + (long long)bc * ReconLayout(W_max).stage;
   float2* fk = reinterpret_cast<float2*>(buf + lay.fk);
   uint32_t* meta = reinterpret_cast<uint32_t*>(buf + lay.meta);
   uint8_t* ring = buf + lay.ring;
@@ -754,10 +764,11 @@ __global__ void __launch_bounds__(1024)
   const int Wp = (int)r16(W);
   const int S = (W + kSeg - 1) / kSeg;
   const int H = N / W;
-  const int* f_img = form + b * N;
-  const int* ro_img = refoff + b * N;
-  const int* d_img = delta + (long long)bc * N;
-  int* o_img = out + (long long)bc * N;
+  const int* f_img = form + b * N_row;
+  const int* ro_img = refoff + b * N_row;
+  const int* d_img = delta + (long long)bc * N_row;
+  int* o_img = out + (long long)bc * N_row;
+  for (int i = N + tid; i < N_row; i += nt) o_img[i] = 0;  // past the image
 
   auto ring_at = [&](int slot, int col) -> uint32_t { return ring[slot * Wp + col]; };
 
@@ -928,17 +939,20 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait;\n" ::: "memory");
 }
 
+// N_row, W_max, geo: as reconstruct_rows_kernel's.
 __global__ void __launch_bounds__(1024)
     reconstruct_rows_cluster_kernel(const int* __restrict__ form, const int* __restrict__ delta,
                                     const int* __restrict__ refoff, const int* __restrict__ prev4,
-                                    int* __restrict__ out, int N, int W) {
+                                    int* __restrict__ out, const int* __restrict__ geo, int N_row, int W_max) {
   extern __shared__ __align__(16) uint8_t smem[];
   const cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int j = (int)cluster.block_rank();
-  const ClusterLayout lay(W, C);
   const int bc = blockIdx.x / C;  // b * 3 + c
   const long long b = bc / 3;
+  const int W = nt::geo_width(geo, b, W_max);
+  const int N = (int)nt::geo_pixels(geo, b, N_row);
+  const ClusterLayout lay(W, C);
   float2* fk = reinterpret_cast<float2*>(smem + lay.fk);
   uint32_t* meta = reinterpret_cast<uint32_t*>(smem + lay.meta);
   uint8_t* ring = smem + lay.ring;
@@ -967,10 +981,11 @@ __global__ void __launch_bounds__(1024)
   const int NG = (nseg + kCGroup - 1) / kCGroup;
   const bool last = j == C - 1;
   const int H = N / W;
-  const int* f_img = form + b * N;
-  const int* ro_img = refoff + b * N;
-  const int* d_img = delta + (long long)bc * N;
-  int* o_img = out + (long long)bc * N;
+  const int* f_img = form + b * N_row;
+  const int* ro_img = refoff + b * N_row;
+  const int* d_img = delta + (long long)bc * N_row;
+  int* o_img = out + (long long)bc * N_row;
+  for (int i = N + j * nt + tid; i < N_row; i += C * nt) o_img[i] = 0;  // past the image
 
   // the ring's byte at column col of a slot, from the CTA that owns it
   auto ring_at = [&](int slot, int col) -> uint32_t {
@@ -1228,9 +1243,11 @@ int nt_recon_plan(int W, int device, int* ctas, long long* scratch) {
 
 // prev4: the (B, 3, 4W) carry, or nullptr for zeros before the raster start;
 // ctas and scratch (its bytes a chain where ctas is 0) as nt_recon_plan
-// gives them for W on this device.
+// gives them for W on this device.  geo: the (B, kGeoCols) geometry table,
+// whose images' N_b <= N and W_b <= W all take the path ctas names, or
+// nullptr (every image N pixels of width W).
 int nt_reconstruct_rows(const void* form, const void* delta, const void* refoff, const void* prev4,
-                        void* out, void* scratch, int ctas, int B, int N, int W, int device,
+                        void* out, void* scratch, int ctas, const void* geo, int B, int N, int W, int device,
                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -1241,11 +1258,12 @@ int nt_reconstruct_rows(const void* form, const void* delta, const void* refoff,
   const int* ro = static_cast<const int*>(refoff);
   const int* p4 = static_cast<const int*>(prev4);
   int* o = static_cast<int*>(out);
+  const int* g = static_cast<const int*>(geo);
   cudaStream_t st = (cudaStream_t)stream;
   if (ctas == 0) {
     if (!scratch) return (int)cudaErrorInvalidValue;
     reconstruct_rows_kernel<false>
-        <<<3 * B, threads, 0, st>>>(f, d, ro, p4, o, static_cast<uint8_t*>(scratch), N, W);
+        <<<3 * B, threads, 0, st>>>(f, d, ro, p4, o, static_cast<uint8_t*>(scratch), g, N, W);
   } else if (ctas > 1) {
     // a size the probe allowed (it set the attributes), each CTA two segments or more
     if (device < 0 || device >= kMaxDevices || ctas > g_cluster_limit[device] || 2 * ctas > S)
@@ -1263,7 +1281,7 @@ int nt_reconstruct_rows(const void* form, const void* delta, const void* refoff,
     cfg.stream = st;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, reconstruct_rows_cluster_kernel, f, d, ro, p4, o, N, W);
+    err = cudaLaunchKernelEx(&cfg, reconstruct_rows_cluster_kernel, f, d, ro, p4, o, g, N, W);
     if (err != cudaSuccess) return (int)err;
   } else if (ctas == 1) {
     const size_t smem = ReconLayout(W).end;
@@ -1272,7 +1290,7 @@ int nt_reconstruct_rows(const void* form, const void* delta, const void* refoff,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return (int)err;
     }
-    reconstruct_rows_kernel<true><<<3 * B, threads, smem, st>>>(f, d, ro, p4, o, nullptr, N, W);
+    reconstruct_rows_kernel<true><<<3 * B, threads, smem, st>>>(f, d, ro, p4, o, nullptr, g, N, W);
   } else {
     return (int)cudaErrorInvalidValue;
   }

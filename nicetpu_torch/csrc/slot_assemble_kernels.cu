@@ -17,6 +17,8 @@
 // int64 exclusive pixel start, ok_cov (the coverage reaches N), and each
 // image's real slots (prefixes starting below N) compacted in order into
 // (B, K) arrays with their fills (PREFIX_RUN_BASE, 0, 0, N) and `live`.
+// N is each image's own pixel count where the caller passes the batch's
+// geometry table (a round-trip batch of several shapes), else one N for all.
 //
 // The scan state along an image is (run bit: a prefix was seen, digits
 // since the last prefix or the start), packed in one int; `join` composes
@@ -261,31 +263,37 @@ __device__ int chunk_walk(const Slots& r, long long base, int st, long long cov,
   return nreal;
 }
 
+// Image b's records; its N from the geometry table where there is one.
 __device__ __forceinline__ Slots image_slots(const int* pos, const int* sym, const int* i12, const int* i34,
-                                             const int* wbits, int b, int steps, long long N, int vec) {
-  return {pos, sym, i12, i34, wbits[b], steps, N, vec != 0};
+                                             const int* wbits, int b, int steps, long long N, const int* geo,
+                                             int vec) {
+  return {pos, sym, i12, i34, wbits[b], steps, nt::geo_pixels(geo, b, N), vec != 0};
 }
 
 __global__ void __launch_bounds__(kChunkWarps * 32)
     slot_summary_kernel(const int* __restrict__ pos, const int* __restrict__ sym, const int* __restrict__ wbits,
-                        int* __restrict__ summ, int nch, int steps, long long N, int vec) {
+                        int* __restrict__ summ, int nch, int steps, long long N, const int* __restrict__ geo,
+                        int vec) {
   const int b = blockIdx.y;
   const int c = blockIdx.x * kChunkWarps + (threadIdx.x >> 5);
   if (c >= nch) return;
   const long long chunk = (long long)b * nch + c;
-  const Slots r = image_slots(pos, sym, nullptr, nullptr, wbits, b, steps, N, vec);
+  const Slots r = image_slots(pos, sym, nullptr, nullptr, wbits, b, steps, N, geo, vec);
   chunk_walk<kSummary>(r, chunk * steps, 0, 0, 0, summ + chunk * kSumInts, Compacted{}, 0);
 }
 
 __global__ void __launch_bounds__(kScanThreads)
     slot_scan_kernel(const int* __restrict__ pos, const int* __restrict__ sym, const int* __restrict__ wbits,
                      const int* __restrict__ summ, int* __restrict__ carry, int* __restrict__ counts,
-                     bool* __restrict__ ok_cov, int nch, int steps, long long N, int vec) {
+                     bool* __restrict__ ok_cov, int nch, int steps, long long N, const int* __restrict__ geo,
+                     int vec) {
   __shared__ int s_st[32];
   __shared__ Acc s_acc[32];
   __shared__ int s_real[32];
   __shared__ int s_cross;  // the chunk across N, or -1
   const int b = blockIdx.x;
+  const long long N_all = N;
+  N = nt::geo_pixels(geo, b, N);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (threadIdx.x == 0) s_cross = -1;
   int st_carry = 0, real = 0;
@@ -337,7 +345,7 @@ __global__ void __launch_bounds__(kScanThreads)
       const long long chunk = (long long)b * nch + c;
       const int* cr = carry + chunk * kCarryInts;
       const int d_in = cr[0];
-      const Slots r = image_slots(pos, sym, nullptr, nullptr, wbits, b, steps, N, vec);
+      const Slots r = image_slots(pos, sym, nullptr, nullptr, wbits, b, steps, N_all, geo, vec);
       real += chunk_walk<kCount>(r, chunk * steps, d_in >= 0 ? kRun | d_in : 0,
                                  *reinterpret_cast<const long long*>(cr + 2), cr[1], nullptr, Compacted{}, 0);
     }
@@ -352,16 +360,16 @@ __global__ void __launch_bounds__(kChunkWarps * 32)
     slot_compact_kernel(const int* __restrict__ pos, const int* __restrict__ sym, const int* __restrict__ i12,
                         const int* __restrict__ i34, const int* __restrict__ wbits, const int* __restrict__ carry,
                         const int* __restrict__ counts, Compacted o, bool* __restrict__ live, int B, int nch,
-                        int steps, long long N, long long K, int vec) {
+                        int steps, long long N, long long K, const int* __restrict__ geo, int vec) {
   const int b = blockIdx.y;
   const int c = blockIdx.x * kChunkWarps + (threadIdx.x >> 5);
   if (c < nch) {
     const long long chunk = (long long)b * nch + c;
     const int* cr = carry + chunk * kCarryInts;
     const long long cov = *reinterpret_cast<const long long*>(cr + 2);
-    if (cov < N) {
+    if (cov < nt::geo_pixels(geo, b, N)) {
       const int d_in = cr[0];
-      const Slots r = image_slots(pos, sym, i12, i34, wbits, b, steps, N, vec);
+      const Slots r = image_slots(pos, sym, i12, i34, wbits, b, steps, N, geo, vec);
       chunk_walk<kWrite>(r, chunk * steps, d_in >= 0 ? kRun | d_in : 0, cov, cr[1], nullptr, o, b * K);
     }
   }
@@ -377,7 +385,7 @@ __global__ void __launch_bounds__(kChunkWarps * 32)
       o.sym[i] = kRunBase;
       o.i12[i] = 0;
       o.i34[i] = 0;
-      o.start[i] = N;
+      o.start[i] = nt::geo_pixels(geo, bb, N);
     }
   }
 }
@@ -388,9 +396,10 @@ extern "C" {
 
 // Bytes of scratch nt_slot_scan and nt_slot_compact share: the summaries and
 // carries, 80 bytes a chunk, then the (B,) int32 counts, then the (B,) ok_cov
-// bytes.  The wrapper allocates them (cuda_ops.slot_assemble).
+// bytes.  The wrapper allocates them (cuda_ops.slot_assemble).  geo: the
+// (B, kGeoCols) geometry table (each image's own N), or null for N in all.
 int nt_slot_scan(const void* pos, const void* sym, const void* wbits, void* scratch, int B, int nch, int steps,
-                 long long N, int vec, int device, void* stream) {
+                 long long N, const void* geo, int vec, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int* summ = static_cast<int*>(scratch);
@@ -401,17 +410,19 @@ int nt_slot_scan(const void* pos, const void* sym, const void* wbits, void* scra
   const int* p = static_cast<const int*>(pos);
   const int* s = static_cast<const int*>(sym);
   const int* wb = static_cast<const int*>(wbits);
+  const int* g = static_cast<const int*>(geo);
   slot_summary_kernel<<<dim3((nch + kChunkWarps - 1) / kChunkWarps, B), kChunkWarps * 32, 0, st>>>(
-      p, s, wb, summ, nch, steps, N, vec);
+      p, s, wb, summ, nch, steps, N, g, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  slot_scan_kernel<<<B, kScanThreads, 0, st>>>(p, s, wb, summ, carry, counts, ok, nch, steps, N, vec);
+  slot_scan_kernel<<<B, kScanThreads, 0, st>>>(p, s, wb, summ, carry, counts, ok, nch, steps, N, g, vec);
   return (int)cudaGetLastError();
 }
 
 int nt_slot_compact(const void* pos, const void* sym, const void* i12, const void* i34, const void* wbits,
                     const void* scratch, void* out_sym, void* out_i12, void* out_i34, void* out_start, void* live,
-                    int B, int nch, int steps, long long N, long long K, int vec, int device, void* stream) {
+                    int B, int nch, int steps, long long N, long long K, const void* geo, int vec, int device,
+                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int* carry = static_cast<const int*>(scratch) + (long long)B * nch * kSumInts;
@@ -422,7 +433,7 @@ int nt_slot_compact(const void* pos, const void* sym, const void* i12, const voi
                         (cudaStream_t)stream>>>(
       static_cast<const int*>(pos), static_cast<const int*>(sym), static_cast<const int*>(i12),
       static_cast<const int*>(i34), static_cast<const int*>(wbits), carry, counts, o, static_cast<bool*>(live), B,
-      nch, steps, N, K, vec);
+      nch, steps, N, K, static_cast<const int*>(geo), vec);
   return (int)cudaGetLastError();
 }
 

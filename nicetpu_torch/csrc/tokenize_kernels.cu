@@ -44,6 +44,11 @@
 // (first_change_kernel, one block an image, stops at the first block of
 // pixels with a change), all-gathers it, and passes the later shards' as the
 // tail.
+// A batch of images of several shapes (the round trip's) is one upload
+// padded to the largest image, with the batch's geometry table: a block
+// takes its image's width and pixel count from it, looks ahead only over
+// its image's spans, and writes holes past its image's pixels (a span wholly
+// past them writes nothing else), so each image's bins are its own alone.
 //
 // Bound by bytes: 3 bytes read a pixel and 4 * (5 + ndigits_cap) written
 // (32 at 3 run digits).  On an H100 80GB HBM3 at 700 W it runs at about half
@@ -250,12 +255,13 @@ __device__ __forceinline__ bool cascade(const unsigned* st, Bases o, int p, int 
 
 // Grid: one block a span, B * spans blocks.  kCap run-digit slots; S = 5 +
 // kCap bins a pixel.  scratch (zeroed by the caller's memset): ticket, and
-// words[b * spans + j] as above.
+// words[b * spans + j] as above.  geo: the geometry table, or nullptr for
+// W and n_total in every image.
 template <int kCap>
 __global__ void __launch_bounds__(kThreads) tokenize_kernel(
     const uint8_t* __restrict__ x, const int* __restrict__ tail, int n_tail, int* __restrict__ bins,
     uint8_t* __restrict__ ovf, unsigned* __restrict__ ticket, unsigned* __restrict__ words, long long n_ext,
-    long long halo, int n_local, int g0, int n_total, int W, int spans, int invalid) {
+    long long halo, int n_local, int g0, int n_total, int W, int spans, int invalid, const int* __restrict__ geo) {
   constexpr int S = 5 + kCap;
   constexpr bool kVec = S % 4 == 0, kSwizzle = S % 8 == 0;
   __shared__ __align__(16) unsigned stage[kStage];
@@ -268,8 +274,21 @@ __global__ void __launch_bounds__(kThreads) tokenize_kernel(
   if (tid == 0) sh_ticket = (int)atomicAdd(ticket, 1u);
   __syncthreads();
   const int b = sh_ticket / spans, j = spans - 1 - sh_ticket % spans;  // the last span of an image first
-  const int s = j * kSpan, n = min(kSpan, n_local - s), base = g0 + s;
+  W = nt::geo_width(geo, b, W);
+  n_total = (int)nt::geo_pixels(geo, b, n_total);
+  const int n_img = min(n_local, n_total - g0);  // the image's local pixels
+  const int img_spans = (n_img + kSpan - 1) / kSpan;
+  const int s = j * kSpan, n = min(kSpan, n_img - s), base = g0 + s;
   unsigned* img_words = words + (long long)b * spans;
+  const int n_out = min(kSpan, n_local - s);  // the span's pixels in the output
+  auto holes = [&](int p_lo) {  // the span's pixels from p_lo on lie past the image
+    int* dst = bins + ((long long)b * n_local + s) * S;
+    for (int i = p_lo * S + tid; i < n_out * S; i += kThreads) dst[i] = invalid;
+  };
+  if (n <= 0) {
+    holes(0);
+    return;
+  }
 
   // 1. stage: four row segments, or one window where W is small; each
   // range starts at the stage offset congruent to its first flat pixel mod 4
@@ -309,7 +328,7 @@ __global__ void __launch_bounds__(kThreads) tokenize_kernel(
     int next = n_total;
     for (int q0 = j + 1;;) {
       const int q = q0 + lane;
-      const unsigned w = q < spans ? ld_acquire(img_words + q) : (unsigned)n_total + 1;
+      const unsigned w = q < img_spans ? ld_acquire(img_words + q) : (unsigned)n_total + 1;
       const unsigned known = __ballot_sync(0xffffffffu, w != 0 && w != kNoChange);
       const unsigned ready = __ballot_sync(0xffffffffu, w != 0);
       if (known) {
@@ -387,6 +406,7 @@ __global__ void __launch_bounds__(kThreads) tokenize_kernel(
     }
     __syncwarp();
   }
+  if (n < n_out) holes(n);
   if (__any_sync(0xffffffffu, over) && lane == 0) ovf[b] = 1;  // every writer stores 1
 }
 
@@ -423,13 +443,13 @@ __global__ void __launch_bounds__(kFirstThreads) first_change_kernel(
 template <int kCap>
 void launch_tokenize(int grid, cudaStream_t stream, const uint8_t* x, const int* tail, int n_tail, int* bins,
                      uint8_t* ovf, unsigned* ticket, unsigned* words, long long n_ext, long long halo,
-                     int n_local, int g0, int n_total, int W, int spans, int invalid) {
+                     int n_local, int g0, int n_total, int W, int spans, int invalid, const int* geo) {
   tokenize_kernel<kCap><<<grid, kThreads, 0, stream>>>(x, tail, n_tail, bins, ovf, ticket, words, n_ext, halo,
-                                                      n_local, g0, n_total, W, spans, invalid);
+                                                      n_local, g0, n_total, W, spans, invalid, geo);
 }
 
 using LaunchFn = void (*)(int, cudaStream_t, const uint8_t*, const int*, int, int*, uint8_t*, unsigned*,
-                          unsigned*, long long, long long, int, int, int, int, int, int);
+                          unsigned*, long long, long long, int, int, int, int, int, int, const int*);
 constexpr LaunchFn kLaunch[kMaxRunDigits + 1] = {
     launch_tokenize<0>, launch_tokenize<1>, launch_tokenize<2>, launch_tokenize<3>,
     launch_tokenize<4>, launch_tokenize<5>, launch_tokenize<6>, launch_tokenize<7>,
@@ -453,11 +473,12 @@ int nt_first_change(const void* x, void* first, int B, long long n_ext, long lon
 // bins (B, n_local * (5 + ndigits_cap)) int32.  scratch: scratch_bytes of
 // device memory, zeroed here first: the overflow flags (B bytes), then at
 // byte ticket_at the ticket and the B * ceil(n_local / kSpan) span words.
-// tail: n_tail int32 on the device, or null.
+// tail: n_tail int32 on the device, or null.  geo: the (B, kGeoCols)
+// geometry table on the device (halo and g0 0), or null.
 int nt_tokenize_bins(const void* x, const void* tail, int n_tail, void* bins, void* scratch,
                      long long scratch_bytes, long long ticket_at, int B, long long n_ext, long long halo,
                      long long n_local, long long g0, long long n_total, int width, int ndigits_cap,
-                     int invalid_bin, int device, void* stream) {
+                     int invalid_bin, const void* geo, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (ndigits_cap < 0 || ndigits_cap > kMaxRunDigits) return (int)cudaErrorInvalidValue;
@@ -471,7 +492,8 @@ int nt_tokenize_bins(const void* x, const void* tail, int n_tail, void* bins, vo
   auto* ticket = reinterpret_cast<unsigned*>(static_cast<uint8_t*>(scratch) + ticket_at);
   kLaunch[ndigits_cap]((int)(B * spans), s, static_cast<const uint8_t*>(x), static_cast<const int*>(tail),
                        n_tail, static_cast<int*>(bins), static_cast<uint8_t*>(scratch), ticket, ticket + 1,
-                       n_ext, halo, (int)n_local, (int)g0, (int)n_total, width, (int)spans, invalid_bin);
+                       n_ext, halo, (int)n_local, (int)g0, (int)n_total, width, (int)spans, invalid_bin,
+                       static_cast<const int*>(geo));
   return (int)cudaGetLastError();
 }
 

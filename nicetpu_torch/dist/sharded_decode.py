@@ -55,6 +55,7 @@ from nicetpu_torch.format import headers
 from nicetpu_torch.format.huffman import validate_flat_lengths
 from nicetpu_torch.hostref import oracle
 from nicetpu_torch.kernels import cuda_ops, decode3, recon
+from nicetpu_torch.kernels.geometry import Geometry
 
 SHARD_ALIGN = 8  # chunks a rank rounds up to: the JAX walk's block on its jnp path
 
@@ -232,10 +233,11 @@ def decode_block(call: RankCall, data: bytes, cfg: decode3.WalkCfg):
         del bins
         rec = torch.empty_like(sym)
         dst = torch.empty_like(start)
+        geom = Geometry.uniform(W, N, 1, device)  # the raster's, for the records' maps
         for a in range(0, sym.numel(), decode3.RECORD_BLOCK):  # bounds slot_records' temporaries
             cut = slice(a, a + decode3.RECORD_BLOCK)
             real = torch.ones_like(sym[cut], dtype=torch.bool)
-            rec[cut], dst[cut] = decode3.slot_records(real, sym[cut], *syms[:, cut], start[cut], real, N, W)
+            rec[cut], dst[cut] = decode3.slot_records(real, sym[cut], *syms[:, cut], start[cut], real, geom=geom)
         ok_ref = ~((sym == C.PREFIX_BACK_REF) & (syms[0] >= C.NUM_BACK_REF)).any()
         del sym, syms, start
         g3 = comm.all_gather(torch.stack([ok_ref.to(torch.int64), torch.tensor(rec.numel(), device=device)]))
@@ -265,7 +267,8 @@ def decode_block(call: RankCall, data: bytes, cfg: decode3.WalkCfg):
         rec_o = torch.cat([allrec[r, 0, a:b] for r, (a, b) in enumerate(cuts)])
         dst_o = torch.cat([allrec[r, 1, a:b] for r, (a, b) in enumerate(cuts)]) - lo
         del allrec
-        form, delta, refoff = decode3.place_and_unpack(rec_o[None], dst_o[None], n_local, W)
+        form, delta, refoff = decode3.place_and_unpack(rec_o[None], dst_o[None],
+                                                        geom=Geometry.uniform(W, n_local, 1, device))
         del rec_o, dst_o
 
     # the carry pipeline: the four rows above from rank d - 1, one kernel

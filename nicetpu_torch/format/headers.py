@@ -12,6 +12,7 @@ headers always total exactly 757 bytes.
 
 from __future__ import annotations
 
+import functools
 import struct
 
 import numpy as np
@@ -32,41 +33,31 @@ def parse_file_header(data: bytes) -> tuple[int, int, int]:
     return width, height, channels
 
 
-class _BitPacker:
-    """MSB-first bit packer (host-side, for the tiny fixed-size headers)."""
+@functools.lru_cache(maxsize=None)
+def _stream_header_fields() -> tuple[np.ndarray, np.ndarray]:
+    """The ten headers' fields in order, as (each field's index into the
+    858 code lengths followed by the ten streams' maxima, (fields, 7) bool:
+    the bits each field writes of a 7-bit value, MSB first)."""
+    idx, width = [], []
+    for s in range(C.NUM_STREAMS):
+        idx.append(C.TOTAL_SYMBOLS + s)
+        width.append(C.MAX_AOB_FIELD_BITS)
+        idx.extend(range(C.STREAM_BASE[s], C.STREAM_BASE[s] + C.ALPHABET_SIZES[s]))
+        width.extend([C.AOB_FIELD_BITS] * C.ALPHABET_SIZES[s])
+    keep = np.arange(C.AOB_FIELD_BITS)[None, :] >= C.AOB_FIELD_BITS - np.array(width)[:, None]
+    return np.array(idx), keep
 
-    def __init__(self) -> None:
-        self.bits: list[tuple[int, int]] = []  # (nbits, value)
 
-    def write(self, nbits: int, value: int) -> None:
-        self.bits.append((nbits, value & ((1 << nbits) - 1)))
-
-    def to_bytes(self) -> bytes:
-        out = bytearray()
-        acc = 0
-        nacc = 0
-        for nbits, value in self.bits:
-            acc = (acc << nbits) | value
-            nacc += nbits
-            while nacc >= 8:
-                nacc -= 8
-                out.append((acc >> nacc) & 0xFF)
-        if nacc:
-            out.append((acc << (8 - nacc)) & 0xFF)
-        return bytes(out)
+_FIELD_SHIFTS = np.arange(C.AOB_FIELD_BITS - 1, -1, -1)
 
 
 def pack_stream_headers(flat_lengths: np.ndarray) -> bytes:
-    """Serialize all ten stream headers from flat (858,) code lengths."""
-    p = _BitPacker()
-    for s in range(C.NUM_STREAMS):
-        base = C.STREAM_BASE[s]
-        size = C.ALPHABET_SIZES[s]
-        lens = flat_lengths[base : base + size]
-        p.write(C.MAX_AOB_FIELD_BITS, int(lens.max()))
-        for ln in lens:
-            p.write(C.AOB_FIELD_BITS, int(ln))
-    out = p.to_bytes()
+    """Serialize all ten stream headers from flat (858,) code lengths: each
+    stream's max_aob, then its lengths, bit-packed MSB-first."""
+    lens = np.asarray(flat_lengths).astype(np.int64)
+    idx, keep = _stream_header_fields()
+    vals = np.concatenate([lens, np.maximum.reduceat(lens, C.STREAM_BASE)])[idx]
+    out = np.packbits(((vals[:, None] >> _FIELD_SHIFTS) & 1)[keep].astype(np.uint8)).tobytes()
     assert len(out) == C.STREAM_HEADERS_BYTES
     return out
 

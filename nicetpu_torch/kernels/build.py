@@ -78,6 +78,30 @@ def _stale() -> bool:
     return os.path.getmtime(LIB) < newest
 
 
+_vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# each entry point's argument types; every one ends in (device, stream)
+SIGNATURES = {
+    "nt_histogram": [_vp, _vp, _i32, _i64, _i32, _vp],
+    "nt_table_join": [_vp, _vp, _vp, _vp, _vp, _i32, _i64, _i32, _vp],
+    "nt_fold_records": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp],
+    "nt_walk": [_vp, _i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32,
+                _i32, _vp],
+    "nt_value_join": [_vp, _vp, _vp, _i32, _i32, _i64, _i32, _vp],
+    "nt_reconstruct_rows": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _i32, _i32, _i32, _i32, _vp],
+    "nt_recon_plan": [_i32, _i32, _vp, _vp],
+    "nt_huffman_tables": [_vp, _i32, _vp, _vp, _vp, _i32, _i32, _vp],
+    "nt_first_change": [_vp, _vp, _i32, _i64, _i64, _i64, _i64, _i64, _i32, _vp],
+    "nt_tokenize_bins": [_vp, _vp, _i32, _vp, _vp, _i64, _i64, _i32, _i64, _i64, _i64, _i64, _i64, _i32, _i32,
+                         _i32, _vp, _i32, _vp],
+    "nt_decode_tables": [_vp, _i32, _vp, _i32, _i32, _i32, _vp],
+    "nt_walk_tables": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _vp],
+    "nt_slot_scan": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i64, _vp, _i32, _i32, _vp],
+    "nt_slot_compact": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i64, _i64,
+                        _vp, _i32, _i32, _vp],
+    "nt_stitch_file": [_vp, _i64, _vp, _i32, _vp, _i32, _vp, _i64, _i32, _vp],
+}
+
+
 def load() -> ctypes.CDLL:
     """The loaded kernel library, built first if missing or stale."""
     global _lib
@@ -87,31 +111,11 @@ def load() -> ctypes.CDLL:
         if _stale():
             build()
         lib = ctypes.CDLL(LIB)
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        signatures = {
-            "nt_histogram": [vp, vp, i32, i64, i32, vp],
-            "nt_table_join": [vp, vp, vp, vp, vp, i32, i64, i32, vp],
-            "nt_fold_records": [vp, vp, vp, vp, i32, i32, i32, i32, vp],
-            "nt_walk": [vp, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                        i32, vp],
-            "nt_value_join": [vp, vp, vp, i32, i32, i64, i32, vp],
-            "nt_reconstruct_rows": [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp],
-            "nt_recon_plan": [i32, i32, vp, vp],
-            "nt_huffman_tables": [vp, i32, vp, vp, vp, i32, i32, vp],
-            "nt_first_change": [vp, vp, i32, i64, i64, i64, i64, i64, i32, vp],
-            "nt_tokenize_bins": [vp, vp, i32, vp, vp, i64, i64, i32, i64, i64, i64, i64, i64, i32, i32,
-                                 i32, i32, vp],
-            "nt_decode_tables": [vp, i32, vp, i32, i32, i32, vp],
-            "nt_walk_tables": [vp, vp, vp, vp, vp, vp, i32, i32, vp],
-            "nt_slot_scan": [vp, vp, vp, vp, i32, i32, i32, i64, i32, i32, vp],
-            "nt_slot_compact": [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i64, i64, i32, i32, vp],
-            "nt_stitch_file": [vp, i64, vp, i32, vp, i32, vp, i64, i32, vp],
-        }
-        for name, argtypes in signatures.items():
+        for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
-            fn.restype = i32
+            fn.restype = ctypes.c_int
             fn.argtypes = argtypes
         lib.nt_error_string.restype = ctypes.c_char_p
-        lib.nt_error_string.argtypes = [i32]
+        lib.nt_error_string.argtypes = [ctypes.c_int]
         _lib = lib
         return lib

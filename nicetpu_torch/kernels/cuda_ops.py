@@ -46,6 +46,7 @@ import torch.nn.functional as F
 
 from nicetpu_torch.format import constants as C
 from nicetpu_torch.convert import MASK32, from_int32_bits, to_int32_bits
+from nicetpu_torch.kernels import geometry
 
 NSYM = C.TOTAL_SYMBOLS  # 858
 FOLD_CAPW = 10  # words per group record (320 bits), as kCapw in the kernel
@@ -362,12 +363,15 @@ def first_change(x_ext: torch.Tensor, *, halo: int, g0: int, n_total: int) -> to
 
 
 def tokenize(x_ext, tail, *, width: int, halo: int, g0: int, n_total: int, ndigits_cap: int,
-             invalid_bin: int):
+             invalid_bin: int, geo=None):
     """The kernel (one counted launch after one memset) on checked CUDA
     inputs, tail None or a 1-D int32 tensor.  Returns (bins (B, n_local * (5
     + ndigits_cap)) int32, overflow (B,) bool).  The overflow flags are the
     first B bytes of the call's scratch, which the kernel's memset zeroes
-    and which also holds the ticket and one word a span."""
+    and which also holds the ticket and one word a span.  geo: None, or a
+    batch's (B, geometry.COLS) int32 table, whose widths and pixel counts
+    replace width and n_total image by image (each image's bins past its
+    pixels are holes)."""
     B, n_ext, n_local, spans = _tokenize_geometry(x_ext, halo)
     S = 5 + ndigits_cap
     bins = torch.empty(B, n_local * S, dtype=torch.int32, device=x_ext.device)
@@ -379,9 +383,14 @@ def tokenize(x_ext, tail, *, width: int, halo: int, g0: int, n_total: int, ndigi
         ctypes.c_int(n_tail), ptr(bins), ptr(scratch), ctypes.c_longlong(scratch.numel()),
         ctypes.c_longlong(ticket_at), ctypes.c_int(B), ctypes.c_longlong(n_ext), ctypes.c_longlong(halo),
         ctypes.c_longlong(n_local), ctypes.c_longlong(g0), ctypes.c_longlong(n_total), ctypes.c_int(width),
-        ctypes.c_int(ndigits_cap), ctypes.c_int(invalid_bin), device=x_ext.device,
+        ctypes.c_int(ndigits_cap), ctypes.c_int(invalid_bin), _geo_ptr(geo), device=x_ext.device,
     )
     return bins, scratch[:B].view(torch.bool)
+
+
+def _geo_ptr(geo) -> ctypes.c_void_p:
+    """A geometry table's device pointer for the kernels, null for none."""
+    return ptr(geo) if geo is not None else ctypes.c_void_p(0)
 
 
 # ---------------------------------------------------------------------------
@@ -485,14 +494,17 @@ SLOT_SUMMARY_INTS = 16  # a chunk's summary in the kernels' scratch, as kSumInts
 SLOT_CARRY_INTS = 4  # a chunk's carry, as kCarryInts
 
 
-def slot_assemble(pos, sym, i12, i34, wbits, *, n_pixels: int):
+def slot_assemble(pos, sym, i12, i34, wbits, *, n_pixels: int | None = None,
+                  geom: geometry.Geometry | None = None):
     """The decode core's slot assembly: the walk's final-round records (B,
     nch, steps) int32 and wbits (B,) int32 -> (sym, i12, i34 (B, K) int32,
     start (B, K) int64, live (B, K) bool, ok_cov (B,) bool): each image's
     real slots (prefixes whose pixel start is below n_pixels) in order, K
     the largest count of any image (at least 1), a hole's symbol, 0, 0 and
-    n_pixels past each count; ok_cov: the coverage reaches n_pixels.  Equal
-    to `decode3.slot_assemble_plain` for any records.
+    n_pixels past each count; ok_cov: the coverage reaches n_pixels.  One
+    of n_pixels (every image's) and geom (the batch's `geometry.Geometry`:
+    each image's own pixel count, read from its table).  Equal to
+    `decode3.slot_assemble_plain` for any records.
 
     On a card (`csrc/slot_assemble_kernels.cu`): one call launches the
     chunk summaries and the per-image scan, counted once in
@@ -510,10 +522,17 @@ def slot_assemble(pos, sym, i12, i34, wbits, *, n_pixels: int):
     if not isinstance(wbits, torch.Tensor) or wbits.dtype != torch.int32 or tuple(wbits.shape) != (B,):
         raise ValueError(f"wbits must be a ({B},) int32 tensor")
     same_device(pos, sym, i12, i34, wbits)
+    if (n_pixels is None) == (geom is None):
+        raise ValueError("slot_assemble takes one of n_pixels and geom")
+    if geom is not None:
+        if geom.batch != B:
+            raise ValueError(f"a geometry of {geom.batch} images for {B} images of records")
+        n_pixels = geom.n_max
     if pos.device.type == "cpu":
         from nicetpu_torch.kernels.decode3 import slot_assemble_plain
 
-        return slot_assemble_plain(pos, sym, i12, i34, wbits, n_pixels)
+        return slot_assemble_plain(pos, sym, i12, i34, wbits,
+                                   n_pixels if geom is None else geom.column(geometry.N).to(torch.int64))
     if pos.device.type != "cuda":
         raise ValueError(f"pos is on unsupported device {pos.device}")
     if B > 65535 or steps >= 2**23 or nch * steps >= 2**31 or n_pixels < 1:
@@ -524,15 +543,16 @@ def slot_assemble(pos, sym, i12, i34, wbits, *, n_pixels: int):
     at = B * nch * (SLOT_SUMMARY_INTS + SLOT_CARRY_INTS)
     scratch = torch.empty(at + B + -(-B // 4), dtype=torch.int32, device=dev)
     N = ctypes.c_longlong(n_pixels)
+    table = _geo_ptr(geom.table if geom is not None else None)
     launch("slot_assemble", "nt_slot_scan", ptr(pos), ptr(sym), ptr(wbits), ptr(scratch), ctypes.c_int(B),
-           ctypes.c_int(nch), ctypes.c_int(steps), N, ctypes.c_int(vec), device=dev)
+           ctypes.c_int(nch), ctypes.c_int(steps), N, table, ctypes.c_int(vec), device=dev)
     K = max(1, max(scratch[at : at + B].tolist()))
     out = [torch.empty(B, K, dtype=torch.int32, device=dev) for _ in range(3)]
     start = torch.empty(B, K, dtype=torch.int64, device=dev)
     live = torch.empty(B, K, dtype=torch.bool, device=dev)
     launch(None, "nt_slot_compact", ptr(pos), ptr(sym), ptr(i12), ptr(i34), ptr(wbits), ptr(scratch),
            *(ptr(t) for t in out), ptr(start), ptr(live), ctypes.c_int(B), ctypes.c_int(nch), ctypes.c_int(steps),
-           N, ctypes.c_longlong(K), ctypes.c_int(vec), device=dev)
+           N, ctypes.c_longlong(K), table, ctypes.c_int(vec), device=dev)
     return (*out, start, live, scratch[at + B :].view(torch.bool)[:B])
 
 

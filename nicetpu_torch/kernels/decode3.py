@@ -59,8 +59,8 @@ from nicetpu_torch.convert import MASK32, from_int32_bits, to_int32_bits
 from nicetpu_torch.format import constants as C
 from nicetpu_torch.format import headers
 from nicetpu_torch.format.huffman import validate_flat_lengths
-from nicetpu_torch.kernels import cuda_ops, recon
-from nicetpu_torch.kernels.decode_dev import F_ADD1, F_CONST, F_HALF, SLOT_STREAM, _const_offsets, _sel
+from nicetpu_torch.kernels import cuda_ops, geometry, recon
+from nicetpu_torch.kernels.decode_dev import F_ADD1, F_CONST, F_HALF, SLOT_STREAM
 from nicetpu_torch.kernels.encode2 import encode_fused_core
 from nicetpu_torch.utils.profiling import span
 
@@ -389,19 +389,7 @@ def _payload_bins(sym, i12, i34):
     return bins
 
 
-def _ref_index_table(width: int):
-    """Static maps: payload symbol -> (lag 1..3 | 0) and (ref-index | 0)."""
-    offs = _const_offsets(width)
-
-    def split(tbl):
-        lag = tuple(o if 1 <= o <= 3 else 0 for o in tbl)
-        refi = tuple(0 if 1 <= o <= 3 else offs.index(o) + 1 for o in tbl)
-        return lag, refi
-
-    return split(C.back_ref_offsets(width)), split(C.luma_ref_offsets(width)), offs
-
-
-def assemble_v3(pos, sym, p1, p2, p3, p4, n_pixels: int, width: int, wbits):
+def assemble_v3(pos, sym, p1, p2, p3, p4, wbits, *, geom):
     """Slot records in serial order (B, S) -> (rec, dst, (ok_cov, ok_ref)).
 
     The decoder state machine of ref code.rs:573-684 in slot space: run
@@ -410,23 +398,25 @@ def assemble_v3(pos, sym, p1, p2, p3, p4, n_pixels: int, width: int, wbits):
     coverage tiles [0, N); ok_ref: every BACK_REF index is < NUM_BACK_REF.
     Coverage sums run in int64 (the JAX int32 sums could wrap on
     adversarial digit chains).  The decode core runs the same steps on the
-    compacted real slots."""
+    compacted real slots.  geom: the batch's `geometry.Geometry` (each
+    image's own N and W)."""
     valid = (pos >= 0) & (pos < wbits[:, None])
-    start, real, ok_cov = _slot_starts(valid, sym, n_pixels)
+    start, real, ok_cov = _slot_starts(valid, sym, geom.column(geometry.N))
     ok_ref = ~(real & (sym == C.PREFIX_BACK_REF) & (p1 >= C.NUM_BACK_REF)).any(dim=1)
     is_pfx = valid & (sym < C.PREFIX_RUN_BASE)
-    rec, dst = slot_records(is_pfx, sym, p1, p2, p3, p4, start, real, n_pixels, width)
+    rec, dst = slot_records(is_pfx, sym, p1, p2, p3, p4, start, real, geom=geom)
     return rec, dst, (ok_cov, ok_ref)
 
 
-def _slot_starts(valid, sym, n_pixels: int):
+def _slot_starts(valid, sym, n_pixels):
     """`assemble_v3`'s run values and pixel starts, for
-    `slot_assemble_plain`: (B, S) valid slots and symbols -> (start (B, S)
-    int64, real (B, S) bool, ok_cov (B,)).  Each temporary is freed once
-    the next step has used it and the sums run in place: at most about 34
-    bytes a slot are live with the walk's sym/i12/i34 (the running maximum
-    of the digit counts)."""
-    N = n_pixels
+    `slot_assemble_plain`: (B, S) valid slots and symbols and the images'
+    pixel counts (an int, or a (B, 1) tensor of each image's) -> (start
+    (B, S) int64, real (B, S) bool, ok_cov (B,)).  Each temporary is freed
+    once the next step has used it and the sums run in place: at most about
+    34 bytes a slot are live with the walk's sym/i12/i34 (the running
+    maximum of the digit counts)."""
+    N = n_pixels if isinstance(n_pixels, int) else n_pixels.to(torch.int64)
     is_pfx = valid & (sym < C.PREFIX_RUN_BASE)
     dig_ok = valid & (sym >= C.PREFIX_RUN_BASE)
     # kk: run digits since the last prefix, minus one (a slot's digit count
@@ -446,17 +436,17 @@ def _slot_starts(valid, sym, n_pixels: int):
     cov.masked_fill_(~dig_ok, 0).add_(is_pfx).clamp_(max=N)  # legit coverage is <= N per slot
     del dig_ok
     start = torch.cumsum(cov, dim=1)
-    ok_cov = start[:, -1] >= N
+    ok_cov = start[:, -1:] >= N
     start.sub_(cov)
     del cov
-    return start, is_pfx.logical_and_(start < N), ok_cov
+    return start, is_pfx.logical_and_(start < N), ok_cov[:, 0]
 
 
-def slot_assemble_plain(pos, sym, i12, i34, wbits, n_pixels: int):
+def slot_assemble_plain(pos, sym, i12, i34, wbits, n_pixels):
     """The plain version of `cuda_ops.slot_assemble`: the walk's records
     (B, nch, steps) and wbits (B,) -> (sym, i12, i34, start, live, ok_cov),
     each image's real slots compacted in order (`_slot_starts`, then
-    `_compact`)."""
+    `_compact`).  n_pixels: an int, or a (B, 1) tensor of each image's."""
     B = pos.shape[0]
     pos, sym, i12, i34 = (r.reshape(B, -1) for r in (pos, sym, i12, i34))
     valid = (pos >= 0) & (pos < wbits.to(torch.int32)[:, None])
@@ -468,7 +458,8 @@ def slot_assemble_plain(pos, sym, i12, i34, wbits, n_pixels: int):
 def _compact(real, arrays, fills):
     """Each image's real slots, in order, from column 0 of a (B, K) array,
     K the largest count of any image: (*arrays compacted, live (B, K)
-    bool); a column past an image's count holds its array's fill value."""
+    bool); a column past an image's count holds its array's fill value (an
+    int, or a (B, 1) tensor of each image's)."""
     B, S = real.shape
     dev = real.device
     counts = real.sum(dim=1)
@@ -481,17 +472,21 @@ def _compact(real, arrays, fills):
         del row
     out = []
     for a, fill in zip(arrays, fills):
-        o = torch.full((B, K), fill, dtype=a.dtype, device=dev)
+        o = torch.empty((B, K), dtype=a.dtype, device=dev)
+        o[...] = fill
         o.view(-1)[to] = a.reshape(-1)[src]
         out.append(o)
     return (*out, torch.arange(K, device=dev)[None] < counts[:, None])
 
 
-def slot_records(is_pfx, sym, p1, p2, p3, p4, start, real, n_pixels: int, width: int):
+def slot_records(is_pfx, sym, p1, p2, p3, p4, start, real, *, geom):
     """Packed placement records from decoded pixel slots (element-wise):
     rec = form(3b) | ref-index(4b) | dr,dg,db (8b each, mod 256); dst = the
-    pixel a real slot starts at, N for every other slot."""
-    N, W = n_pixels, width
+    pixel a real slot starts at, N for every other slot.  Slots (B, K), or
+    one image's (K,); geom: the batch's `geometry.Geometry`, whose N is its
+    largest image's (each image's width and reference maps are its own)."""
+    tbl, N = geom.table, geom.n_max
+    W = geom.column(geometry.W) if sym.dim() == 2 else tbl[0, geometry.W]
     mode = torch.where(is_pfx, sym, 0)
     is_br = mode == C.PREFIX_BACK_REF
     is_rgb = mode == C.PREFIX_RGB
@@ -501,9 +496,12 @@ def slot_records(is_pfx, sym, p1, p2, p3, p4, start, real, n_pixels: int, width:
     row0 = start < W
     pos0 = start == 0
 
-    (br_lag, br_refi), (lu_lag, lu_refi), _ = _ref_index_table(W)
-    lag = torch.where(is_br, _sel(p1, br_lag), torch.where(is_lu, _sel(p1, lu_lag), 0))
-    refi = torch.where(is_br, _sel(p1, br_refi), torch.where(is_lu, _sel(p1, lu_refi), 0))
+    def sel(br, lu):  # the BACK_REF or COLOR_LUMA map of each slot's image
+        return torch.where(is_br, geometry.lookup(p1, tbl, br),
+                           torch.where(is_lu, geometry.lookup(p1, tbl, lu), 0))
+
+    lag = sel(geometry.BR_LAG, geometry.LU_LAG)
+    refi = sel(geometry.BR_REFI, geometry.LU_REFI)
 
     form = torch.full_like(mode, F_ADD1)
     form = torch.where(is_br | is_lu, torch.where(lag > 0, F_CONST + lag, F_CONST), form)
@@ -534,13 +532,14 @@ def slot_records(is_pfx, sym, p1, p2, p3, p4, start, real, n_pixels: int, width:
     return rec.to(torch.int32), dst
 
 
-def place_and_unpack(rec, dst, n_pixels: int, width: int):
+def place_and_unpack(rec, dst, *, geom):
     """Scatter packed records (B, S) to raster positions; unpack to
     (form (B, N), delta (B, 3, N) channel-planar, refoff (B, N)).  Real
     slots have unique destinations in [0, N); every other slot lands in the
     spare column N, and a destination outside [0, N] would be dropped (the
-    mask stands for JAX's mode="drop")."""
-    return _unpack(_place(rec, dst, n_pixels), n_pixels, width)
+    mask stands for JAX's mode="drop").  geom: the batch's
+    `geometry.Geometry` (N its largest image's)."""
+    return _unpack(_place(rec, dst, geom.n_max), geom)
 
 
 def _place(rec, dst, n_pixels: int):
@@ -553,15 +552,16 @@ def _place(rec, dst, n_pixels: int):
     return base
 
 
-def _unpack(base, n_pixels: int, width: int):
-    """The unpacking of `place_and_unpack`, one plane at a time."""
-    N = n_pixels
+def _unpack(base, geom):
+    """The unpacking of `place_and_unpack`, one plane at a time; refoff
+    from each image's own CONST offsets (`geom`, a `geometry.Geometry`)."""
+    N = base.shape[1] - 1
     recN = base[:, :N]
     form = recN & 7
     delta = torch.empty((base.shape[0], 3, N), dtype=torch.int32, device=base.device)
     for c, sh in enumerate((7, 15, 23)):
         delta[:, c] = (recN >> sh) & 255
-    refoff = _sel((recN >> 3) & 15, (0,) + tuple(_const_offsets(width)))
+    refoff = geometry.lookup((recN >> 3) & 15, geom.table, geometry.OFFS)
     return form, delta, refoff
 
 
@@ -612,8 +612,8 @@ def walk_rounds(words, wbits, aff, dD, inc, pfx, *, chunk_bits: int, steps: int,
     return pos, sym, i12, i34, ok_consist, ok_cross
 
 
-def decode_planes_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: int,
-                     width: int, chunk_bits: int, steps: int, rounds: int, marks=None, walk_tables=None):
+def decode_planes_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, geom,
+                     chunk_bits: int, steps: int, rounds: int, marks=None, walk_tables=None):
     """The decode core up to the reconstruction: the walk rounds and their
     gates, the slot assembly, the value join, the records and the
     placement.  Returns (form (B, N), delta (B, 3, N), refoff (B, N),
@@ -623,12 +623,12 @@ def decode_planes_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: i
     pos, sym, i12, i34, ok_consist, ok_cross = walk_rounds(
         words, wbits, aff, dD, inc, pfx, chunk_bits=chunk_bits, steps=steps, rounds=rounds,
         marks=marks)
-    N = n_pixels
+    N = geom.n_max
     with span("decode3.assemble", marks):
         # only the real pixels' slots go on, per image, with a hole's symbol
-        # and the spare column N past each image's count
+        # and the image's N past each image's count
         sym, i12, i34, start, live, ok_cov = cuda_ops.slot_assemble(pos, sym, i12, i34, wbits.to(torch.int32),
-                                                                    n_pixels=N)
+                                                                    geom=geom)
         del pos
     with span("decode3.value_join", marks):
         bins = _payload_bins(sym, i12, i34)
@@ -642,25 +642,28 @@ def decode_planes_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: i
         cols = max(1, RECORD_BLOCK // B)
         for a in range(0, sym.shape[1], cols):  # bounds slot_records' temporaries
             c = (slice(None), slice(a, a + cols))
-            rec[c], dst[c] = slot_records(live[c], sym[c], *(p[c] for p in syms), start[c], live[c], N, width)
+            rec[c], dst[c] = slot_records(live[c], sym[c], *(p[c] for p in syms), start[c], live[c], geom=geom)
         del sym, syms, start, live
         base = _place(rec, dst, N)
         del rec, dst
-        form, delta, refoff = _unpack(base, N, width)
+        form, delta, refoff = _unpack(base, geom)
         del base
     return form, delta, refoff, torch.stack([ok_consist, ok_cross, ok_cov, ok_ref], dim=1)
 
 
-def _decode_core_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: int,
-                    width: int, chunk_bits: int, steps: int, rounds: int, marks=None,
+def _decode_core_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, geom,
+                    chunk_bits: int, steps: int, rounds: int, marks=None,
                     walk_tables=None):
     """Full device decode of a batch: `decode_planes_v3`, then the row
     reconstruction.
 
     words (B, Wn) int32 bit patterns (Wn >= nch * chunk_bits/32 + the
     lookahead, zeros past each payload); wbits (B,) int32; af/present/ib
-    (B, 10, 32); pfx (B, 1, 16); sym_tbl (B, 858).  Returns (out (B, 3, N)
-    uint8 channel-planar, ok (B,), gates (B, 4) bool) with gates =
+    (B, 10, 32); pfx (B, 1, 16); sym_tbl (B, 858); geom the batch's
+    `geometry.Geometry` (each image's own width and pixel count; N is the
+    largest; `Geometry.uniform` for one shape).
+    Returns (out (B, 3, N) uint8 channel-planar, zero past each image's
+    pixels, ok (B,), gates (B, 4) bool) with gates =
     [consistency, crossing, coverage, backref-index].  marks: optional list
     receiving (stage, CUDA event) pairs.  walk_tables: the walk's (aff, dD,
     inc) of af/present/ib where the caller built them with the tables
@@ -673,10 +676,10 @@ def _decode_core_v3(words, wbits, af, present, ib, pfx, sym_tbl, *, n_pixels: in
     RECORD_BLOCK slots) and the placement see only the real pixels' slots,
     and every array is freed once the next step has used it."""
     form, delta, refoff, gates = decode_planes_v3(
-        words, wbits, af, present, ib, pfx, sym_tbl, n_pixels=n_pixels, width=width,
+        words, wbits, af, present, ib, pfx, sym_tbl, geom=geom,
         chunk_bits=chunk_bits, steps=steps, rounds=rounds, marks=marks, walk_tables=walk_tables)
     with span("decode3.recon", marks):
-        out = recon.reconstruct_rows(form, delta, refoff, width=width)
+        out = recon.reconstruct_rows(form, delta, refoff, geom=geom)
     return out.to(torch.uint8), gates.all(dim=1), gates
 
 
@@ -770,15 +773,16 @@ def _equal_planar(out, flat) -> torch.Tensor:
     return (out == flat.transpose(1, 2)).flatten(1).all(dim=1)
 
 
-def verify_words_device(words_dev, totals, lengths, orig_dev, *, n_pixels: int, width: int,
+def verify_words_device(words_dev, totals, lengths, orig_dev, *, geom,
                         skip=None, ladder=LADDER, stats=None):
     """Device-resident round-trip verification: decode straight from the
     encoder's words (B, w_cap) int32 and prove equality with the resident
-    (B, N, 3) uint8 originals, rung by rung.  totals (B,) and lengths
-    (B, 858) are host arrays; skipped images (their fused encode
-    overflowed) are never verified and borrow the first live image's
-    tables.  Returns (B,) bool `verified`; a gate-consistent decode that
-    differs from the original raises."""
+    (B, N, 3) uint8 originals, zero past each image's pixels, rung by rung.
+    totals (B,) and lengths (B, 858) are host arrays; geom as in
+    `_decode_core_v3`; skipped images (their fused encode overflowed) are
+    never verified and borrow the first live image's tables and payload.
+    Returns (B,) bool `verified`; a gate-consistent decode that differs
+    from the original raises."""
     B = int(words_dev.shape[0])
     skip = np.zeros(B, bool) if skip is None else np.asarray(skip, bool)
     if skip.all():
@@ -802,7 +806,7 @@ def verify_words_device(words_dev, totals, lengths, orig_dev, *, n_pixels: int, 
         def call(cfg):
             with span("decode3.rung"):
                 out, ok, _ = _decode_core_v3(
-                    wi, wbits, af, pr, ib, pfx, sym_tbl, n_pixels=n_pixels, width=width,
+                    wi, wbits, af, pr, ib, pfx, sym_tbl, geom=geom,
                     chunk_bits=cfg.chunk_bits, steps=_steps(cfg.chunk_bits, cfg.steps_div),
                     rounds=cfg.rounds, walk_tables=walk_t,
                 )
@@ -825,26 +829,29 @@ ROUNDTRIP_CAP_BPP = 16
 
 
 def roundtrip_cap_words(n_pixels: int) -> int:
+    """The round trip's word capacity for images of n_pixels pixels (a
+    batch's largest image's)."""
     return n_pixels * ROUNDTRIP_CAP_BPP // 32 + 1024
 
 
-def _roundtrip_verify_core(flat, *, width: int, ndigits_cap: int, w_cap: int, cfg: WalkCfg,
+def _roundtrip_verify_core(flat, *, geom, ndigits_cap: int, w_cap: int, cfg: WalkCfg,
                            marks=None):
     """Encode (B, N, 3) uint8 resident images, build the decode tables from
     the encoder's device lengths, decode from the device-resident words and
-    compare with the input, all on the device.
+    compare with the input, all on the device.  geom: the batch's
+    `geometry.Geometry` (images of any shapes, each zero past its own
+    pixels).
 
     Returns (words (B, w_cap) int32 bit patterns, small2 (B, 862) int32) with
     small2 = [lengths(858), total_bits, ovf, verified_ok, eq]."""
-    N = flat.shape[1]
     words, lengths, totals, ovf = encode_fused_core(
-        flat, width=width, ndigits_cap=ndigits_cap, w_cap=w_cap, marks=marks
+        flat, geom=geom, ndigits_cap=ndigits_cap, w_cap=w_cap, marks=marks
     )
     with span("decode3.tables", marks):
         af, pr, ib, pfx, sym_tbl, _, tables_ok, *walk_t = prepare_tables_v3(lengths, walk=True)
     wi = _fit_words(words, _wcap_one((32 * (w_cap - 2)) // 8, cfg))
     out, ok, _ = _decode_core_v3(
-        wi, totals.to(torch.int32), af, pr, ib, pfx, sym_tbl, n_pixels=N, width=width,
+        wi, totals.to(torch.int32), af, pr, ib, pfx, sym_tbl, geom=geom,
         chunk_bits=cfg.chunk_bits, steps=_steps(cfg.chunk_bits, cfg.steps_div),
         rounds=cfg.rounds, marks=marks, walk_tables=walk_t,
     )
@@ -859,7 +866,7 @@ def _roundtrip_verify_core(flat, *, width: int, ndigits_cap: int, w_cap: int, cf
     return words, small2
 
 
-def roundtrip_verify_fused(flat_dev, *, width: int, w_cap: int | None = None, stats=None,
+def roundtrip_verify_fused(flat_dev, *, geom, w_cap: int | None = None, stats=None,
                            marks=None):
     """Device round trip of a (B, N, 3) uint8 resident batch: the fused
     encode + tables + decode + verify on the fast rung, one fetch of the
@@ -867,18 +874,19 @@ def roundtrip_verify_fused(flat_dev, *, width: int, w_cap: int | None = None, st
     cap excepted) retry through `verify_words_device` on the later rungs.
     An image whose payload has MAX_DEVICE_BITS or more is neither verified
     on the device nor retried: the walk covers only the first
-    MAX_DEVICE_BITS.
+    MAX_DEVICE_BITS.  geom: the batch's `geometry.Geometry` (images of any
+    shapes, each zero past its own pixels; `Geometry.uniform` for one
+    shape); the word capacity follows N, the largest image's pixels.
 
     Returns (words_dev (B, w_cap) int32 bit patterns, small (B, 860) int32
     numpy — the `encode_fused` layout — and verified (B,) bool).  stats
     receives "retries" (images retried on a later rung) and "fallbacks"
     (images left unverified, overflowing ones included)."""
-    B, N, _ = (int(x) for x in flat_dev.shape)
     if w_cap is None:
-        w_cap = roundtrip_cap_words(N)
+        w_cap = roundtrip_cap_words(geom.n_max)
     with span("decode3.roundtrip_verify_fused"):
         words, small2_d = _roundtrip_verify_core(
-            flat_dev, width=width, ndigits_cap=3, w_cap=w_cap, cfg=LADDER[0], marks=marks
+            flat_dev, geom=geom, ndigits_cap=3, w_cap=w_cap, cfg=LADDER[0], marks=marks
         )
         with span("decode3.sync"):
             small2 = small2_d.cpu().numpy()
@@ -894,8 +902,8 @@ def roundtrip_verify_fused(flat_dev, *, width: int, w_cap: int | None = None, st
         if retry.any():
             with span("decode3.robust_retry", marks):
                 verified = verified | verify_words_device(
-                    words, small[:, 858], small[:, :858], flat_dev, skip=~retry, n_pixels=N,
-                    width=width, ladder=LADDER[1:],
+                    words, small[:, 858], small[:, :858], flat_dev, skip=~retry,
+                    geom=geom, ladder=LADDER[1:],
                 )
     if stats is not None:
         stats["fallbacks"] = int((~verified).sum())
@@ -1066,15 +1074,16 @@ def decode_batch_v3(datas: list[bytes], *, device, chunk_bits: int | None = None
     sub: dict = {"retries": 0}
     decoded = {}
     if on_dev:
-        batches = [_batch_args([datas[i] for i in g], device=device, ladder=ladder)[:2] for g in groups]
         W, H, _ = headers.parse_file_header(datas[0])
+        batches = [(*_batch_args([datas[i] for i in g], device=device, ladder=ladder)[:2],
+                    geometry.Geometry.uniform(W, H * W, len(g), device)) for g in groups]
 
         def call(cfg):
             with span("decode3.rung"):
                 res = []
-                for args, walk_t in batches:
+                for args, walk_t, geom in batches:
                     out, ok, gates = _decode_core_v3(
-                        *args, n_pixels=H * W, width=W, chunk_bits=cfg.chunk_bits,
+                        *args, geom=geom, chunk_bits=cfg.chunk_bits,
                         steps=_steps(cfg.chunk_bits, cfg.steps_div), rounds=cfg.rounds, walk_tables=walk_t,
                     )
                     with span("decode3.sync"):

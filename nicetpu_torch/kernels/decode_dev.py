@@ -36,14 +36,6 @@ SLOT_STREAM = (
 F_CONST, F_ADD1, F_ADD2, F_ADD3, F_HALF = 0, 1, 2, 3, 4
 
 
-def _sel(key: torch.Tensor, table) -> torch.Tensor:
-    """table[key] for a small static table; keys outside [0, len) select
-    table[0], as the JAX `_sel` chain of selects does."""
-    t = torch.as_tensor(table, dtype=torch.int32, device=key.device)
-    inside = (key >= 0) & (key < len(table))
-    return t[torch.where(inside, key, 0).to(torch.int64)]
-
-
 def _apply_form(f, d, cv, ab, r1, r2, r3):
     """Element-wise transfer application; r1/r2/r3 are chain values at lags
     1..3 (shapes broadcast against f/d/cv/ab).  Any form other than CONST

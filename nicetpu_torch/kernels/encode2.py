@@ -35,7 +35,8 @@ from nicetpu_torch.format.huffman import build_tables_host
 from nicetpu_torch.kernels import cuda_ops
 from nicetpu_torch.kernels.bitpack import words_to_payload
 from nicetpu_torch.kernels.huffman_dev import build_tables_device
-from nicetpu_torch.kernels.tokenize import tokenize_bins
+from nicetpu_torch.kernels.geometry import Geometry
+from nicetpu_torch.kernels.tokenize import tokenize_bins, tokenize_images
 from nicetpu_torch.utils.profiling import mark_stage, span
 
 INVALID_BIN = 1023  # >= 858 means "no token"
@@ -96,11 +97,14 @@ def _fold_place_grouped_batched(aob3, code3, *, w_cap: int, marks=None):
     return to_int32_bits(words & MASK32), totals, overflow
 
 
-def encode_fused_core(imgs_flat, *, width: int, ndigits_cap: int, w_cap: int, marks=None):
+def encode_fused_core(imgs_flat, *, geom: Geometry, ndigits_cap: int, w_cap: int, marks=None):
     """Tokenize + histogram + Huffman tables + join + fold + place.
 
-    imgs_flat: (B, N, 3) uint8.  Returns (words (B, w_cap) int32 bit
-    patterns, lengths (B, 858) int32, totals (B,) int64, ovf (B,) bool).
+    imgs_flat: (B, N, 3) uint8, images of any shapes, each zero past its
+    own pixels; geom: their `geometry.Geometry` (N the largest image's).
+    Each image's bins, tables and payload are its own alone.  Returns
+    (words (B, w_cap) int32 bit patterns, lengths (B, 858) int32, totals
+    (B,) int64, ovf (B,) bool).
     ovf is set for a run over ndigits_cap digits, a code over 31 bits, a
     group record over 320 bits, a payload over w_cap words, or a total of
     2**31 bits or more.
@@ -108,7 +112,7 @@ def encode_fused_core(imgs_flat, *, width: int, ndigits_cap: int, w_cap: int, ma
     stage and appended as (stage name, event).
     """
     with span("encode2.tokenize", marks):
-        bins, run_ovf = _tokenize_core(imgs_flat, width=width, ndigits_cap=ndigits_cap)
+        bins, run_ovf = tokenize_images(imgs_flat, geom=geom, ndigits_cap=ndigits_cap, invalid_bin=INVALID_BIN)
     with span("encode2.histogram", marks):
         counts = cuda_ops.histogram(bins)
     with span("encode2.huffman_build", marks):
@@ -138,8 +142,8 @@ def total_bits_overflow(totals: torch.Tensor) -> torch.Tensor:
     return totals >= 2**31
 
 
-def encode_fused(imgs_flat, *, width: int, ndigits_cap: int, w_cap: int, marks=None):
-    """Whole encode of a (B, N, 3) uint8 batch.
+def encode_fused(imgs_flat, *, geom: Geometry, ndigits_cap: int, w_cap: int, marks=None):
+    """Whole encode of a (B, N, 3) uint8 batch of `geom`'s images.
 
     Returns (words (B, w_cap) int32 bit patterns of the uint32 payload
     words, small (B, 860) int32) where small = per-image [flat code lengths
@@ -148,7 +152,7 @@ def encode_fused(imgs_flat, *, width: int, ndigits_cap: int, w_cap: int, marks=N
     that image on an exact host path.
     """
     words, lengths, totals, ovf = encode_fused_core(
-        imgs_flat, width=width, ndigits_cap=ndigits_cap, w_cap=w_cap, marks=marks
+        imgs_flat, geom=geom, ndigits_cap=ndigits_cap, w_cap=w_cap, marks=marks
     )
     small = torch.cat(
         [lengths, totals.to(torch.int32)[:, None], ovf.to(torch.int32)[:, None]], dim=1

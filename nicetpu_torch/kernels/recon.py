@@ -43,6 +43,7 @@ import torch
 
 from nicetpu_torch.format import constants as C
 from nicetpu_torch.kernels import build, cuda_ops, decode_dev
+from nicetpu_torch.kernels.geometry import Geometry
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,6 +67,15 @@ def chain_plan(width: int, device) -> tuple[int, int]:
     return _plan(width, device.index if device.index is not None else torch.cuda.current_device())
 
 
+def chain_path(width: int, device) -> int:
+    """Which path a chain of this width runs on: the CTAs of `chain_plan`
+    (1 one block, 2..16 a cluster, 0 one block with device-memory
+    scratch); 1 on the CPU.  One launch takes one path."""
+    if torch.device(device).type != "cuda":
+        return 1
+    return chain_plan(width, device)[0]
+
+
 def cluster_ctas(width: int, device) -> int:
     """The CTAs of the thread-block cluster that reconstructs one chain of
     this width on `device`; 0 where a chain runs on one block, and on the
@@ -76,15 +86,23 @@ def cluster_ctas(width: int, device) -> int:
     return ctas if ctas > 1 else 0
 
 
-def reconstruct_rows(form, delta, refoff, *, width: int, prev4=None, stats: dict | None = None):
+def reconstruct_rows(form, delta, refoff, *, width: int | None = None, geom: Geometry | None = None,
+                     prev4=None, stats: dict | None = None):
     """form, refoff (B, N) int32; delta (B, 3, N) int32 channel-planar;
     refoff holds 0 or one of `decode_dev._const_offsets(width)`.  Returns the
     (B, 3, N) int32 chain values.
 
+    One of width (every image's; the kernel takes it without a table) and
+    geom (the batch's `geometry.Geometry`): each image then reconstructs
+    its own pixels at its own width (its chains' rows are N_b / W_b), and
+    its values past N_b are zeros.  Every width of one batch must run on
+    the same path (`chain_plan`).
+
     prev4: optional (B, 3, 4 * width) int32 carry, the four rows before the
     block, oldest first, with values in 0..255 (a row block decoded after
-    the rows above it, as across ranks).  With it the result is (out, tail),
-    tail the last four rows of carry and block: the next block's carry.
+    the rows above it, as across ranks; with width, not geom).  With it the
+    result is (out, tail), tail the last four rows of carry and block: the
+    next block's carry.
 
     stats: a dict whose "recon_chains" gains the (image, channel) chains
     reconstructed, 3 * B, and "recon_cluster_chains" those that ran on a
@@ -97,29 +115,54 @@ def reconstruct_rows(form, delta, refoff, *, width: int, prev4=None, stats: dict
     if refoff.shape != (B, N) or delta.shape != (B, 3, N):
         raise ValueError(f"form {tuple(form.shape)}, delta {tuple(delta.shape)} and "
                          f"refoff {tuple(refoff.shape)} disagree")
-    if width < C.MIN_WIDTH or N % width:
-        raise ValueError(f"width {width} must be >= {C.MIN_WIDTH} and divide N = {N}")
+    if (width is None) == (geom is None):
+        raise ValueError("reconstruct_rows takes one of width and geom")
+    if geom is not None:
+        if geom.batch != B or geom.n_max != N or prev4 is not None:
+            raise ValueError(f"a geometry of {geom.batch} images up to {geom.n_max} pixels for a ({B}, {N}) "
+                             f"batch{' with a carry' if prev4 is not None else ''}")
+        shapes = list(zip(geom.widths, geom.n_pixels))
+        width = geom.width_max
+    else:
+        shapes = [(width, N)] * B
+    if any(w < C.MIN_WIDTH or n % w for w, n in shapes):
+        raise ValueError(f"each width must be >= {C.MIN_WIDTH} and divide its image's N (N = {N})")
     if prev4 is not None:
         cuda_ops.check(prev4, "prev4", 3)
         cuda_ops.same_device(form, prev4)
         if prev4.shape != (B, 3, 4 * width):
             raise ValueError(f"prev4 must be ({B}, 3, {4 * width}), got {tuple(prev4.shape)}")
     if form.device.type == "cpu":
-        ctas, res = 1, decode_dev.reconstruct_rows(form, delta, refoff, N, width, prev4=prev4)
+        ctas, res = 1, _plain(form, delta, refoff, shapes, prev4)
     else:
-        ctas, res = _launch(form, delta, refoff, prev4, B, N, width)
+        ctas, res = _launch(form, delta, refoff, prev4, B, N, width, geom)
     if stats is not None:
         stats["recon_chains"] = stats.get("recon_chains", 0) + 3 * B
         stats["recon_cluster_chains"] = stats.get("recon_cluster_chains", 0) + (3 * B if ctas > 1 else 0)
     return res
 
 
-def _launch(form, delta, refoff, prev4, B: int, N: int, width: int):
-    """The kernel on a CUDA device: (the CTAs a chain ran on, the result)."""
+def _plain(form, delta, refoff, shapes, prev4):
+    """The plain version, image by image where the shapes differ."""
+    B, N = form.shape
+    if len(set(shapes)) == 1 and shapes[0][1] == N:
+        return decode_dev.reconstruct_rows(form, delta, refoff, N, shapes[0][0], prev4=prev4)
+    out = torch.zeros(B, 3, N, dtype=torch.int32)
+    for b, (w, n) in enumerate(shapes):
+        out[b, :, :n] = decode_dev.reconstruct_rows(form[b : b + 1, :n], delta[b : b + 1, :, :n],
+                                                    refoff[b : b + 1, :n], n, w)[0]
+    return out
+
+
+def _launch(form, delta, refoff, prev4, B: int, N: int, width: int, geom):
+    """The kernel on a CUDA device: (the CTAs a chain ran on, the result).
+    width: the batch's widest image's; geom: its Geometry, or None."""
     if 3 * B > 2**31 - 1 or N >= 2**31:
         raise ValueError(f"reconstruct_rows shape ({B}, {N}) out of range")
     out = torch.empty(B, 3, N, dtype=torch.int32, device=form.device)
     ctas, stride = chain_plan(width, form.device)
+    if geom is not None and any(chain_path(w, form.device) != ctas for w in set(geom.widths)):
+        raise ValueError(f"the widths {sorted(set(geom.widths))} run on different reconstruction paths")
     # rows too wide for a cluster's shared memory keep the kernel's buffers
     # in device memory, one stretch per (image, channel)
     scratch = torch.empty(3 * B, stride, dtype=torch.uint8, device=form.device) if stride else None
@@ -128,6 +171,7 @@ def _launch(form, delta, refoff, prev4, B: int, N: int, width: int):
         "reconstruct_rows", "nt_reconstruct_rows", cuda_ops.ptr(form), cuda_ops.ptr(delta),
         cuda_ops.ptr(refoff), cuda_ops.ptr(prev4) if prev4 is not None else null,
         cuda_ops.ptr(out), cuda_ops.ptr(scratch) if scratch is not None else null, ctypes.c_int(ctas),
+        cuda_ops.ptr(geom.table) if geom is not None else null,
         ctypes.c_int(B), ctypes.c_int(N), ctypes.c_int(width), device=form.device,
     )
     if ctas > 1:

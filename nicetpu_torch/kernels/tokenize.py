@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from nicetpu_torch.format import constants as C
 from nicetpu_torch.kernels import cuda_ops
+from nicetpu_torch.kernels.geometry import Geometry
 from nicetpu_torch.kernels.scan import suffix_min
 
 
@@ -281,3 +282,27 @@ def tokenize_bins(x_ext: torch.Tensor, *, width: int, halo: int, g0: int, n_tota
     if x_ext.device.type == "cpu":
         return tokenize_bins_plain(x_ext, tail=tail, **kw)
     return cuda_ops.tokenize(x_ext, tail, **kw)
+
+
+def tokenize_images(x: torch.Tensor, *, geom: Geometry, ndigits_cap: int, invalid_bin: int):
+    """`tokenize_bins` of a batch of whole images of any shapes: x (B, N, 3)
+    uint8, each image zero past its own pixels (`geom`, N its largest
+    image's).  Each image is tokenized as its own raster, as if alone, and
+    its bins past its pixels are holes.  On a CUDA tensor: the kernel with
+    the batch's table, one launch after one memset."""
+    kw = dict(halo=0, g0=0, n_total=geom.n_max, ndigits_cap=ndigits_cap)
+    _check_tokenize(x, width=min(geom.widths), **kw)  # the narrowest image's width checks them all
+    B, n = x.shape[:2]
+    if (geom.batch, geom.n_max) != (B, n):
+        raise ValueError(f"a geometry of {geom.batch} images up to {geom.n_max} pixels for a "
+                         f"{tuple(x.shape)} batch")
+    if x.device.type == "cuda":
+        return cuda_ops.tokenize(x, None, width=min(geom.widths), invalid_bin=invalid_bin, geo=geom.table, **kw)
+    S = 5 + ndigits_cap
+    bins = torch.full((B, n * S), invalid_bin, dtype=torch.int32)
+    overflow = torch.zeros(B, dtype=torch.bool)
+    for b, (w, nb) in enumerate(zip(geom.widths, geom.n_pixels)):
+        kw.update(n_total=nb)
+        one, ovf = tokenize_bins_plain(x[b : b + 1, :nb], width=w, invalid_bin=invalid_bin, **kw)
+        bins[b, : nb * S], overflow[b] = one[0], ovf[0]
+    return bins, overflow

@@ -1,7 +1,9 @@
 """Batched device encode and round trip, and the schedulers over them.
 
-One fused device pass per same-shape batch, one fetch of the small per-image
-array and one of the payload words, then `.nice` byte assembly on the host.
+One fused device pass per batch, one fetch of the small per-image array and
+one of the payload words, then `.nice` byte assembly on the host.  A batch
+of the round trip may hold images of any shapes: one zero-padded (B, N, 3)
+upload, N the largest image's pixels, and the images' `geometry.Geometry`.
 
 Counterpart of `nicetpu.pipeline`:
     upload_batch, encode_batch_fused, encode_batch_resident, encode_one
@@ -46,6 +48,7 @@ from nicetpu_torch.hostref import oracle
 from nicetpu_torch.kernels import decode3
 from nicetpu_torch.kernels.bitpack import words_to_payload
 from nicetpu_torch.kernels.encode2 import encode_fused
+from nicetpu_torch.kernels.geometry import Geometry
 from nicetpu_torch.utils.profiling import mark_stage, span
 
 # Payload capacity: 28 bits/pixel covers photos and mild expansion; noisier
@@ -77,16 +80,15 @@ def encode_batch_fused(
 
 def encode_batch_resident(flat_dev, imgs, *, return_device: bool = False,
                           stats: dict | None = None, marks=None):
-    """Fused encode of a resident (B, N, 3) uint8 batch (`imgs` are the host
-    copies, which the native encoder takes on overflow).
+    """Fused encode of a resident (B, N, 3) uint8 batch (`upload_batch`;
+    `imgs` are the host copies, which the native encoder takes on
+    overflow).
 
     return_device=True returns (datas, words_dev, small): the payload words
     still on the device and the fetched (B, 860) small array, for a caller
     that decodes from the resident words."""
-    H, W, _ = imgs[0].shape
-    if W < C.MIN_WIDTH:
-        raise ValueError(f"width must be >= {C.MIN_WIDTH} (SURVEY A.8.7)")
-    words_d, small_d = encode_fused(flat_dev, width=W, ndigits_cap=3, w_cap=w_cap(H * W), marks=marks)
+    geom = batch_geometry(imgs, flat_dev)
+    words_d, small_d = encode_fused(flat_dev, geom=geom, ndigits_cap=3, w_cap=w_cap(geom.n_max), marks=marks)
     with span("pipeline.fetch+assembly", marks):
         with span("pipeline.sync"):
             small = small_d.cpu().numpy()  # (B, 860): [lengths(858), total_bits, ovf]
@@ -104,8 +106,8 @@ def encode_one(img: np.ndarray, *, device="cuda") -> bytes:
 
 def _assemble_payloads(words_d: torch.Tensor, small: np.ndarray, imgs, stats) -> list[bytes]:
     """`.nice` byte strings from the device words and the fetched small
-    array; overflowing images go to the native encoder (counted)."""
-    H, W, _ = imgs[0].shape
+    array, each with its image's own file header; overflowing images go to
+    the native encoder (counted)."""
     totals = small[:, 858].astype(np.int64)
     ovf = small[:, 859].astype(bool)
     with span("pipeline.assemble_payloads"):
@@ -116,7 +118,6 @@ def _assemble_payloads(words_d: torch.Tensor, small: np.ndarray, imgs, stats) ->
 
         out: list[bytes] = []
         with span("pipeline.bytes"):
-            file_hdr = headers.pack_file_header(W, H, 3)
             for b in range(small.shape[0]):
                 if ovf[b]:
                     if stats is not None:
@@ -124,8 +125,9 @@ def _assemble_payloads(words_d: torch.Tensor, small: np.ndarray, imgs, stats) ->
                     with span("pipeline.host_encode"):
                         out.append(oracle.encode_native(imgs[b]))
                     continue
+                H, W, _ = imgs[b].shape
                 out.append(
-                    file_hdr
+                    headers.pack_file_header(W, H, 3)
                     + headers.pack_stream_headers(small[b, :858].astype(np.uint8))
                     + words_to_payload(words[b], int(totals[b]))
                 )
@@ -133,18 +135,35 @@ def _assemble_payloads(words_d: torch.Tensor, small: np.ndarray, imgs, stats) ->
 
 
 def upload_batch(imgs: Sequence[np.ndarray], device) -> torch.Tensor:
-    """Same-shape (H, W, 3) uint8 images -> one (B, N, 3) tensor on `device`."""
+    """(H, W, 3) uint8 images of any shapes -> one (B, N, 3) tensor on
+    `device`, N the largest image's pixels, zero past each image's own."""
     with span("pipeline.upload_batch"):
-        H, W, _ = imgs[0].shape
-        host = np.stack([np.ascontiguousarray(im).reshape(H * W, 3) for im in imgs])
+        n = [im.shape[0] * im.shape[1] for im in imgs]
+        host = np.empty((len(imgs), max(n), 3), np.uint8)
+        for b, im in enumerate(imgs):
+            host[b, : n[b]] = im.reshape(n[b], 3)
+            host[b, n[b] :] = 0
         return torch.from_numpy(host).to(device)
 
 
+def batch_geometry(imgs: Sequence[np.ndarray], flat_dev: torch.Tensor) -> Geometry:
+    """The images' `Geometry` on the uploaded batch's device; raises on a
+    width below MIN_WIDTH or a batch that does not hold the images."""
+    if any(im.shape[1] < C.MIN_WIDTH for im in imgs):
+        raise ValueError(f"width must be >= {C.MIN_WIDTH} (SURVEY A.8.7)")
+    geom = Geometry.of_shapes([im.shape[:2] for im in imgs], flat_dev.device)
+    if tuple(flat_dev.shape[:2]) != (geom.batch, geom.n_max):
+        raise ValueError(f"a ({geom.batch}, {geom.n_max}, 3) upload holds these images, "
+                         f"got {tuple(flat_dev.shape)}")
+    return geom
+
+
 def roundtrip_batch_resident(flat_dev, imgs, *, stats: dict | None = None, marks=None):
-    """Round trip of a resident (B, N, 3) uint8 batch (`imgs` are the host
-    copies): the fused encode, the decode tables, the decode from the
-    device-resident words and the equality check, on the device
-    (`decode3.roundtrip_verify_fused`), then `.nice` byte assembly.
+    """Round trip of a resident (B, N, 3) uint8 batch (`upload_batch`;
+    `imgs` are the host copies, of any shapes): the fused encode, the
+    decode tables, the decode from the device-resident words and the
+    equality check, on the device (`decode3.roundtrip_verify_fused`, each
+    image at its own geometry), then `.nice` byte assembly.
     marks: optional list receiving (stage, CUDA event) pairs after each
     stage, the last one "fetch+assembly".
 
@@ -156,13 +175,11 @@ def roundtrip_batch_resident(flat_dev, imgs, *, stats: dict | None = None, marks
     "retries", "fallbacks", "overflow_fallbacks" and "overflow_decoded"
     (images the device decoded although their encode had overflowed: the
     fused round trip decodes the whole batch)."""
-    H, W, _ = imgs[0].shape
-    if W < C.MIN_WIDTH:
-        raise ValueError(f"width must be >= {C.MIN_WIDTH} (SURVEY A.8.7)")
     with span("pipeline.roundtrip_batch_resident"):
+        geom = batch_geometry(imgs, flat_dev)
         dstats: dict = {}
         words_d, small, verified = decode3.roundtrip_verify_fused(
-            flat_dev, width=W, stats=dstats, marks=marks
+            flat_dev, geom=geom, stats=dstats, marks=marks
         )
         with span("pipeline.fetch+assembly", marks):
             datas = _assemble_payloads(words_d, small, imgs, stats)

@@ -32,11 +32,13 @@ GATES = ("consistency", "crossing", "coverage", "backref")
 def single_device(dev, img: np.ndarray, data: bytes) -> list[dict]:
     """Each rung's gates, equality and peak memory on one device."""
     from nicetpu_torch.kernels import decode3
+    from nicetpu_torch.kernels.geometry import Geometry
 
     bits = decode3.payload_bits(data)
     if bits >= decode3.MAX_DEVICE_BITS:
         return [{"path": "single device", "payload_bits": bits, "skipped": "past MAX_DEVICE_BITS"}]
     args, (H, W) = decode3.prepare_batch_args([data], device=dev)
+    geom = Geometry.uniform(W, H * W, 1, dev)
     out = []
     for rung, cfg in enumerate(decode3.LADDER):
         res = {"path": "single device", "rung": rung, "cfg": tuple(cfg), "payload_bits": bits}
@@ -44,7 +46,7 @@ def single_device(dev, img: np.ndarray, data: bytes) -> list[dict]:
         t0 = time.perf_counter()
         try:
             planar, ok, gates = decode3._decode_core_v3(
-                *args, n_pixels=H * W, width=W, chunk_bits=cfg.chunk_bits,
+                *args, geom=geom, chunk_bits=cfg.chunk_bits,
                 steps=decode3._steps(cfg.chunk_bits, cfg.steps_div), rounds=cfg.rounds)
             sync(dev)
             res["gates"] = dict(zip(GATES, (bool(g) for g in gates[0])))

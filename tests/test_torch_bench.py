@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from nicetpu_torch import (bench, bench_all, bench_decode_profile, bench_huffman_dev, bench_multihost,
+from nicetpu_torch import (api, bench, bench_all, bench_decode_profile, bench_huffman_dev, bench_multihost,
                            bench_profile, bench_real, bench_trace, pipeline)
 
 BENCH_KEYS = {
@@ -117,8 +117,12 @@ def test_bench_all_config_on_the_cpu(config):
         assert ln["verified"] is True and ln["fallbacks"] == 0 and ln.get("overflow_fallbacks", 0) == 0
         assert ln["degraded"] is False
         assert ln["value"] > 0 and ln["unit"] == "MB/s" and ln["reps"] == 1
-    if config in (2, 4):
+    if config == 2:
         assert all("real photo patches" in ln["config"] for ln in lines)
+    if config == 4:  # texture cuts, the device line one api.roundtrip_batch of every shape
+        assert all("photo texture patches" in ln["config"] for ln in lines)
+        n = CONFIG_ARGS[4]["n"]
+        assert lines[1]["device_batches"] == -(-n // api.MAX_BATCH)
     if config == 3:
         assert all("peak_device_gib" in ln for ln in lines[:3])
         assert lines[1]["verified_on_device"] is True

@@ -20,6 +20,7 @@ from nicetpu_torch.hostref import oracle
 from nicetpu_torch.bench import make_image
 from nicetpu_torch.kernels import cuda_ops, decode3, decode_dev, encode2, huffman_dev, recon
 from nicetpu_torch.kernels import tokenize as tok
+from nicetpu_torch.kernels.geometry import Geometry
 
 from _decode_table_rows import INT64_ONLY, LENGTH_ROWS, WALK_ROWS
 from _recon_rows import random_inputs as recon_random_inputs, seam_inputs as recon_seam_inputs
@@ -384,7 +385,7 @@ def test_decode_tables_read_nothing_back(dev):
     """encode_fused_core -> prepare_tables_v3(walk=True) under
     set_sync_debug_mode("error"): one launch, no host sync."""
     flat = _flat([make_image(64, 64, s) for s in range(3)]).to(dev)
-    kw = dict(width=64, ndigits_cap=3, w_cap=pipeline.w_cap(64 * 64))
+    kw = dict(geom=Geometry.uniform(64, 64 * 64, 3, dev), ndigits_cap=3, w_cap=pipeline.w_cap(64 * 64))
 
     def run():
         lengths = encode2.encode_fused_core(flat, **kw)[1]

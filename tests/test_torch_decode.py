@@ -25,6 +25,7 @@ from nicetpu.kernels.pallas_ops import value_join_pallas
 from nicetpu_torch.kernels import cuda_ops, recon
 from nicetpu_torch.kernels import decode3 as td3
 from nicetpu_torch.kernels import decode_dev as tdd
+from nicetpu_torch.kernels.geometry import Geometry
 
 from test_torch_huffman_dev import _deep
 
@@ -260,13 +261,14 @@ def test_assemble_and_place_match_jax():
         _eq(g, w)
     p = cuda_ops.value_join(bins, sym_tbl)
     jp = [jnp.asarray(x.numpy()) for x in p]
-    rec, dst, (ok_cov, ok_ref) = td3.assemble_v3(pos, sym, *p, N, W, wbits)
+    geom = Geometry.uniform(W, N, 1, "cpu")
+    rec, dst, (ok_cov, ok_ref) = td3.assemble_v3(pos, sym, *p, wbits, geom=geom)
     jrec, jdst, (jcov, jref) = jd3.assemble_v3(jnp.asarray(pos.numpy()), jnp.asarray(sym.numpy()),
                                                *jp, N, W, jnp.asarray(wbits.numpy()))
     for g, w in ((rec, jrec), (dst, jdst), (ok_cov, jcov), (ok_ref, jref)):
         _eq(g, w)
     assert ok_cov.all() and ok_ref.all()
-    got = td3.place_and_unpack(rec, dst, N, W)
+    got = td3.place_and_unpack(rec, dst, geom=geom)
     want = jd3.place_and_unpack(jrec, jdst, N, W)
     for g, w in zip(got, want):
         _eq(g, w)
@@ -308,8 +310,9 @@ def test_reconstruct_serial_agrees_on_a_valid_stream():
     img = _image(6, 10, seed=4)
     (pos, sym, i12, i34), wbits, sym_tbl = _placed_records(img)
     p = cuda_ops.value_join(td3._payload_bins(sym, i12, i34), sym_tbl)
-    rec, dst, _ = td3.assemble_v3(pos, sym, *p, 60, 10, wbits)
-    form, delta, refoff = td3.place_and_unpack(rec, dst, 60, 10)
+    geom = Geometry.uniform(10, 60, 1, "cpu")
+    rec, dst, _ = td3.assemble_v3(pos, sym, *p, wbits, geom=geom)
+    form, delta, refoff = td3.place_and_unpack(rec, dst, geom=geom)
     rows = tdd.reconstruct_rows(form, delta, refoff, 60, 10)
     serial = tdd.reconstruct_serial(form[0], delta[0], refoff[0], 60, 10)
     assert torch.equal(rows[0], serial)

@@ -13,6 +13,7 @@ import torch
 
 from nicetpu.kernels import decode3 as jd3
 from nicetpu_torch.kernels import decode3 as td3
+from nicetpu_torch.kernels.geometry import Geometry
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
@@ -25,9 +26,10 @@ def _both(datas, *, chunk_bits=2048, steps_div=8, rounds=2):
     args, kw = jd3.prepare_batch_args(datas, chunk_bits=chunk_bits, steps_div=steps_div,
                                       rounds=rounds)
     want = jd3._device_decode_v3(*args, **kw)
+    geom = Geometry.uniform(kw["width"], kw["n_pixels"], len(datas), "cpu")
     got = td3._decode_core_v3(
-        *(torch.from_numpy(np.array(a)) for a in args), n_pixels=kw["n_pixels"],
-        width=kw["width"], chunk_bits=kw["chunk_bits"], steps=kw["steps"], rounds=kw["rounds"],
+        *(torch.from_numpy(np.array(a)) for a in args), geom=geom,
+        chunk_bits=kw["chunk_bits"], steps=kw["steps"], rounds=kw["rounds"],
     )
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
@@ -56,7 +58,7 @@ def test_decode_core_with_the_walk_tables_given(name):
     want = _both(data)  # the port's core without walk_tables, held to JAX's
     args, walk, (h, w) = td3._batch_args([data], device=torch.device("cpu"), ladder=(td3.WalkCfg(2048, 32, 8, 2),))
     assert all(torch.equal(g, x) for g, x in zip(walk, td3.derive_walk_tables_plain(*args[2:5])))
-    got = td3._decode_core_v3(*args, n_pixels=h * w, width=w, chunk_bits=2048, steps=td3._steps(2048, 8),
+    got = td3._decode_core_v3(*args, geom=Geometry.uniform(w, h * w, 1, "cpu"), chunk_bits=2048, steps=td3._steps(2048, 8),
                               rounds=2, walk_tables=walk)
     for g, x in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), x)

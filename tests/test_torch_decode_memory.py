@@ -13,6 +13,7 @@ from nicetpu.format import constants as C
 from nicetpu.hostref import oracle as joracle
 from nicetpu_torch.kernels import cuda_ops
 from nicetpu_torch.kernels import decode3 as td3
+from nicetpu_torch.kernels.geometry import Geometry
 
 from test_torch_decode_core import _both
 
@@ -153,6 +154,6 @@ def test_the_round_trip_builds_the_walk_tables_with_the_tables(monkeypatch):
     built = _spy_tables(monkeypatch)
     stats: dict = {}
     flat = torch.from_numpy(np.stack(IMGS).reshape(len(IMGS), H * W, 3))
-    _, _, verified = td3.roundtrip_verify_fused(flat, width=W, stats=stats)
+    _, _, verified = td3.roundtrip_verify_fused(flat, geom=Geometry.uniform(W, H * W, len(IMGS), "cpu"), stats=stats)
     assert stats["retries"] >= 1 and verified[0]
     assert built == [(4, True), (4, True)]

@@ -19,6 +19,7 @@ import nicetpu_torch
 from nicetpu_torch import convert, pipeline
 from nicetpu_torch.kernels import cuda_ops
 from nicetpu_torch.kernels import encode2 as tenc
+from nicetpu_torch.kernels.geometry import Geometry
 
 H, W = 12, 16
 
@@ -50,7 +51,8 @@ def test_encode_fused_matches_jax():
     flat = imgs.reshape(B, H * W, 3)
     w_cap = _w_cap(H * W)
     jw, js = jenc.encode_fused(jnp.asarray(flat), width=W, ndigits_cap=3, w_cap=w_cap)
-    tw, ts = tenc.encode_fused(torch.from_numpy(flat), width=W, ndigits_cap=3, w_cap=w_cap)
+    tw, ts = tenc.encode_fused(torch.from_numpy(flat), geom=Geometry.uniform(W, H * W, B, "cpu"), ndigits_cap=3,
+                               w_cap=w_cap)
     assert ts.shape == (B, 860)
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     np.testing.assert_array_equal(convert.words_to_numpy(tw), np.asarray(jw))
@@ -121,7 +123,7 @@ def test_small_w_cap_sets_the_flag_and_falls_back(monkeypatch):
     noisy = np.random.default_rng(10).integers(0, 256, (H, W, 3)).astype(np.uint8)
     small_cap = 16  # 448 payload bits: room for the flat image only
     batch = torch.from_numpy(np.stack([flat_img, noisy]).reshape(2, H * W, 3))
-    _, small = tenc.encode_fused(batch, width=W, ndigits_cap=3, w_cap=small_cap)
+    _, small = tenc.encode_fused(batch, geom=Geometry.uniform(W, H * W, 2, "cpu"), ndigits_cap=3, w_cap=small_cap)
     assert small[:, 859].tolist() == [0, 1]
     monkeypatch.setattr(pipeline, "w_cap", lambda n: small_cap)
     stats = {}

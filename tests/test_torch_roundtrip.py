@@ -17,6 +17,7 @@ from nicetpu.kernels import decode3 as jd3
 import nicetpu_torch
 from nicetpu_torch import convert, realcorpus
 from nicetpu_torch.kernels import decode3 as td3
+from nicetpu_torch.kernels.geometry import Geometry
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 GOLDEN = ["random8x6", "gradient16x12", "flat9x7", "mixed20x14"]
@@ -42,6 +43,7 @@ def _batch():
 IMGS = _batch()
 FLAT = np.stack([im.reshape(H * W, 3) for im in IMGS[:3]])
 W_CAP = H * W * 17 // 32 + 64  # the noise image's payload does not fit
+GEOM = Geometry.uniform(W, H * W, len(FLAT), "cpu")  # the batch's three images
 
 
 def test_fused_core_matches_jax():
@@ -50,7 +52,7 @@ def test_fused_core_matches_jax():
         jnp.asarray(FLAT), width=W, ndigits_cap=3, w_cap=w_cap, cfg=jd3.LADDER[0],
         maxl=jd3.FUSED_MAXL, segs=jd3._segs_for(W),
     )
-    tw, ts = td3._roundtrip_verify_core(torch.from_numpy(FLAT), width=W, ndigits_cap=3,
+    tw, ts = td3._roundtrip_verify_core(torch.from_numpy(FLAT), geom=GEOM, ndigits_cap=3,
                                         w_cap=w_cap, cfg=td3.LADDER[0])
     np.testing.assert_array_equal(convert.words_to_numpy(tw), np.asarray(jw))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
@@ -64,7 +66,7 @@ def test_roundtrip_verify_fused_matches_jax():
     jstats, tstats = {}, {}
     jw, jsmall, jver = jd3.roundtrip_verify_fused(jnp.asarray(FLAT), width=W, w_cap=W_CAP,
                                                   stats=jstats)
-    tw, tsmall, tver = td3.roundtrip_verify_fused(torch.from_numpy(FLAT), width=W, w_cap=W_CAP,
+    tw, tsmall, tver = td3.roundtrip_verify_fused(torch.from_numpy(FLAT), geom=GEOM, w_cap=W_CAP,
                                                   stats=tstats)
     np.testing.assert_array_equal(convert.words_to_numpy(tw), np.asarray(jw))
     np.testing.assert_array_equal(tsmall, np.asarray(jsmall))
@@ -82,7 +84,7 @@ def test_real_crops_round_trip_alike():
     flat = np.stack([corpus[n][64 : 64 + H, :W].reshape(H * W, 3) for n in ("soccer0", "marble", "camera_hsv")])
     jstats, tstats = {}, {}
     jw, jsmall, jver = jd3.roundtrip_verify_fused(jnp.asarray(flat), width=W, w_cap=W_CAP, stats=jstats)
-    tw, tsmall, tver = td3.roundtrip_verify_fused(torch.from_numpy(flat), width=W, w_cap=W_CAP, stats=tstats)
+    tw, tsmall, tver = td3.roundtrip_verify_fused(torch.from_numpy(flat), geom=GEOM, w_cap=W_CAP, stats=tstats)
     np.testing.assert_array_equal(convert.words_to_numpy(tw), np.asarray(jw))
     np.testing.assert_array_equal(tsmall, np.asarray(jsmall))
     np.testing.assert_array_equal(tver, jver)
@@ -102,8 +104,10 @@ def test_roundtrip_batch_entry_point_on_the_cpu():
     datas, verified = nicetpu_torch.roundtrip_batch(imgs, device="cpu", stats=stats)
     assert datas == [joracle.encode_native(im) for im in imgs]
     assert verified.tolist() == [True, True, True, False, False]
+    # one device batch of the five same-shape images, no padding
     assert stats == {"device": "cpu", "retries": 2, "fallbacks": 1, "overflow_fallbacks": 1,
-                     "overflow_decoded": 1}
+                     "overflow_decoded": 1, "device_batches": 1, "image_pixels": 5 * H * W,
+                     "batch_pixels": 5 * H * W}
 
 
 def _golden():

@@ -21,6 +21,7 @@ from torch.profiler import ProfilerActivity, profile
 from nicetpu_torch import api, pipeline
 from nicetpu_torch.hostref import oracle
 from nicetpu_torch.kernels import decode3, encode2
+from nicetpu_torch.kernels.geometry import Geometry
 from nicetpu_torch.utils import profiling
 
 CPU = torch.device("cpu")
@@ -110,7 +111,7 @@ def test_marks_keep_their_names_and_order(events, on):
         got["roundtrip"] = []
         pipeline.roundtrip_batch_resident(pipeline.upload_batch(imgs, CPU), imgs, marks=got["roundtrip"])
         got["core"] = []
-        decode3._decode_core_v3(*args, n_pixels=H * W, width=W, chunk_bits=cfg.chunk_bits,
+        decode3._decode_core_v3(*args, geom=Geometry.uniform(W, H * W, len(imgs), CPU), chunk_bits=cfg.chunk_bits,
                                 steps=decode3._steps(cfg.chunk_bits, cfg.steps_div), rounds=cfg.rounds,
                                 marks=got["core"])
     assert _names(got["encode"]) == ENCODE_MARKS
@@ -247,10 +248,11 @@ def test_equal_planar_sees_every_rung_that_verifies(monkeypatch):
     monkeypatch.setattr(decode3, "_equal_planar", wrapper)
     imgs = _smooth(3)
     flat = pipeline.upload_batch(imgs, CPU)
-    words, small, _ = decode3.roundtrip_verify_fused(flat, width=W)
+    geom = Geometry.uniform(W, H * W, 3, CPU)
+    words, small, _ = decode3.roundtrip_verify_fused(flat, geom=geom)
     assert seen == [(3, 3, H * W)]
     seen.clear()
     short = decode3.WalkCfg(2048, 32, 64, 1)  # 32 steps: no chunk crosses its end
-    verified = decode3.verify_words_device(words, small[:, 858], small[:, :858], flat, n_pixels=H * W,
-                                           width=W, ladder=(short, decode3.LADDER[0]))
+    verified = decode3.verify_words_device(words, small[:, 858], small[:, :858], flat, geom=geom,
+                                           ladder=(short, decode3.LADDER[0]))
     assert seen == [(3, 3, H * W)] * 2 and verified.all()
